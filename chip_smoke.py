@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (the script exits non-zero and prints no
+result line):
+
+1. Environment: torch / CUDA / Triton versions and the card's name and power
+   limit (``nvidia-smi``). No CUDA device, or no ``src/repro_torch`` beside
+   this script, fails here.
+2. Kernel vs plain: each of the four Triton kernels (``ensemble_kl`` and
+   ``ghm_ce``, forward and backward) is built from the checkout's sources
+   and held against its plain PyTorch version on the card, in every mode,
+   at the main path's shapes (K=5, B=128, V=10, f32) and at a wide tail case
+   (K=5, B=37, V=32003, f32 and bf16). Tolerance, elementwise:
+   ``|got − want| ≤ tol·(|want| + max(1, max|want|))`` with tol = 1e-4 for
+   f32 outputs and 2^-7 (one bf16 rounding step) for outputs stored in bf16.
+   Times: CUDA events around back-to-back calls of the wrapper.
+3. Small-input agreement: at a small size, the gradients of the generator
+   loss, the distillation loss and the EE loss through the kernels (backend
+   "cuda") agree with plain autograd (backend "ref") at the tolerance above;
+   one epoch per backend runs to finite losses, and its parameter gaps are
+   printed.
+4. Main path: ``repro_torch.launch.ofl`` at the paper's image width (5×cnn5
+   clients, cnn5 server, 32×32×3, 10 classes, synthetic batch 128,
+   gen_iters 30) for a few epochs, with the launch counters reset just
+   before and read just after; every kernel must have launched, the losses
+   must be finite and ``server_acc`` / ``ensemble_acc`` present.
+5. Summary: a ``kernels: {...}`` line, the JSON kernel table, and last the
+   ``{"ok": true, "device": {...}}`` line.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+
+MAIN = dict(k=5, b=128, v=10)
+WIDE = dict(k=5, b=37, v=32003)
+REPLACES = {
+    "ensemble_kl_fwd": "src/repro/kernels/ensemble_kl/kernel.py:217",
+    "ensemble_kl_bwd": "src/repro/kernels/ensemble_kl/kernel.py:144",
+    "ghm_ce_fwd": "src/repro/kernels/ghm_ce/kernel.py:211",
+    "ghm_ce_bwd": "src/repro/kernels/ghm_ce/kernel.py:143",
+}
+SOURCES = {
+    "ensemble_kl_fwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
+    "ensemble_kl_bwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
+    "ghm_ce_fwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
+    "ghm_ce_bwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+
+
+def environment():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA device")
+    if not (SRC / "repro_torch").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.build import triton_modules
+
+    triton, _ = triton_modules()  # points Triton's cache at build/ in the checkout first
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} triton {triton.__version__}")
+    print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
+    from repro_torch.utils.device import disable_tf32
+
+    disable_tf32()
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+
+
+def _case(k, b, v, dtype, seed, device):
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cl = (torch.randn((k, b, v), generator=g) * 2).to(dtype)
+    st = (torch.randn((b, v), generator=g) * 2).to(dtype)
+    w = torch.softmax(torch.randn((k,), generator=g), 0)
+    labels = torch.randint(0, v, (b,), generator=g)
+    ct = torch.randn((b,), generator=g)
+    return [t.to(device) for t in (cl, st, w, labels, ct)]
+
+
+def _err(name, got, want):
+    """Largest abs error; fails past the stated tolerance."""
+    import torch
+
+    tol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-4
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{name}: kernel output not finite")
+    diff = (got - want).abs()
+    bound = tol * (want.abs() + max(1.0, float(want.abs().max())))
+    if not bool((diff <= bound).all()):
+        fail(f"{name}: max abs err {float(diff.max()):.3e} beyond tolerance {tol:g}")
+    return float(diff.max())
+
+
+def _time_ms(fn, iters=200, warmup=20):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _work(name, k, b, v, itemsize):
+    """Bytes each kernel must move (each input read once, each output
+    written once) and f32 operations it does: per (b, v) element a K-step
+    fma combine (2K) plus ~10 ops of scaling, exponentials and sums in the
+    forward; the backward rebuilds the combine, forms the cotangents (K
+    multiplies for g_client, 2K for the g_w dot products) plus ~12 ops."""
+    n = b * v
+    if name == "ensemble_kl_fwd":
+        return (k * n + n) * itemsize + 4 * k + 3 * 4 * b, n * (2 * k + 10)
+    if name == "ensemble_kl_bwd":
+        return (2 * (k * n + n)) * itemsize + 4 * k + 4 * 4 * b + 4 * k, n * (5 * k + 12)
+    if name == "ghm_ce_fwd":
+        return k * n * itemsize + 4 * k + 8 * b + 3 * 4 * b, n * (2 * k + 6)
+    return 2 * k * n * itemsize + 4 * k + 8 * b + 3 * 4 * b + 4 * k, n * (5 * k + 8)
+
+
+def kernels_vs_plain():
+    import torch
+
+    from repro_torch.kernels.ensemble_kl.kernel import ensemble_kl_bwd, ensemble_kl_fwd
+    from repro_torch.kernels.ensemble_kl.ref import ensemble_kl_bwd_ref, ensemble_kl_fwd_ref
+    from repro_torch.kernels.ghm_ce.kernel import ghm_ce_bwd, ghm_ce_fwd
+    from repro_torch.kernels.ghm_ce.ref import ghm_ce_bwd_ref, ghm_ce_fwd_ref
+
+    dev = torch.device("cuda")
+    errs = {n: 0.0 for n in REPLACES}
+    timing = {}
+    shapes = [(MAIN, torch.float32), (WIDE, torch.float32), (WIDE, torch.bfloat16)]
+    for si, (shape, dtype) in enumerate(shapes):
+        k, b, v = shape["k"], shape["b"], shape["v"]
+        cl, st, w, labels, ct = _case(k, b, v, dtype, seed=si, device=dev)
+        tag = f"K={k} B={b} V={v} {str(dtype).replace('torch.', '')}"
+        for temp in (1.0, 4.0):
+            got = ensemble_kl_fwd(cl, st, w, temp)
+            want = ensemble_kl_fwd_ref(cl, st, w, temp)
+            for name_o, a, r in zip(("out", "lse_t", "lse_s"), got, want):
+                e = _err(f"ensemble_kl_fwd {tag} T={temp} {name_o}", a, r)
+                errs["ensemble_kl_fwd"] = max(errs["ensemble_kl_fwd"], e)
+            out, lse_t, lse_s = want
+            got = ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, temp)
+            want = ensemble_kl_bwd_ref(cl, st, w, ct, out, lse_t, lse_s, temp)
+            for name_o, a, r in zip(("g_client", "g_student", "g_w"), got, want):
+                e = _err(f"ensemble_kl_bwd {tag} T={temp} {name_o}", a, r)
+                errs["ensemble_kl_bwd"] = max(errs["ensemble_kl_bwd"], e)
+        for weighted in (True, False):
+            got = ghm_ce_fwd(cl, labels, w, weighted)
+            want = ghm_ce_fwd_ref(cl, labels, w, weighted)
+            for name_o, a, r in zip(("out", "lse", "ly"), got, want):
+                e = _err(f"ghm_ce_fwd {tag} weighted={weighted} {name_o}", a, r)
+                errs["ghm_ce_fwd"] = max(errs["ghm_ce_fwd"], e)
+            _, lse, ly = want
+            for stop in ((True, False) if weighted else (False,)):
+                got = ghm_ce_bwd(cl, labels, w, ct, lse, ly, weighted, stop)
+                want = ghm_ce_bwd_ref(cl, labels, w, ct, lse, ly, weighted, stop)
+                for name_o, a, r in zip(("g_client", "g_w"), got, want):
+                    e = _err(f"ghm_ce_bwd {tag} weighted={weighted} stop={stop} {name_o}", a, r)
+                    errs["ghm_ce_bwd"] = max(errs["ghm_ce_bwd"], e)
+        torch.cuda.synchronize()
+        print(f"kernels agree with plain versions at {tag}", flush=True)
+
+        # times: ensemble_kl at T=4 (distillation), ghm_ce weighted with the
+        # difficulty held constant (the generator loss)
+        out, lse_t, lse_s = ensemble_kl_fwd_ref(cl, st, w, 4.0)
+        _, lse, ly = ghm_ce_fwd_ref(cl, labels, w, True)
+        calls = {
+            "ensemble_kl_fwd": (lambda: ensemble_kl_fwd(cl, st, w, 4.0), lambda: ensemble_kl_fwd_ref(cl, st, w, 4.0)),
+            "ensemble_kl_bwd": (
+                lambda: ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0),
+                lambda: ensemble_kl_bwd_ref(cl, st, w, ct, out, lse_t, lse_s, 4.0),
+            ),
+            "ghm_ce_fwd": (lambda: ghm_ce_fwd(cl, labels, w, True), lambda: ghm_ce_fwd_ref(cl, labels, w, True)),
+            "ghm_ce_bwd": (
+                lambda: ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, True),
+                lambda: ghm_ce_bwd_ref(cl, labels, w, ct, lse, ly, True, True),
+            ),
+        }
+        for name, (kern, plain) in calls.items():
+            nbytes, flops = _work(name, k, b, v, cl.element_size())
+            bound, bound_by = _bound_ms(nbytes, flops)
+            timing[(name, tag)] = {
+                "ms": _time_ms(kern), "plain_ms": _time_ms(plain),
+                "bound_ms": bound, "bound_by": bound_by,
+            }
+    for (name, tag), t in timing.items():
+        print(f"time {name} {tag}: " + json.dumps(t), flush=True)
+    main_tag = f"K={MAIN['k']} B={MAIN['b']} V={MAIN['v']} float32"
+    return errs, {n: timing[(n, main_tag)] for n in REPLACES}
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+
+
+def small_input_agreement():
+    """At a small input, every gradient an Algorithm-1 step takes through
+    the kernels (backend "cuda") agrees with plain autograd of the plain ops
+    (backend "ref"): the generator's (Eq. 8, through the clients, the server
+    and both loss kernels), the server's (Eq. 4 on a DHS batch) and the
+    ensembling weights' (Eq. 12). Then one whole epoch per backend, whose
+    parameter gaps are printed: Adam's first steps and the EE sign step act
+    on the signs of gradient components, so rounding-level differences can
+    move a parameter by a whole step there, and the epoch is held only to
+    finite losses."""
+    import dataclasses
+    from functools import partial
+
+    import torch
+
+    from repro_torch.config.train import OFLConfig
+    from repro_torch.core.buffer import buffer_init
+    from repro_torch.core.ensemble import make_logits_all
+    from repro_torch.core.epoch import distill_schedule, make_coboost_epoch, make_kd_loss
+    from repro_torch.core.hard_samples import diversify
+    from repro_torch.core.hardness import generator_loss
+    from repro_torch.core.weight_search import weight_grad
+    from repro_torch.models.cnn import cnn_apply, init_cnn
+    from repro_torch.models.generator import image_generator, init_image_generator
+    from repro_torch.utils.prng import Draws
+    from repro_torch.utils.trees import flatten_dict, value_and_grad
+
+    dev = torch.device("cuda")
+    classes, shape, k, batch, latent = 4, (16, 16, 3), 3, 16, 8
+    g = torch.Generator(device=dev).manual_seed(0)
+    clients = [init_cnn(g, "cnn5", classes, shape) for _ in range(k)]
+    server = init_cnn(g, "cnn5", classes, shape)
+    gen0 = init_image_generator(g, latent, classes, shape)
+    w = torch.softmax(torch.randn((k,), generator=g, device=dev), 0)
+    logits_all = make_logits_all([partial(cnn_apply, "cnn5")] * k)
+    server_apply = partial(cnn_apply, "cnn5")
+    gen_apply = lambda p, z, y: image_generator(p, z, y, shape)
+    draws = Draws(1, dev)
+    z, y = draws.zy(batch, latent, classes)
+    with torch.no_grad():
+        x = gen_apply(gen0, z, y)
+    xd = diversify(logits_all, clients, w, x, draws.direction((batch, classes)), 8.0 / 255.0)
+    with torch.no_grad():
+        la = logits_all(clients, xd)
+
+    def gen_loss(gp, backend):
+        xg = gen_apply(gp, z, y)
+        return generator_loss(logits_all(clients, xg), w, server_apply(server, xg), y, backend=backend)
+
+    got = {}
+    for backend in ("cuda", "ref"):
+        lg, g_gen = value_and_grad(gen_loss, gen0, backend)
+        lk, g_srv = value_and_grad(make_kd_loss(logits_all, server_apply, 4.0, backend), server, xd, clients, w)
+        got[backend] = {"gen_loss": lg, "kd_loss": lk, "g_w": weight_grad(w, la, y, backend)}
+        got[backend].update({f"g_gen {p}": v for p, v in flatten_dict(g_gen).items()})
+        got[backend].update({f"g_srv {p}": v for p, v in flatten_dict(g_srv).items()})
+    worst = max(_err(f"small input {name}", got["cuda"][name], want) for name, want in got["ref"].items())
+    print(f"small input: kernel gradients vs plain autograd, largest abs err {worst:.3e}", flush=True)
+
+    cfg = OFLConfig(num_clients=k, gen_iters=3, batch_size=batch, latent_dim=latent, buffer_batches=2)
+    runs = []
+    for backend in ("cuda", "ref", "ref"):
+        c = dataclasses.replace(cfg, backend=backend)
+        step, gen_opt, srv_opt = make_coboost_epoch(logits_all, server_apply, gen_apply, c, k, classes)
+        buf = buffer_init(c.buffer_batches, (batch, *shape), device=dev)
+        order, n_valid = distill_schedule(0, c.buffer_batches)
+        sp, _, gp, _, w1, buf, _, gloss, dmean = step(
+            server, srv_opt.init(server), gen0, gen_opt.init(gen0), torch.full((k,), 1.0 / k, device=dev),
+            buf, Draws(2, dev), 0, order, n_valid, clients,
+        )
+        if not (math.isfinite(float(gloss)) and math.isfinite(float(dmean))):
+            fail(f"small epoch ({backend}): non-finite loss")
+        runs.append((flatten_dict(sp), flatten_dict(gp), w1, buf.x[0].clone()))
+
+    def gaps(a, b):
+        diff = lambda d1, d2: max(float((d1[p] - d2[p]).abs().max()) for p in d2 if torch.is_tensor(d2[p]))
+        return {
+            "server": diff(a[0], b[0]), "generator": diff(a[1], b[1]),
+            "w": float((a[2] - b[2]).abs().max()), "buffer": float((a[3] - b[3]).abs().max()),
+        }
+
+    print("small epoch gaps, cuda vs ref: " + json.dumps(gaps(runs[0], runs[1])), flush=True)
+    print("small epoch gaps, ref vs ref:  " + json.dumps(gaps(runs[2], runs[1])), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 4
+
+
+def main_path():
+    import time
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import ofl
+
+    argv = [
+        "--method", "coboosting", "--clients", "5", "--classes", "10", "--image", "32",
+        "--batch", "128", "--gen-iters", "30", "--epochs", "3", "--local-epochs", "2",
+        "--per-class", "500", "--server-arch", "cnn5", "--device", "cuda",
+    ]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = ofl.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"main path ({wall:.1f} s): {json.dumps(result)}", flush=True)
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"main path never launched {name}")
+    for key in ("server_acc", "ensemble_acc", "gen_loss", "distill_loss"):
+        if key not in result or not math.isfinite(result[key]):
+            fail(f"main path result lacks a finite {key}: {result}")
+    return counts
+
+
+def main() -> None:
+    environment()
+    import torch
+
+    errs, timing = kernels_vs_plain()
+    small_input_agreement()
+    counts = main_path()
+    print("kernels: " + json.dumps({n: {"launches": counts[n], "max_abs_err": errs[n]} for n in REPLACES}))
+    table = [
+        {
+            "name": n, "route": "triton", "source": SOURCES[n], "replaces": REPLACES[n],
+            "launches": counts[n], "max_abs_err": errs[n], **timing[n], "library_ms": None,
+        }
+        for n in REPLACES
+    ]
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,92 @@
+"""Model-market simulation: partition a dataset, locally train each client,
+and hand the server nothing but the pre-trained models (+ sizes).
+
+Client inits are drawn from a ``torch.Generator`` seeded with ``seed`` (the
+JAX package draws them from threefry, so the two markets differ; tests
+carry JAX inits across with :mod:`repro_torch.convert`).
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config.train import OFLConfig, TrainConfig
+from repro_torch.core.ensemble import ensemble_logits, make_logits_all
+from repro_torch.data.partitions import partition_dataset
+from repro_torch.fed.client import evaluate_cnn, local_train
+from repro_torch.models.cnn import cnn_apply, init_cnn
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("market")
+
+
+def build_market(
+    seed: int,
+    x: np.ndarray,
+    y: np.ndarray,
+    cfg: OFLConfig,
+    num_classes: int,
+    archs: Optional[Sequence[str]] = None,
+    local_epochs: Optional[int] = None,
+    device="cuda",
+) -> Tuple[List[Callable], List[Any], List[int], List[np.ndarray]]:
+    """Returns (client_apply_fns, client_params, shard_sizes, shard_indices).
+
+    ``archs``: one CNN arch id per client (heterogeneous market) or None for
+    all-``cnn5``."""
+    n = cfg.num_clients
+    archs = list(archs) if archs else ["cnn5"] * n
+    if len(archs) != n:
+        raise ValueError(f"{len(archs)} client archs for {n} clients")
+    parts = partition_dataset(seed, y, cfg)
+    in_shape = x.shape[1:]
+    tc = TrainConfig(
+        optimizer="sgdm",
+        learning_rate=cfg.local_lr,
+        momentum=cfg.local_momentum,
+        batch_size=cfg.local_batch_size,
+        seed=seed,
+    )
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    applies, params_list, sizes = [], [], []
+    epochs = cfg.local_epochs if local_epochs is None else local_epochs
+    for k in range(n):
+        p0 = init_cnn(gen, archs[k], num_classes, in_shape)
+        xb, yb = x[parts[k]], y[parts[k]]
+        pk = local_train(partial(cnn_apply, archs[k]), p0, xb, yb, tc, epochs)
+        applies.append(partial(cnn_apply, archs[k]))
+        params_list.append(pk)
+        sizes.append(len(parts[k]))
+        acc = evaluate_cnn(applies[-1], pk, xb[: min(512, len(xb))], yb[: min(512, len(yb))])
+        log.info("client %d (%s): shard=%d train-acc=%.3f", k, archs[k], len(parts[k]), acc)
+    return applies, params_list, sizes, parts
+
+
+def market_eval_fn(
+    client_applies: List[Callable],
+    client_params: List[Any],
+    server_apply: Callable,
+    test_x: np.ndarray,
+    test_y: np.ndarray,
+    batch_size: int = 512,
+) -> Callable:
+    """Builds eval_fn(server_params, w) -> {server_acc, ensemble_acc}."""
+    logits_all_fn = make_logits_all(list(client_applies))
+
+    @torch.no_grad()
+    def eval_fn(server_params, w) -> Dict[str, float]:
+        ens_ok = srv_ok = 0
+        for i in range(0, len(test_x), batch_size):
+            xb = torch.as_tensor(test_x[i : i + batch_size], device=w.device)
+            yb = test_y[i : i + batch_size]
+            ep = torch.argmax(ensemble_logits(logits_all_fn(client_params, xb), w), dim=-1)
+            sp = torch.argmax(server_apply(server_params, xb), dim=-1)
+            ens_ok += int((ep.cpu().numpy() == yb).sum())
+            srv_ok += int((sp.cpu().numpy() == yb).sum())
+        return {"ensemble_acc": ens_ok / len(test_x), "server_acc": srv_ok / len(test_x)}
+
+    return eval_fn

@@ -1,0 +1,27 @@
+"""Hand-written Hopper kernels for the port's hot path.
+
+* :mod:`repro_torch.kernels.ensemble_kl` — fused weighted-ensemble + KL
+  (Eq. 4 / Eq. 7), forward and backward
+* :mod:`repro_torch.kernels.ghm_ce`      — fused GHM-difficulty CE
+  (Eq. 5–6, Eq. 11), forward and backward
+
+Each subpackage: ``kernel.py`` (the Triton kernels and their wrappers),
+``ops.py`` (the differentiable ``torch.autograd.Function``), ``ref.py``
+(the plain PyTorch versions). :mod:`repro_torch.kernels.dispatch` maps the
+``backend`` knob ("auto" | "cuda" | "ref") to an implementation.
+"""
+from repro_torch.kernels.build import launch_counts, reset_launch_counts
+from repro_torch.kernels.dispatch import KERNEL_BACKENDS, resolve
+from repro_torch.kernels.ensemble_kl import ensemble_kl, ensemble_kl_ref
+from repro_torch.kernels.ghm_ce import ghm_ce, ghm_ce_ref
+
+__all__ = [
+    "KERNEL_BACKENDS",
+    "resolve",
+    "launch_counts",
+    "reset_launch_counts",
+    "ensemble_kl",
+    "ensemble_kl_ref",
+    "ghm_ce",
+    "ghm_ce_ref",
+]
