@@ -8,26 +8,46 @@ result line):
 
 1. Environment: torch / CUDA / Triton versions and the card's name and power
    limit (``nvidia-smi``). No CUDA device, or no ``src/repro_torch`` beside
-   this script, fails here.
+   this script, fails here. The two CUDA C++ sources are then built from the
+   checkout, one ``nvcc`` each, in parallel.
 2. Kernel vs plain: each of the four Triton kernels (``ensemble_kl`` and
    ``ghm_ce``, forward and backward) is built from the checkout's sources
    and held against its plain PyTorch version on the card, in every mode,
    at the main path's shapes (K=5, B=128, V=10, f32) and at a wide tail case
-   (K=5, B=37, V=32003, f32 and bf16). Tolerance, elementwise:
+   (K=5, B=37, V=32003, f32 and bf16). Then the two CUDA C++ attention
+   kernels, in f32 and bf16: ``flash_attention_fwd`` at the smollm-135m
+   prefill shape (8 prompts × 128 tokens, 9 heads over 3 kv heads, hd 64,
+   causal) and at a tail case (Sq = Sk = 37, hd 32, with window and
+   softcap), ``flash_decode`` at the smollm-135m decode shape (8 slots,
+   16-token pages, 12 table entries) and in a windowed ring case.
+   Tolerance, elementwise:
    ``|got − want| ≤ tol·(|want| + max(1, max|want|))`` with tol = 1e-4 for
    f32 outputs and 2^-7 (one bf16 rounding step) for outputs stored in bf16.
-   Times: CUDA events around back-to-back calls of the wrapper.
+   Times: CUDA events around back-to-back calls of the wrapper; for
+   ``flash_attention_fwd`` also PyTorch's ``scaled_dot_product_attention``
+   on the same inputs (the library time; the port never calls it).
 3. Small-input agreement: at a small size, the gradients of the generator
    loss, the distillation loss and the EE loss through the kernels (backend
    "cuda") agree with plain autograd (backend "ref") at the tolerance above;
    one epoch per backend runs to finite losses, and its parameter gaps are
    printed.
-4. Main path: ``repro_torch.launch.ofl`` at the paper's image width (5×cnn5
-   clients, cnn5 server, 32×32×3, 10 classes, synthetic batch 128,
+4. Training path: ``repro_torch.launch.ofl`` at the paper's image width
+   (5×cnn5 clients, cnn5 server, 32×32×3, 10 classes, synthetic batch 128,
    gen_iters 30) for a few epochs, with the launch counters reset just
-   before and read just after; every kernel must have launched, the losses
-   must be finite and ``server_acc`` / ``ensemble_acc`` present.
-5. Summary: a ``kernels: {...}`` line, the JSON kernel table, and last the
+   before and read just after; every loss kernel must have launched, the
+   losses must be finite and ``server_acc`` / ``ensemble_acc`` present.
+5. Serving path: smollm-135m at full width (30 layers, d_model 576,
+   random weights from a seed). First an f32 check: 4 requests × 16 tokens
+   through the paged engine give the same greedy tokens as the static
+   dense-cache path (same prefill kernel; its top-2 logit margins must
+   exceed 1e-3). Then ``repro_torch.launch.serve`` in bf16: continuous
+   batching, paged KV, 16 requests, prompt 128, 64 new tokens, 8 slots,
+   page size 16, with the launch counters reset just before and read just
+   after; both attention kernels must have launched, every request must
+   come back with its 64 tokens, and tok/s and p50/p95 latency are printed.
+   The run is then repeated under ``torch.profiler`` (device activity
+   only) for the device's busy and idle share.
+6. Summary: a ``kernels: {...}`` line, the JSON kernel table, and last the
    ``{"ok": true, "device": {...}}`` line.
 """
 from __future__ import annotations
@@ -36,6 +56,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -43,6 +64,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 
 MAIN = dict(k=5, b=128, v=10)
 WIDE = dict(k=5, b=37, v=32003)
@@ -51,13 +73,23 @@ REPLACES = {
     "ensemble_kl_bwd": "src/repro/kernels/ensemble_kl/kernel.py:144",
     "ghm_ce_fwd": "src/repro/kernels/ghm_ce/kernel.py:211",
     "ghm_ce_bwd": "src/repro/kernels/ghm_ce/kernel.py:143",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:335",
+    "flash_decode": "src/repro/kernels/flash_decode/kernel.py:109",
 }
+LOSS_KERNELS = ("ensemble_kl_fwd", "ensemble_kl_bwd", "ghm_ce_fwd", "ghm_ce_bwd")
+ATTN_KERNELS = ("flash_attention_fwd", "flash_decode")
 SOURCES = {
     "ensemble_kl_fwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
     "ensemble_kl_bwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
     "ghm_ce_fwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
     "ghm_ce_bwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
+    "flash_attention_fwd": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+    "flash_decode": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
 }
+ROUTES = {n: "cuda" if n in ATTN_KERNELS else "triton" for n in REPLACES}
+
+# serving: smollm-135m at full width
+SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
 
 
 def fail(msg: str) -> None:
@@ -89,6 +121,13 @@ def environment():
     from repro_torch.utils.device import disable_tf32
 
     disable_tf32()
+    from repro_torch.kernels.build import build_cuda_libraries
+    from repro_torch.kernels.flash_attention.kernel import SOURCE as FA_SOURCE
+    from repro_torch.kernels.flash_decode.kernel import SOURCE as FD_SOURCE
+
+    t0 = time.perf_counter()
+    build_cuda_libraries([FA_SOURCE, FD_SOURCE])
+    print(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     return smi
 
 
@@ -138,9 +177,9 @@ def _time_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes, flops):
+def _bound_ms(nbytes, flops, peak=F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -169,7 +208,7 @@ def kernels_vs_plain():
     from repro_torch.kernels.ghm_ce.ref import ghm_ce_bwd_ref, ghm_ce_fwd_ref
 
     dev = torch.device("cuda")
-    errs = {n: 0.0 for n in REPLACES}
+    errs = {n: 0.0 for n in LOSS_KERNELS}
     timing = {}
     shapes = [(MAIN, torch.float32), (WIDE, torch.float32), (WIDE, torch.bfloat16)]
     for si, (shape, dtype) in enumerate(shapes):
@@ -230,7 +269,132 @@ def kernels_vs_plain():
     for (name, tag), t in timing.items():
         print(f"time {name} {tag}: " + json.dumps(t), flush=True)
     main_tag = f"K={MAIN['k']} B={MAIN['b']} V={MAIN['v']} float32"
-    return errs, {n: timing[(n, main_tag)] for n in REPLACES}
+    return errs, {n: timing[(n, main_tag)] for n in LOSS_KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the attention kernels
+
+
+def _attn_case(b, sq, sk, h, kh, hd, dtype, seed, device):
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shapes = ((b, sq, h, hd), (b, sk, kh, hd), (b, sk, kh, hd))
+    return [torch.randn(shape, generator=g).to(dtype).to(device) for shape in shapes]
+
+
+def _decode_case(b, h, kh, hd, ps, w, window, pos, dtype, seed, device):
+    """Pages of a full serving pool (every row owns the pages its positions
+    cover, the rest of its table points at a scratch page holding NaN).
+    Also returns the count of valid cached positions over all rows."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_pages = b * w + 1
+    kp = torch.randn((n_pages, ps, kh, hd), generator=g)
+    vp = torch.randn((n_pages, ps, kh, hd), generator=g)
+    kp[-1] = float("nan")
+    vp[-1] = float("nan")
+    cl = min(window, w * ps) if window else w * ps
+    table = torch.full((b, w), n_pages - 1, dtype=torch.int32)
+    perm = torch.randperm(n_pages - 1, generator=g).to(torch.int32)
+    live = [-(-min(p + 1, cl) // ps) for p in pos]
+    for r in range(b):
+        table[r, : live[r]] = perm[r * w : r * w + live[r]]
+    q = torch.randn((b, h, hd), generator=g)
+    ft = lambda t: t.to(dtype).to(device)
+    kw = dict(window=window, cache_len=cl)
+    keys = sum(min(p + 1, cl) for p in pos)  # the valid positions: all the function reads
+    return ft(q), ft(kp), ft(vp), table.to(device), torch.tensor(pos, dtype=torch.int32, device=device), kw, keys
+
+
+def _lse_err(name, got, want):
+    """lse: fully-masked rows are exactly 1e30 in both; the rest as _err."""
+    if not bool(((got == 1e30) == (want == 1e30)).all()):
+        fail(f"{name}: fully-masked rows differ")
+    keep = want != 1e30
+    return _err(name, got[keep], want[keep]) if bool(keep.any()) else 0.0
+
+
+def _sdpa(q, k, v):
+    """PyTorch's fused attention on the same inputs, in its (B, H, S, hd)
+    layout (transposed views), causal, GQA."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+
+def attention_kernels_vs_plain():
+    """``flash_attention_fwd`` and ``flash_decode`` against their plain
+    versions, f32 and bf16, with times at the serving shapes."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref_lse
+    from repro_torch.kernels.flash_decode.kernel import flash_decode_fwd
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    dev = torch.device("cuda")
+    errs = {n: 0.0 for n in ATTN_KERNELS}
+    timing = {}
+    n_pre, lb = SERVE["slots"], SERVE["prompt"]
+    attn_cases = [
+        ("smollm prefill", (n_pre, lb, lb, 9, 3, 64), dict(causal=True)),
+        ("tail", (2, 37, 37, 4, 2, 32), dict(causal=True)),
+        ("tail window+softcap", (2, 37, 37, 4, 2, 32), dict(causal=True, window=8, softcap=30.0)),
+    ]
+    w_pages = (SERVE["prompt"] + SERVE["gen"]) // SERVE["page"]
+    mid = SERVE["prompt"] + SERVE["gen"] // 2
+    ragged = [i * (w_pages * SERVE["page"] - 1) // (SERVE["slots"] - 1) for i in range(SERVE["slots"])]  # 0 .. max_seq-1
+    decode_cases = [
+        ("smollm decode", (SERVE["slots"], 9, 3, 64, SERVE["page"], w_pages, 0, [mid] * SERVE["slots"])),
+        ("smollm decode ragged", (SERVE["slots"], 9, 3, 64, SERVE["page"], w_pages, 0, ragged)),
+        ("ring", (3, 4, 2, 32, 8, 5, 16, [3, 20, 37])),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        for ci, (tag, shape, kw) in enumerate(attn_cases):
+            q, k, v = _attn_case(*shape, dtype, seed=ci, device=dev)
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            want_o, want_lse = flash_attention_ref_lse(q, k, v, **kw)
+            torch.cuda.synchronize()
+            name = f"flash_attention_fwd {tag} {dname}"
+            errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], _err(name + " out", out, want_o),
+                                              _lse_err(name + " lse", lse, want_lse))
+            if ci == 0:
+                b, sq, sk, h, kh, hd = shape
+                nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + 4 * b * sq * h
+                flops = 4 * b * h * sq * sk * hd // 2  # causal half of QK^T and PV
+                bound, bound_by = _bound_ms(nbytes, flops, peak)
+                timing[("flash_attention_fwd", dname)] = {
+                    "ms": _time_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+                    "plain_ms": _time_ms(lambda: flash_attention_ref_lse(q, k, v, **kw)),
+                    "bound_ms": bound, "bound_by": bound_by, "library_ms": _time_ms(_sdpa(q, k, v)),
+                }
+        for ci, (tag, args) in enumerate(decode_cases):
+            q, kp, vp, table, pos, kw, keys = _decode_case(*args, dtype, seed=10 + ci, device=dev)
+            out = flash_decode_fwd(q, kp, vp, table, pos, **kw)
+            want = flash_decode_ref(q, kp, vp, table, pos, **kw)
+            torch.cuda.synchronize()
+            errs["flash_decode"] = max(errs["flash_decode"], _err(f"flash_decode {tag} {dname}", out, want))
+            if ci == 0:
+                b, h, kh, hd = args[:4]
+                nbytes = 2 * keys * kh * hd * kp.element_size() + 2 * q.numel() * q.element_size() + 4 * (table.numel() + b)
+                flops = 4 * keys * (h // kh) * kh * hd
+                bound, bound_by = _bound_ms(nbytes, flops, peak)
+                timing[("flash_decode", dname)] = {
+                    "ms": _time_ms(lambda: flash_decode_fwd(q, kp, vp, table, pos, **kw)),
+                    "plain_ms": _time_ms(lambda: flash_decode_ref(q, kp, vp, table, pos, **kw)),
+                    "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                }
+        print(f"attention kernels agree with plain versions in {dname}", flush=True)
+    for (name, dname), t in timing.items():
+        print(f"time {name} serving shape {dname}: " + json.dumps(t), flush=True)
+    # the serving path runs in bf16: its times go in the table
+    return errs, {n: timing[(n, "bfloat16")] for n in ATTN_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -344,14 +508,94 @@ def main_path():
     result = ofl.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
-    print(f"main path ({wall:.1f} s): {json.dumps(result)}", flush=True)
+    counts = {n: launch_counts()[n] for n in LOSS_KERNELS}
+    print(f"training path ({wall:.1f} s): {json.dumps(result)}", flush=True)
     for name, n in counts.items():
         if n == 0:
-            fail(f"main path never launched {name}")
+            fail(f"training path never launched {name}")
     for key in ("server_acc", "ensemble_acc", "gen_loss", "distill_loss"):
         if key not in result or not math.isfinite(result[key]):
             fail(f"main path result lacks a finite {key}: {result}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+
+
+def serving_parity_f32():
+    """Full width in f32: the paged engine's greedy tokens equal the static
+    dense-cache path's (same prefill kernel, decode through the plain
+    small-SDPA) for 4 requests x 16 tokens. As in the CPU serving test, the
+    tied embedding is scaled by 10 to widen the random model's top-2 logit
+    margins, and the static path's smallest margin must exceed 1e-3, so
+    that no near-tie decides a token."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.models.transformer import init_lm, lm_forward
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine, static_generate
+
+    dev = torch.device("cuda")
+    cfg = get_arch("smollm-135m").replace(dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    params["embed"]["table"] *= 10.0
+    n, gen, prompt = 4, 16, SERVE["prompt"]
+    tokens = make_token_stream(1, cfg.vocab_size, n, prompt)["tokens"]
+    ecfg = EngineConfig(max_slots=n, max_seq=prompt + gen, max_new=gen, page_size=SERVE["page"], kv_layout="paged")
+    comps = ContinuousScheduler(ServeEngine(cfg, params, ecfg), clock=ManualClock()).run(
+        [Request(rid=i, tokens=tokens[i], max_new_tokens=gen) for i in range(n)]
+    )
+    prompts = torch.as_tensor(tokens, device=dev)
+    want = static_generate(params, cfg, {"tokens": prompts}, gen)
+    with torch.inference_mode():  # the logits behind each static token, teacher-forced
+        logits, _ = lm_forward(params, cfg, {"tokens": torch.cat([prompts, want[:, :-1].to(prompts.dtype)], 1)})
+    top2 = logits[:, prompt - 1 :].topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    if margin <= 1e-3:
+        fail(f"f32 serving: the static path has a near-tie (top-2 margin {margin:.2e}), the comparison cannot decide")
+    want = want.cpu().numpy()
+    got = np.stack([c.tokens for c in comps])
+    if not np.array_equal(got, want):
+        fail(f"f32 serving: paged engine tokens {got.tolist()} != static dense-cache path {want.tolist()}")
+    print(f"serving f32 at full width: paged engine == static dense-cache path (same prefill kernel) on {n}x{gen} "
+          f"tokens, smallest top-2 margin {margin:.3e}", flush=True)
+
+
+def serving_path():
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    argv = [
+        "--arch", "smollm-135m", "--engine", "continuous", "--kv-layout", "paged",
+        "--requests", str(SERVE["requests"]), "--prompt-len", str(SERVE["prompt"]), "--gen", str(SERVE["gen"]),
+        "--max-slots", str(SERVE["slots"]), "--page-size", str(SERVE["page"]), "--device", "cuda",
+    ]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: launch_counts()[n] for n in ATTN_KERNELS}
+    comps = result["completions"]
+    summary = {k: result[k] for k in ("tok_per_s", "tokens", "p50_s", "p95_s", "ttft_p50_s", "ttft_p95_s", "wall_s")}
+    print(f"serving path ({wall:.1f} s with set-up): {json.dumps(summary)}", flush=True)
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"serving path never launched {name}")
+    if len(comps) != SERVE["requests"] or any(len(c.tokens) != SERVE["gen"] for c in comps):
+        fail(f"serving path: expected {SERVE['requests']} completions of {SERVE['gen']} tokens")
+    if any(int(t) < 0 or int(t) >= 49152 for c in comps for t in c.tokens):
+        fail("serving path: token id out of the vocabulary")
+    # the same run again under torch.profiler (device activity only): the
+    # device's busy and idle share; its times are not the ones above
+    prof = serve.main(argv + ["--profile"])
+    busy, pwall = prof["device_busy_s"], prof["wall_s"]
+    print(f"serving path profiled: device busy {busy:.3f} s of {pwall:.3f} s wall, idle share {1 - busy / pwall:.3f}", flush=True)
     return counts
 
 
@@ -360,13 +604,18 @@ def main() -> None:
     import torch
 
     errs, timing = kernels_vs_plain()
+    attn_errs, attn_timing = attention_kernels_vs_plain()
+    errs.update(attn_errs)
+    timing.update(attn_timing)
     small_input_agreement()
     counts = main_path()
+    serving_parity_f32()
+    counts.update(serving_path())
     print("kernels: " + json.dumps({n: {"launches": counts[n], "max_abs_err": errs[n]} for n in REPLACES}))
     table = [
         {
-            "name": n, "route": "triton", "source": SOURCES[n], "replaces": REPLACES[n],
-            "launches": counts[n], "max_abs_err": errs[n], **timing[n], "library_ms": None,
+            "name": n, "route": ROUTES[n], "source": SOURCES[n], "replaces": REPLACES[n],
+            "launches": counts[n], "max_abs_err": errs[n], "library_ms": None, **timing[n],
         }
         for n in REPLACES
     ]

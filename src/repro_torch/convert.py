@@ -1,5 +1,8 @@
 """Carry parameters between the JAX package and the port.
 
+The CNN and generator weights of the Co-Boosting path (below), and the
+server LM's weights (:func:`lm_params_from_jax`, at the end).
+
 A JAX parameter tree travels as numpy arrays, either nested or flattened
 to ``a/b/c`` paths (:func:`repro_torch.utils.trees.flatten_dict`). The
 layouts differ only in the weights:
@@ -89,3 +92,73 @@ def params_to_jax(arch: str, params: Dict[str, Any]) -> Dict[str, Any]:
         a = leaf.detach().cpu().numpy()
         out[path] = np.ascontiguousarray(_to_jax(path, a, path in keep))
     return unflatten_dict(out)
+
+
+# ---------------------------------------------------------------------------
+# the distilled server LM (repro.models.transformer / repro_torch.models.transformer)
+#
+# The JAX tree stacks layers by group: every leaf under ``groups/p{j}/...``
+# has a leading axis of length num_layers / period, and layer g·period + j
+# is index g of ``groups/p{j}``. The port keeps one dict per layer in
+# ``layers``. Weights keep the einsum layouts on both sides (``wq``/``wk``/
+# ``wv`` (d, H, hd), ``wo`` (H, hd, d), MLP ``wi``/``wg`` (d, f) and ``wo``
+# (f, d), the embedding (V, d)), so the conversion is bitwise.
+
+
+def lm_params_from_jax(cfg, tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """JAX ``init_lm`` params (numpy arrays) → the port's LM params."""
+    from repro_torch.models.transformer import group_pattern
+
+    period = len(group_pattern(cfg))
+    flat = {p: np.asarray(a) for p, a in flatten_dict(tree).items()}
+    out: Dict[str, Any] = {}
+    for path, a in flat.items():
+        parts = path.split("/")
+        if parts[0] == "groups":
+            j = int(parts[1][1:])
+            if a.shape[0] * period != cfg.num_layers:
+                raise ValueError(f"{path}: {a.shape[0]} groups of {period} for {cfg.num_layers} layers")
+            for g in range(a.shape[0]):
+                out[f"layers/{g * period + j}/" + "/".join(parts[2:])] = torch.tensor(a[g], device=device)
+        else:
+            out[path] = torch.tensor(a, device=device)
+    nested = unflatten_dict(out)
+    nested["layers"] = [nested["layers"][str(i)] for i in range(cfg.num_layers)]
+    _check_lm_tree(cfg, nested)
+    return nested
+
+
+def lm_params_to_jax(cfg, params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`lm_params_from_jax`: nested numpy arrays with
+    the layers stacked by group."""
+    from repro_torch.models.transformer import group_pattern
+
+    _check_lm_tree(cfg, params)
+    period = len(group_pattern(cfg))
+    out: Dict[str, Any] = {}
+    for path, leaf in flatten_dict({k: v for k, v in params.items() if k != "layers"}).items():
+        out[path] = leaf.detach().cpu().numpy()
+    per_layer = [flatten_dict(layer) for layer in params["layers"]]
+    for j in range(period):
+        for path in per_layer[j]:
+            stack = [per_layer[g * period + j][path].detach().cpu().numpy() for g in range(cfg.num_layers // period)]
+            out[f"groups/p{j}/{path}"] = np.stack(stack)
+    return unflatten_dict(out)
+
+
+def _check_lm_tree(cfg, params: Dict[str, Any]) -> None:
+    """Every leaf the port's LM reads is there, and nothing else."""
+    from repro_torch.models.transformer import init_lm
+
+    want = init_lm(cfg.replace(num_layers=1, d_model=2, num_heads=1, num_kv_heads=1, head_dim=2, d_ff=2, vocab_size=2),
+                   torch.Generator().manual_seed(0))
+    layer_keys = set(flatten_dict(want["layers"][0]))
+    top_keys = set(flatten_dict({k: v for k, v in want.items() if k != "layers"}))
+    if len(params["layers"]) != cfg.num_layers:
+        raise ValueError(f"expected {cfg.num_layers} layers, got {len(params['layers'])}")
+    for i, layer in enumerate(params["layers"]):
+        if set(flatten_dict(layer)) != layer_keys:
+            raise ValueError(f"layer {i}: leaves {sorted(flatten_dict(layer))} != {sorted(layer_keys)}")
+    got_top = set(flatten_dict({k: v for k, v in params.items() if k != "layers"}))
+    if got_top != top_keys:
+        raise ValueError(f"top-level leaves {sorted(got_top)} != {sorted(top_keys)}")

@@ -1,5 +1,5 @@
-"""Deterministic synthetic image data (the port's copy of
-``repro.data.synthetic.make_synth_images``).
+"""Deterministic synthetic data (the port's copies of
+``repro.data.synthetic.make_synth_images`` and ``make_token_stream``).
 
 *SynthDigits*: a class-separable image distribution where each class is a
 distinct oriented grating + color blob, perturbed per sample by shifts and
@@ -9,7 +9,7 @@ reference for the same seed.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -53,3 +53,24 @@ def make_synth_images(
     y = np.asarray(ys, np.int32)
     order = rng.permutation(len(y))
     return x[order], y[order]
+
+
+def make_token_stream(
+    seed: int, vocab: int, batch: int, seq_len: int, num_states: int = 8
+) -> Dict[str, np.ndarray]:
+    """Hidden-Markov token batches: state transitions are deterministic-ish,
+    each state emits from a distinct vocab slice. Pure numpy, bitwise equal
+    to the reference for the same seed."""
+    rng = np.random.RandomState(seed)
+    trans = rng.dirichlet(np.ones(num_states) * 0.3, size=num_states)
+    slice_w = max(vocab // num_states, 1)
+    tokens = np.zeros((batch, seq_len + 1), np.int64)
+    for b in range(batch):
+        s = rng.randint(num_states)
+        for t in range(seq_len + 1):
+            tokens[b, t] = (s * slice_w + rng.zipf(1.5) - 1) % vocab
+            s = rng.choice(num_states, p=trans[s])
+    return {
+        "tokens": tokens[:, :-1].astype(np.int32),
+        "labels": tokens[:, 1:].astype(np.int32),
+    }

@@ -4,8 +4,14 @@
   (Eq. 4 / Eq. 7), forward and backward
 * :mod:`repro_torch.kernels.ghm_ce`      — fused GHM-difficulty CE
   (Eq. 5–6, Eq. 11), forward and backward
+* :mod:`repro_torch.kernels.flash_attention` — blocked causal / SWA /
+  softcap attention forward with GQA (CUDA C++, train/prefill)
+* :mod:`repro_torch.kernels.flash_decode` — paged Sq=1 decode attention
+  (CUDA C++, inference-only)
 
-Each subpackage: ``kernel.py`` (the Triton kernels and their wrappers),
+The loss kernels are Triton; the attention kernels are CUDA C++ sources
+(``*.cu``) built with ``nvcc`` at first use (:mod:`repro_torch.kernels.build`).
+Each subpackage: ``kernel.py`` (the kernels' wrappers),
 ``ops.py`` (the differentiable ``torch.autograd.Function``), ``ref.py``
 (the plain PyTorch versions). :mod:`repro_torch.kernels.dispatch` maps the
 ``backend`` knob ("auto" | "cuda" | "ref") to an implementation.
@@ -13,6 +19,8 @@ Each subpackage: ``kernel.py`` (the Triton kernels and their wrappers),
 from repro_torch.kernels.build import launch_counts, reset_launch_counts
 from repro_torch.kernels.dispatch import KERNEL_BACKENDS, resolve
 from repro_torch.kernels.ensemble_kl import ensemble_kl, ensemble_kl_ref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.ghm_ce import ghm_ce, ghm_ce_ref
 
 __all__ = [
@@ -22,6 +30,10 @@ __all__ = [
     "reset_launch_counts",
     "ensemble_kl",
     "ensemble_kl_ref",
+    "flash_attention",
+    "flash_attention_ref",
+    "flash_decode",
+    "flash_decode_ref",
     "ghm_ce",
     "ghm_ce_ref",
 ]

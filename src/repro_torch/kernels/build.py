@@ -1,15 +1,28 @@
-"""Building the Triton kernels: where the compiled kernels are cached, and
+"""Building the hand kernels: where the compiled kernels are cached, and
 the launch counters.
 
-Triton is imported only inside :func:`triton_modules`, which the kernel
-wrappers call the first time they launch, so every module of the package
-imports on a machine without Triton. The kernels compile on first use into
-``build/triton`` at the root of the checkout (listed in ``.gitignore``);
-``TRITON_CACHE_DIR`` / ``TRITON_HOME``, when set, take precedence.
+Triton kernels: Triton is imported only inside :func:`triton_modules`,
+which the kernel wrappers call the first time they launch, so every module
+of the package imports on a machine without Triton. They compile on first
+use into ``build/triton`` at the root of the checkout (listed in
+``.gitignore``); ``TRITON_CACHE_DIR`` / ``TRITON_HOME``, when set, take
+precedence.
+
+CUDA C++ kernels: each ``.cu`` source beside its wrapper exports plain
+``extern "C"`` launchers. :func:`cuda_library` compiles it with ``nvcc``
+for ``sm_90a`` into ``build/cuda/<name>-<hash of source and flags>.so`` at
+first use and loads it with ``ctypes``; nothing includes PyTorch's headers,
+so a build takes seconds. A file lock serialises concurrent builds
+(``pytest -n``). A missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
+import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
+import subprocess
 from pathlib import Path
 from typing import Dict
 
@@ -28,6 +41,8 @@ LAUNCHES: Dict[str, int] = {
     "ensemble_kl_bwd": 0,
     "ghm_ce_fwd": 0,
     "ghm_ce_bwd": 0,
+    "flash_attention_fwd": 0,
+    "flash_decode": 0,
 }
 
 
@@ -117,3 +132,65 @@ def reduce_partials(partials: torch.Tensor, k: int) -> torch.Tensor:
     gw = torch.empty(k, dtype=torch.float32, device=partials.device)
     jit(_gw_reduce_body)[(1,)](partials, gw, nb, k, BLOCK_R=64, BLOCK_K=block_k, num_warps=4)
     return gw
+
+
+# ---------------------------------------------------------------------------
+# CUDA C++ kernels
+
+CUDA_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+_LIBS: Dict[Path, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels are built from source at first use")
+
+
+def cuda_library(source: Path) -> ctypes.CDLL:
+    """The shared library built from ``source`` (a ``.cu`` file): compiled
+    on first use into a file named by the hash of its text and the flags,
+    then loaded once per process."""
+    source = Path(source)
+    if source not in _LIBS:
+        text = source.read_bytes()
+        digest = hashlib.sha256(text + " ".join(CUDA_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / "cuda" / f"{source.stem}-{digest}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        with open(out.parent / f"{source.stem}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not out.exists():
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc_path(), *CUDA_FLAGS, "-o", str(tmp), str(source)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {source.name} ({' '.join(cmd)}):\n{proc.stderr[-4000:]}")
+                os.replace(tmp, out)
+            fcntl.flock(lock, fcntl.LOCK_UN)
+        _LIBS[source] = ctypes.CDLL(str(out))
+    return _LIBS[source]
+
+
+def build_cuda_libraries(sources) -> None:
+    """Build several CUDA sources at once, one ``nvcc`` each (set-up time
+    of a run that will launch them all)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        list(pool.map(cuda_library, sources))
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise when a launcher returned a CUDA error (``cudaGetLastError``
+    after the launch): a refused launch never runs, and a later
+    synchronise would not report it."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,5 +1,7 @@
-"""Kernel backend dispatch for the port's loss ops (the counterpart of
-``repro.kernels.dispatch.resolve``).
+"""Kernel backend dispatch for the port's ops (the counterpart of
+``repro.kernels.dispatch.resolve``): the loss kernels (``"loss"``),
+train/prefill flash attention (``"attn"``) and paged decode
+(``"decode"``).
 
 A backend covers BOTH passes of a differentiable op:
 
@@ -18,7 +20,7 @@ import torch
 KERNEL_BACKENDS = ("auto", "cuda", "ref")
 
 #: The ops the dispatch layer routes.
-BACKEND_OPS = ("loss",)
+BACKEND_OPS = ("loss", "attn", "decode")
 
 
 def check_backend(backend: str) -> None:

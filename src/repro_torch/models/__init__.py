@@ -1,1 +1,2 @@
-"""The paper's client CNN zoo and its label-conditional image generator."""
+"""The paper's client CNN zoo, its label-conditional image generator, and
+the distilled server LM (dense decoder family)."""

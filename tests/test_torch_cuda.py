@@ -1,5 +1,6 @@
-"""The port's Triton kernels on the GPU, against their plain PyTorch
-versions on the same inputs. These tests need a CUDA device (marker
+"""The port's kernels on the GPU (the Triton loss kernels and the CUDA C++
+attention kernels), against their plain PyTorch versions on the same
+inputs. These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -17,6 +18,10 @@ import torch
 from repro_torch.kernels import ensemble_kl, ghm_ce, launch_counts, reset_launch_counts
 from repro_torch.kernels.ensemble_kl.kernel import ensemble_kl_bwd, ensemble_kl_fwd
 from repro_torch.kernels.ensemble_kl.ref import ensemble_kl_bwd_ref, ensemble_kl_fwd_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref_lse
+from repro_torch.kernels.flash_decode.kernel import flash_decode_fwd
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.ghm_ce.kernel import ghm_ce_bwd, ghm_ce_fwd
 from repro_torch.kernels.ghm_ce.ref import ghm_ce_bwd_ref, ghm_ce_fwd_ref
 
@@ -29,7 +34,7 @@ DTYPES = [torch.float32, torch.bfloat16]
 @pytest.fixture
 def device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the Triton kernels run only on the card")
+        pytest.skip("needs a CUDA device: the Triton and CUDA C++ kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -100,7 +105,10 @@ def test_ops_launch_kernels_and_match_ref_autograd(device):
 
     reset_launch_counts()
     got = grads("cuda")
-    assert launch_counts() == {"ensemble_kl_fwd": 1, "ensemble_kl_bwd": 1, "ghm_ce_fwd": 1, "ghm_ce_bwd": 1}
+    assert launch_counts() == {
+        "ensemble_kl_fwd": 1, "ensemble_kl_bwd": 1, "ghm_ce_fwd": 1, "ghm_ce_bwd": 1,
+        "flash_attention_fwd": 0, "flash_decode": 0,
+    }
     for a, r in zip(got, grads("ref")):
         _close(a, r)
     assert torch.equal(grads("cuda")[2], got[2])
@@ -114,3 +122,114 @@ def test_wrappers_reject_bad_inputs(device):
         ghm_ce_fwd(cl, labels, w.double())
     with pytest.raises(ValueError, match="one CUDA device"):
         ghm_ce_fwd(cl, labels.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# attention kernels (CUDA C++)
+
+# (B, Sq, Sk, H, KH, hd): the smollm-135m prefill shape, a masked tail,
+# Sq > Sk (fully-masked rows under a window), and hd = 128
+ATTN_SHAPES = [(2, 128, 128, 9, 3, 64), (2, 37, 37, 4, 2, 32), (1, 70, 33, 4, 1, 128)]
+
+
+def _attn_inputs(b, sq, sk, h, kh, hd, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).to(device) for shape in ((b, sq, h, hd), (b, sk, kh, hd), (b, sk, kh, hd))]
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window,softcap", [(True, 0, 0.0), (True, 8, 0.0), (True, 0, 30.0), (False, 0, 0.0), (False, 16, 30.0)])
+def test_flash_attention_kernel_matches_plain(device, shape, dtype, causal, window, softcap):
+    q, k, v = _attn_inputs(*shape, dtype, device)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    reset_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_fwd"] == 1
+    want_o, want_lse = flash_attention_ref_lse(q, k, v, **kw)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _close(out, want_o)
+    masked = want_lse == 1e30  # fully-masked rows: exactly 1e30 in both
+    assert torch.equal(lse == 1e30, masked)
+    _close(lse[~masked], want_lse[~masked])
+
+
+def _decode_inputs(b, h, kh, hd, ps, w, window, dtype, device, seed=0):
+    """Each row owns the pages covering its positions; the rest of its table
+    points at a scratch page holding NaN."""
+    g = torch.Generator().manual_seed(seed)
+    n_pages = b * w + 1
+    kp = torch.randn((n_pages, ps, kh, hd), generator=g)
+    vp = torch.randn((n_pages, ps, kh, hd), generator=g)
+    kp[-1] = float("nan")
+    vp[-1] = float("nan")
+    cl = min(window, w * ps) if window else w * ps
+    pos = torch.randint(0, w * ps, (b,), generator=g, dtype=torch.int32)
+    pos[0] = 0
+    table = torch.full((b, w), n_pages - 1, dtype=torch.int32)
+    perm = torch.randperm(n_pages - 1, generator=g).to(torch.int32)
+    for r in range(b):
+        live = -(-min(int(pos[r]) + 1, cl) // ps)
+        table[r, :live] = perm[r * w : r * w + live]
+    q = torch.randn((b, h, hd), generator=g)
+    to = lambda t: t.to(dtype).to(device) if t.is_floating_point() else t.to(device)
+    return to(q), to(kp), to(vp), to(table), to(pos), dict(window=window, cache_len=cl)
+
+
+# (B, H, KH, hd, page size, table width): the smollm-135m serving shape, a
+# small one with hd 32, and hd 128 with 64-token pages
+DECODE_SHAPES = [(8, 9, 3, 64, 16, 12), (3, 4, 2, 32, 8, 5), (2, 8, 8, 128, 64, 3)]
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (0, 30.0), (24, 0.0)])
+def test_flash_decode_kernel_matches_plain(device, shape, dtype, window, softcap):
+    q, kp, vp, table, pos, kw = _decode_inputs(*shape, window, dtype, device)
+    reset_launch_counts()
+    out = flash_decode_fwd(q, kp, vp, table, pos, softcap=softcap, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_decode"] == 1
+    assert out.dtype == dtype
+    _close(out, flash_decode_ref(q, kp, vp, table, pos, softcap=softcap, **kw))
+
+
+def test_engine_on_card_launches_kernels_and_layouts_agree(device):
+    """A reduced f32 model served on the card: both attention kernels
+    launch, and the paged engine's greedy tokens equal the static
+    dense-SDPA path's."""
+    import numpy as np
+
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine, static_generate
+
+    cfg = reduced_variant(get_arch("smollm-135m")).replace(dtype="float32", param_dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0))
+    params["embed"]["table"] *= 10.0  # wide logit margins for greedy parity
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 24, 13, 17)]
+    reset_launch_counts()
+    eng = ServeEngine(cfg, params, EngineConfig(max_slots=2, max_seq=32, max_new=8, decode_chunk=4, page_size=8))
+    comps = ContinuousScheduler(eng, clock=ManualClock()).run(
+        [Request(rid=i, tokens=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    )
+    counts = launch_counts()
+    assert counts["flash_attention_fwd"] > 0 and counts["flash_decode"] > 0
+    for c, p in zip(comps, prompts):
+        want = static_generate(params, cfg, {"tokens": torch.as_tensor(p[None], device=device)}, 8, max_seq=32)
+        np.testing.assert_array_equal(c.tokens, want[0].cpu().numpy())
+
+
+def test_attention_wrappers_reject_bad_inputs(device):
+    q, k, v = _attn_inputs(1, 8, 8, 4, 2, 48, torch.float32, device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd(q, k, v)
+    q, k, v = _attn_inputs(1, 8, 8, 4, 2, 32, torch.float32, device)
+    with pytest.raises(ValueError, match="share"):
+        flash_attention_fwd(q, k.bfloat16(), v)
+    qd, kp, vp, table, pos, kw = _decode_inputs(2, 4, 2, 32, 8, 3, 0, torch.float32, device)
+    with pytest.raises(ValueError, match="int32"):
+        flash_decode_fwd(qd, kp, vp, table.long(), pos, **kw)

@@ -213,8 +213,11 @@ def test_dispatch_values():
     assert resolve("loss", "cuda", torch.device("cuda")) == "fused"
     with pytest.raises(ValueError, match="unknown kernel backend"):
         resolve("loss", "pallas", cpu)
+    for op in ("attn", "decode"):  # the attention ops of the serving slice
+        assert resolve(op, "auto", cpu) == "fused"
+        assert resolve(op, "ref", cpu) == "ref"
     with pytest.raises(ValueError, match="unknown backend op"):
-        resolve("attn", "auto", cpu)
+        resolve("moe", "auto", cpu)
 
 
 def test_cuda_backend_raises_on_cpu_tensors():
