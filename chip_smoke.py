@@ -8,8 +8,8 @@ result line):
 
 1. Environment: torch / CUDA / Triton versions and the card's name and power
    limit (``nvidia-smi``). No CUDA device, or no ``src/repro_torch`` beside
-   this script, fails here. The two CUDA C++ sources are then built from the
-   checkout, one ``nvcc`` each, in parallel.
+   this script, fails here. The three CUDA C++ sources are then built from
+   the checkout, one ``nvcc`` each, all started together.
 2. Kernel vs plain: each of the four Triton kernels (``ensemble_kl`` and
    ``ghm_ce``, forward and backward) is built from the checkout's sources
    and held against its plain PyTorch version on the card, in every mode,
@@ -23,14 +23,23 @@ result line):
    Tolerance, elementwise:
    ``|got − want| ≤ tol·(|want| + max(1, max|want|))`` with tol = 1e-4 for
    f32 outputs and 2^-7 (one bf16 rounding step) for outputs stored in bf16.
+   Then the two flash-attention backward kernels (``flash_attention_bwd_dq``
+   and ``flash_attention_bwd_dkv``) against ``flash_attention_bwd_ref``, in
+   f32 and bf16: at the smollm-135m training shape (8 × 256 tokens, 9 heads
+   over 3 kv heads, hd 64, causal), a tail case (Sq = Sk = 37, hd 32,
+   window 16, softcap 30) and a non-causal case with Sq ≠ Sk and hd 128; a
+   second call must give the same bits.
    Times: CUDA events around back-to-back calls of the wrapper; for
    ``flash_attention_fwd`` also PyTorch's ``scaled_dot_product_attention``
-   on the same inputs (the library time; the port never calls it).
+   on the same inputs, and for the backward kernels its backward (its
+   forward+backward time less its forward time): the library times, which
+   the port never calls.
 3. Small-input agreement: at a small size, the gradients of the generator
    loss, the distillation loss and the EE loss through the kernels (backend
    "cuda") agree with plain autograd (backend "ref") at the tolerance above;
    one epoch per backend runs to finite losses, and its parameter gaps are
-   printed.
+   printed. Then the reduced smollm-135m in f32: the gradients of one
+   ``lm_loss`` through the attention kernels agree with plain autograd.
 4. Training path: ``repro_torch.launch.ofl`` at the paper's image width
    (5×cnn5 clients, cnn5 server, 32×32×3, 10 classes, synthetic batch 128,
    gen_iters 30) for a few epochs, with the launch counters reset just
@@ -47,7 +56,20 @@ result line):
    come back with its 64 tokens, and tok/s and p50/p95 latency are printed.
    The run is then repeated under ``torch.profiler`` (device activity
    only) for the device's busy and idle share.
-6. Summary: a ``kernels: {...}`` line, the JSON kernel table, and last the
+6. LM training path: one f32 step of smollm-135m at full width, whose
+   gradients through the kernels are held against plain autograd (the
+   largest gap relative to each leaf's largest gradient is printed, and
+   must stay below 1e-3); then ``repro_torch.launch.train`` at full width in
+   bf16 with AdamW (batch 8, seq 256, 30 steps), with the launch counters
+   reset just before and read just after: the attention forward and both
+   backward kernels must each launch 30 layers × 30 steps times, every loss
+   must be finite and the last-10 mean below the first-10 mean; s/step,
+   tokens/s after the first step and the peak device memory are printed.
+7. LM distillation path: ``repro_torch.launch.distill_llm`` at full width
+   (K = 3 clients, 8 epochs of DHS, EE and distillation): ``kd`` finite at
+   every epoch, ``w`` summing to 1, and both backward kernels launched (DHS
+   differentiates the clients, distillation the server).
+8. Summary: a ``kernels: {...}`` line, the JSON kernel table, and last the
    ``{"ok": true, "device": {...}}`` line.
 """
 from __future__ import annotations
@@ -74,22 +96,30 @@ REPLACES = {
     "ghm_ce_fwd": "src/repro/kernels/ghm_ce/kernel.py:211",
     "ghm_ce_bwd": "src/repro/kernels/ghm_ce/kernel.py:143",
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:335",
+    "flash_attention_bwd_dq": "src/repro/kernels/flash_attention/kernel.py:295",
+    "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention/kernel.py:314",
     "flash_decode": "src/repro/kernels/flash_decode/kernel.py:109",
 }
 LOSS_KERNELS = ("ensemble_kl_fwd", "ensemble_kl_bwd", "ghm_ce_fwd", "ghm_ce_bwd")
 ATTN_KERNELS = ("flash_attention_fwd", "flash_decode")
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+TRAIN_KERNELS = ("flash_attention_fwd",) + BWD_KERNELS
 SOURCES = {
     "ensemble_kl_fwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
     "ensemble_kl_bwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
     "ghm_ce_fwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
     "ghm_ce_bwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
     "flash_attention_fwd": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+    "flash_attention_bwd_dq": "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv": "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
     "flash_decode": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
 }
-ROUTES = {n: "cuda" if n in ATTN_KERNELS else "triton" for n in REPLACES}
+ROUTES = {n: "triton" if n in LOSS_KERNELS else "cuda" for n in REPLACES}
 
 # serving: smollm-135m at full width
 SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
+# LM training: smollm-135m at full width
+TRAIN = dict(batch=8, seq=256, steps=30, layers=30)
 
 
 def fail(msg: str) -> None:
@@ -122,11 +152,12 @@ def environment():
 
     disable_tf32()
     from repro_torch.kernels.build import build_cuda_libraries
+    from repro_torch.kernels.flash_attention.kernel import BWD_SOURCE as FA_BWD_SOURCE
     from repro_torch.kernels.flash_attention.kernel import SOURCE as FA_SOURCE
     from repro_torch.kernels.flash_decode.kernel import SOURCE as FD_SOURCE
 
     t0 = time.perf_counter()
-    build_cuda_libraries([FA_SOURCE, FD_SOURCE])
+    build_cuda_libraries([FA_SOURCE, FA_BWD_SOURCE, FD_SOURCE])
     print(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     return smi
 
@@ -397,6 +428,101 @@ def attention_kernels_vs_plain():
     return errs, {n: timing[(n, "bfloat16")] for n in ATTN_KERNELS}
 
 
+def _sdpa_bwd(q, k, v, dout):
+    """PyTorch's fused attention backward on the same inputs (causal, GQA):
+    ``(forward+backward, forward)`` callables, timed only."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+    fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    both = lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dt)
+    return both, fwd
+
+
+def attention_bwd_kernels_vs_plain():
+    """``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` against
+    their plain versions, f32 and bf16, a second call bitwise equal, with
+    times at the training shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_dkv, flash_attention_bwd_dq
+    from repro_torch.kernels.flash_attention.ref import (
+        _visible,
+        attention_delta,
+        flash_attention_bwd_dkv_ref,
+        flash_attention_bwd_dq_ref,
+        flash_attention_ref_lse,
+    )
+
+    dev = torch.device("cuda")
+    errs = {n: 0.0 for n in BWD_KERNELS}
+    timing = {}
+    cases = [
+        ("smollm train", (TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], 9, 3, 64), dict(causal=True)),
+        ("tail window+softcap", (2, 37, 37, 4, 2, 32), dict(causal=True, window=16, softcap=30.0)),
+        ("cross hd128", (2, 70, 45, 8, 2, 128), dict(causal=False)),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        for ci, (tag, shape, kw) in enumerate(cases):
+            q, k, v = _attn_case(*shape, dtype, seed=20 + ci, device=dev)
+            g = torch.Generator(device="cpu").manual_seed(30 + ci)
+            dout = torch.randn(q.shape, generator=g).to(dtype).to(dev)
+            out, lse = flash_attention_ref_lse(q, k, v, **kw)
+            delta = attention_delta(out, dout)
+            args = (q, k, v, dout, lse, delta)
+            dq = flash_attention_bwd_dq(*args, **kw)
+            dk, dv = flash_attention_bwd_dkv(*args, **kw)
+            torch.cuda.synchronize()
+            name = f"{tag} {dname}"
+            want_dq = flash_attention_bwd_dq_ref(*args, **kw)
+            errs["flash_attention_bwd_dq"] = max(
+                errs["flash_attention_bwd_dq"], _err(f"flash_attention_bwd_dq {name} dq", dq, want_dq)
+            )
+            want_dk, want_dv = flash_attention_bwd_dkv_ref(*args, **kw)
+            errs["flash_attention_bwd_dkv"] = max(
+                errs["flash_attention_bwd_dkv"],
+                _err(f"flash_attention_bwd_dkv {name} dk", dk, want_dk),
+                _err(f"flash_attention_bwd_dkv {name} dv", dv, want_dv),
+            )
+            again = (flash_attention_bwd_dq(*args, **kw), *flash_attention_bwd_dkv(*args, **kw))
+            if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+                fail(f"flash-attention backward {name}: a second call gave other bits")
+            if ci == 0:
+                b, sq, sk, h, kh, hd = shape
+                pairs = int(_visible(sq, sk, True, 0, "cpu").sum())  # the causal (query, key) pairs
+                its = q.element_size()
+                rows = 2 * 4 * b * sq * h  # lse and delta, f32
+                work = {
+                    # s, dp, dq; inputs q k v dout lse delta, output dq
+                    "flash_attention_bwd_dq": ((3 * q.numel() + 2 * k.numel()) * its + rows, 3 * 2 * b * h * pairs * hd),
+                    # s, dp, dv, dk; outputs dk dv
+                    "flash_attention_bwd_dkv": ((2 * q.numel() + 4 * k.numel()) * its + rows, 4 * 2 * b * h * pairs * hd),
+                }
+                both, fwd = _sdpa_bwd(q, k, v, dout)
+                library = _time_ms(both, iters=50) - _time_ms(fwd, iters=50)
+                calls = {
+                    "flash_attention_bwd_dq": (lambda: flash_attention_bwd_dq(*args, **kw),
+                                               lambda: flash_attention_bwd_dq_ref(*args, **kw)),
+                    "flash_attention_bwd_dkv": (lambda: flash_attention_bwd_dkv(*args, **kw),
+                                                lambda: flash_attention_bwd_dkv_ref(*args, **kw)),
+                }
+                for n, (kern, plain) in calls.items():
+                    bound, bound_by = _bound_ms(*work[n], peak)
+                    timing[(n, dname)] = {
+                        "ms": _time_ms(kern, iters=50), "plain_ms": _time_ms(plain, iters=20),
+                        "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
+                    }
+        print(f"attention backward kernels agree with plain versions in {dname}, bitwise on a second call", flush=True)
+    for (name, dname), t in timing.items():
+        print(f"time {name} training shape {dname}: " + json.dumps(t), flush=True)
+    # the training path runs in bf16: its times go in the table
+    return errs, {n: timing[(n, "bfloat16")] for n in BWD_KERNELS}
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 
@@ -484,6 +610,44 @@ def small_input_agreement():
 
     print("small epoch gaps, cuda vs ref: " + json.dumps(gaps(runs[0], runs[1])), flush=True)
     print("small epoch gaps, ref vs ref:  " + json.dumps(gaps(runs[2], runs[1])), flush=True)
+
+
+def _lm_grads(cfg, params, batch):
+    """``lm_loss`` and its gradients (flattened) through the kernels
+    (backend "cuda") and through plain autograd (backend "ref")."""
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.utils.trees import flatten_dict, value_and_grad
+
+    out = {}
+    for backend in ("cuda", "ref"):
+        c = cfg.replace(backend=backend)
+        loss, grads = value_and_grad(lambda p: lm_loss(p, c, batch)[0], params)
+        layers = grads.pop("layers")
+        flat = flatten_dict(grads)
+        for i, layer in enumerate(layers):
+            flat.update({f"layers/{i}/{p}": g for p, g in flatten_dict(layer).items()})
+        out[backend] = {"loss": loss, **flat}
+    return out["cuda"], out["ref"]
+
+
+def lm_small_input_agreement():
+    """Reduced smollm-135m in f32: the gradients of one ``lm_loss`` through
+    the attention kernels agree with plain autograd."""
+    import torch
+
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.models.transformer import init_lm
+
+    dev = torch.device("cuda")
+    cfg = reduced_variant(get_arch("smollm-135m")).replace(dtype="float32", param_dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(3))
+    batch = {n: torch.as_tensor(a, device=dev) for n, a in make_token_stream(3, cfg.vocab_size, 4, 64).items()}
+    got, want = _lm_grads(cfg, params, batch)
+    worst = max(_err(f"reduced lm_loss {name}", got[name], w) for name, w in want.items())
+    print(f"small input: reduced smollm-135m lm_loss gradients, kernels vs plain autograd, largest abs err {worst:.3e}",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -599,6 +763,88 @@ def serving_path():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7
+
+
+def lm_training_path():
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_lm
+
+    dev = torch.device("cuda")
+    # one f32 step at full width: kernel gradients against plain autograd
+    cfg = get_arch("smollm-135m").replace(dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(5))
+    batch = {n: torch.as_tensor(a, device=dev) for n, a in make_token_stream(5, cfg.vocab_size, 2, TRAIN["seq"]).items()}
+    got, want = _lm_grads(cfg, params, batch)
+    gaps = {}
+    for name, w in want.items():
+        g = got[name]
+        if not bool(torch.isfinite(g).all()):
+            fail(f"f32 full-width step: gradient {name} not finite")
+        gaps[name] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    worst = max(gaps, key=gaps.get)
+    print(f"f32 full-width lm_loss step: loss {float(got['loss']):.6f} (plain {float(want['loss']):.6f}); largest "
+          f"gradient gap relative to the leaf's largest gradient {gaps[worst]:.3e} ({worst})", flush=True)
+    if gaps[worst] > 1e-3:
+        fail(f"f32 full-width step: gradient gap {gaps[worst]:.3e} at {worst} beyond 1e-3")
+    del params, got, want
+
+    argv = ["--arch", "smollm-135m", "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+            "--steps", str(TRAIN["steps"]), "--optimizer", "adamw", "--device", "cuda"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: launch_counts()[n] for n in TRAIN_KERNELS}
+    losses = result["losses"]
+    summary = {k: result[k] for k in ("first10", "last10", "s_per_step", "tok_per_s", "max_memory_bytes", "params")}
+    print(f"LM training path ({wall:.1f} s with set-up): {json.dumps(summary)}; launches {json.dumps(counts)}", flush=True)
+    want_n = TRAIN["layers"] * TRAIN["steps"]
+    for name, n in counts.items():
+        if n != want_n:
+            fail(f"LM training path launched {name} {n} times, expected {want_n}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"LM training path: non-finite loss in {losses}")
+    if not result["last10"] < result["first10"]:
+        fail(f"LM training path: loss did not fall (first-10 {result['first10']:.4f}, last-10 {result['last10']:.4f})")
+    print(f"LM training: {result['s_per_step']:.4f} s/step, {result['tok_per_s']:.1f} tokens/s after the first step, "
+          f"max_memory_allocated {result['max_memory_bytes']} bytes, loss {np.mean(losses[:10]):.4f} -> "
+          f"{np.mean(losses[-10:]):.4f}", flush=True)
+    return counts
+
+
+def lm_distill_path():
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import distill_llm
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = distill_llm.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: launch_counts()[n] for n in TRAIN_KERNELS}
+    print(f"LM distillation path ({wall:.1f} s with set-up): kd {result['kd']}, final w {result['w'][-1]}; "
+          f"launches {json.dumps(counts)}", flush=True)
+    if len(result["kd"]) != 8 or not all(math.isfinite(x) for x in result["kd"]):
+        fail(f"LM distillation path: kd not finite at every epoch: {result['kd']}")
+    for w in result["w"]:
+        if abs(sum(w) - 1.0) > 1e-5:
+            fail(f"LM distillation path: w {w} does not sum to 1")
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"LM distillation path never launched {name}")
+
+
 def main() -> None:
     environment()
     import torch
@@ -607,10 +853,19 @@ def main() -> None:
     attn_errs, attn_timing = attention_kernels_vs_plain()
     errs.update(attn_errs)
     timing.update(attn_timing)
+    bwd_errs, bwd_timing = attention_bwd_kernels_vs_plain()
+    errs.update(bwd_errs)
+    timing.update(bwd_timing)
     small_input_agreement()
+    lm_small_input_agreement()
     counts = main_path()
     serving_parity_f32()
-    counts.update(serving_path())
+    serving = serving_path()
+    counts.update(serving)
+    counts.update(lm_training_path())
+    print(f"flash_attention_fwd launches: serving path {serving['flash_attention_fwd']}, "
+          f"LM training path {counts['flash_attention_fwd']} (the table's)", flush=True)
+    lm_distill_path()
     print("kernels: " + json.dumps({n: {"launches": counts[n], "max_abs_err": errs[n]} for n in REPLACES}))
     table = [
         {

@@ -9,16 +9,25 @@ from repro_torch.kernels.dispatch import check_backend
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Trainer knobs (client local training reuses this)."""
+    """Trainer knobs (client local training, server distillation and LM
+    training reuse this)."""
 
-    optimizer: str = "sgdm"  # sgdm | adam
+    optimizer: str = "sgdm"  # sgd | sgdm | adam | adamw
     learning_rate: float = 0.01
     momentum: float = 0.9
+    weight_decay: float = 0.0
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
+    grad_clip_norm: float = 0.0
+    schedule: str = "constant"  # constant | cosine | linear_warmup_cosine
+    warmup_steps: int = 0
+    total_steps: int = 1000
     batch_size: int = 128
     seed: int = 0
+    microbatches: int = 1  # grad accumulation inside a train step
+    state_dtype: str = ""  # optimizer slot dtype override (e.g. "bfloat16")
+    grad_dtype: str = ""  # cast grads before the optimizer (e.g. "bfloat16")
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,9 @@
 """Carry parameters between the JAX package and the port.
 
 The CNN and generator weights of the Co-Boosting path (below), and the
-server LM's weights (:func:`lm_params_from_jax`, at the end).
+server LM's weights (:func:`lm_params_from_jax`, at the end), one model or
+K client models stacked on a leading axis
+(:func:`lm_stacked_params_from_jax`).
 
 A JAX parameter tree travels as numpy arrays, either nested or flattened
 to ``a/b/c`` paths (:func:`repro_torch.utils.trees.flatten_dict`). The
@@ -22,7 +24,7 @@ flattened from NHWC; the port flattens in NHWC order too
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -31,9 +33,10 @@ from repro_torch.models.cnn import CNN_ARCHS
 from repro_torch.utils.trees import flatten_dict, unflatten_dict
 
 GENERATOR = "image_generator"
-ARCHS = CNN_ARCHS + (GENERATOR,)
+EMBEDDING_GENERATOR = "embedding_generator"
+ARCHS = CNN_ARCHS + (GENERATOR, EMBEDDING_GENERATOR)
 
-_KEEP_LAYOUT = {GENERATOR: ("label_embed",)}
+_KEEP_LAYOUT = {GENERATOR: ("label_embed",), EMBEDDING_GENERATOR: ("label_embed",)}
 
 
 def _check_arch(arch: str) -> None:
@@ -62,7 +65,7 @@ def _to_jax(path: str, a: np.ndarray, keep: bool) -> np.ndarray:
 
 
 def params_from_jax(arch: str, tree: Dict[str, Any], device="cpu", dtype=torch.float32) -> Dict[str, Any]:
-    """JAX params of ``arch`` (a CNN arch or ``"image_generator"``) as numpy
+    """JAX params of ``arch`` (a CNN arch or a generator) as numpy
     arrays → the port's nested dict of tensors on ``device``."""
     _check_arch(arch)
     keep = _KEEP_LAYOUT.get(arch, ())
@@ -162,3 +165,19 @@ def _check_lm_tree(cfg, params: Dict[str, Any]) -> None:
     got_top = set(flatten_dict({k: v for k, v in params.items() if k != "layers"}))
     if got_top != top_keys:
         raise ValueError(f"top-level leaves {sorted(got_top)} != {sorted(top_keys)}")
+
+
+def lm_stacked_params_from_jax(cfg, tree: Dict[str, Any], device="cpu") -> List[Dict[str, Any]]:
+    """JAX LM params stacked on a leading client axis K (the
+    ``core.distributed`` layout) → a list of K port param dicts."""
+    flat = {p: np.asarray(a) for p, a in flatten_dict(tree).items()}
+    k = {a.shape[0] for a in flat.values()}
+    if len(k) != 1:
+        raise ValueError(f"stacked leaves disagree on the client axis: {sorted(k)}")
+    return [lm_params_from_jax(cfg, unflatten_dict({p: a[i] for p, a in flat.items()}), device) for i in range(k.pop())]
+
+
+def lm_stacked_params_to_jax(cfg, clients: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The inverse of :func:`lm_stacked_params_from_jax`."""
+    flats = [flatten_dict(lm_params_to_jax(cfg, p)) for p in clients]
+    return unflatten_dict({path: np.stack([f[path] for f in flats]) for path in flats[0]})

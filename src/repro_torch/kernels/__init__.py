@@ -5,7 +5,8 @@
 * :mod:`repro_torch.kernels.ghm_ce`      — fused GHM-difficulty CE
   (Eq. 5–6, Eq. 11), forward and backward
 * :mod:`repro_torch.kernels.flash_attention` — blocked causal / SWA /
-  softcap attention forward with GQA (CUDA C++, train/prefill)
+  softcap attention with GQA, forward and backward (dq and dk/dv passes;
+  CUDA C++, train/prefill)
 * :mod:`repro_torch.kernels.flash_decode` — paged Sq=1 decode attention
   (CUDA C++, inference-only)
 

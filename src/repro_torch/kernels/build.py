@@ -42,6 +42,8 @@ LAUNCHES: Dict[str, int] = {
     "ghm_ce_fwd": 0,
     "ghm_ce_bwd": 0,
     "flash_attention_fwd": 0,
+    "flash_attention_bwd_dq": 0,
+    "flash_attention_bwd_dkv": 0,
     "flash_decode": 0,
 }
 

@@ -43,7 +43,7 @@ from repro_torch.serve import (
     latency_summary,
     static_generate,
 )
-from repro_torch.utils.device import disable_tf32, get_device
+from repro_torch.utils.device import disable_tf32, get_device, profiled
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("serve")
@@ -149,7 +149,7 @@ def run_continuous(args, cfg, params) -> dict:
     engine.warmup(requests[0].tokens, min(2, args.gen))
     busy = None
     if args.profile:
-        completions, busy, wall = _profiled(lambda: sched.run(requests))
+        completions, busy, wall = profiled(lambda: sched.run(requests), log)
         log.info("profile: device busy %.3fs of %.3fs wall (%.1f%% idle)", busy, wall, 100.0 * (1 - busy / wall))
     else:
         t0 = time.perf_counter()
@@ -174,23 +174,6 @@ def run_continuous(args, cfg, params) -> dict:
         )
     log.info("sample continuation (rid 0): %s", completions[0].tokens[:16].tolist())
     return {**s, "wall_s": wall, "device_busy_s": busy, "stats": dict(engine.stats), "completions": completions}
-
-
-def _profiled(fn):
-    """Run ``fn`` under ``torch.profiler`` (device activity only, which
-    keeps the host's pace); log the kernels by device time and return
-    ``(fn(), seconds the device spent in kernels and copies, wall seconds
-    of fn)``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    log.info("profile:\n%s", events.table(sort_by="self_cuda_time_total", row_limit=15))
-    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    return out, sum(e.self_device_time_total for e in on_device) / 1e6, wall
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -1,6 +1,9 @@
 """The paper's label-conditional image generator (the port of
 ``repro.models.generator.image_generator``): a latent-to-image decoder
-(dense → 2× upsample conv stack → tanh).
+(dense → 2× upsample conv stack → tanh); and the embedding-space generator
+of LM-scale Co-Boosting (``embedding_generator``): tokens are discrete, so
+for token models the generator synthesizes (B, S, d_model) sequences that
+the client ensemble reads in place of embedded tokens.
 
 Normalization is batch norm over (B, H, W) computed on the fly from batch
 statistics with the biased variance — the generator only ever runs in
@@ -68,3 +71,29 @@ def image_generator(params: Dict, z: torch.Tensor, y: torch.Tensor, out_shape: T
     x = F.leaky_relu(_bn(conv2d(x, params["conv2"]), **params["bn2"]), 0.2)
     x = torch.tanh(conv2d(x, params["conv3"]))
     return x.permute(0, 2, 3, 1)
+
+
+def init_embedding_generator(
+    gen: torch.Generator, latent_dim: int, num_classes: int, seq_len: int, d_model: int, hidden: int = 256,
+    device=None,
+) -> Dict:
+    """Dense weights in the ``nn.Linear`` layout (out, in); the reference's
+    are (in, out) (:mod:`repro_torch.convert` carries them across)."""
+    device = device if device is not None else gen.device
+    dh = min(d_model, hidden)
+    return {
+        "label_embed": torch.randn((num_classes, latent_dim), generator=gen, device=device) * 0.1,
+        "fc1": _dense_init(gen, 2 * latent_dim, hidden, device),
+        "fc2": _dense_init(gen, hidden, seq_len * dh, device),
+        "proj": _dense_init(gen, dh, d_model, device),
+    }
+
+
+def embedding_generator(params: Dict, z: torch.Tensor, y: torch.Tensor, seq_len: int, hidden: int = 256) -> torch.Tensor:
+    """z: (B, nz); y: (B,) int labels. Returns (B, S, d_model) synthetic
+    embeddings."""
+    dh = params["proj"].shape[1]
+    x = torch.cat([z, params["label_embed"][y]], dim=-1)
+    x = F.relu(F.linear(x, params["fc1"]))
+    x = torch.tanh(F.linear(x, params["fc2"]).reshape(-1, seq_len, dh))
+    return F.linear(x, params["proj"])

@@ -1,5 +1,5 @@
 """The decoder LM, dense family (the port's copy of
-``repro.models.transformer``, serving path).
+``repro.models.transformer``: the training and serving paths).
 
 A model is a stack of blocks ``(attn, mlp)``: pre-norm attention and a
 pre-norm MLP, each with a residual. The JAX package stacks layers by group
@@ -7,6 +7,11 @@ pre-norm MLP, each with a residual. The JAX package stacks layers by group
 port keeps one dict per layer in ``params["layers"]`` and loops
 (:mod:`repro_torch.convert` moves weights between the two). Weights keep
 the JAX einsum layouts.
+
+Training (:func:`lm_loss`) differentiates the f32 parameter leaves
+directly: weights are cast to the activation dtype where they are used,
+and nothing autograd saved is written in place. :func:`cast_weights` is for
+serving only.
 
 The decode state stacks every layer's cache on a leading axis, as the JAX
 state does: ``{"k", "v"}`` of shape ``(L, B, cache_len, KH, hd)`` for the
@@ -93,6 +98,16 @@ def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"]["table"][tokens].to(dtype_of(cfg.dtype))
 
 
+def _embed_inputs(params, cfg, batch) -> torch.Tensor:
+    """The trunk's input: ``batch["embeds"]`` (B, S, d), synthetic
+    embedding-space sequences of the LM-scale Co-Boosting generator path,
+    cast to the activation dtype with no token embedding; else the embedded
+    ``batch["tokens"]``."""
+    if "embeds" in batch:
+        return batch["embeds"].to(dtype_of(cfg.dtype))
+    return embed_tokens(params, cfg, batch["tokens"])
+
+
 def head_matrix(params, cfg) -> torch.Tensor:
     """The (d, V) output projection."""
     if cfg.tie_embeddings:
@@ -136,8 +151,37 @@ def _run_blocks(params, cfg, x, mode: str, state=None, pos=None, page_table=None
 
 def lm_forward(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits, aux loss = 0 for dense)."""
-    x = _run_blocks(params, cfg, embed_tokens(params, cfg, batch["tokens"]), "train")
+    x = _run_blocks(params, cfg, _embed_inputs(params, cfg, batch), "train")
     return lm_logits(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def lm_features(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Post-final-norm trunk features (B, S, d): the LM head factored out,
+    so vocab-sized tensors can be made a chunk at a time (the chunked
+    distillation loss, ``core.distributed.coboost_distill_loss``)."""
+    x = _run_blocks(params, cfg, _embed_inputs(params, cfg, batch), "train")
+    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps), torch.zeros((), device=x.device)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE in f32. logits (B, S, V) of any float dtype;
+    labels (B, S) int; ``mask`` (B, S) weights the positions (the mean is
+    over its sum, at least 1)."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(loss, {"ce", "moe_aux"})``: CE of the logits against
+    ``batch["labels"]`` (masked by ``batch["mask"]`` where given); a dense
+    model has no router loss, so the total is the CE."""
+    logits, aux = lm_forward(params, cfg, batch)
+    loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return loss, {"ce": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

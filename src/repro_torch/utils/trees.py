@@ -1,13 +1,14 @@
 """Parameter-tree utilities.
 
-Params in the port are nested ``dict``s of tensors, as in the JAX package;
+Params in the port are nested ``dict``s of tensors, as in the JAX package
+(the LM keeps a ``list`` of per-layer dicts, which the maps walk too);
 non-tensor leaves (``"stride"`` in a residual block) stay plain Python
 values and pass through every map untouched. Paths are "/"-joined key
 strings (e.g. ``"b2/c1"``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
@@ -36,31 +37,37 @@ def unflatten_dict(d: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def tree_map(fn: Callable[..., torch.Tensor], tree: Dict[str, Any], *rest: Dict[str, Any]) -> Dict[str, Any]:
+def tree_leaves(tree: Dict[str, Any]) -> List[torch.Tensor]:
+    """The tensor leaves of ``tree``, in its key order (lists of dicts, like
+    the LM's ``params["layers"]``, included)."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
     """Map ``fn`` over the tensor leaves of ``tree`` (and the matching leaves
-    of ``rest``); non-tensor leaves of ``tree`` are kept as they are."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = tree_map(fn, v, *(r[k] for r in rest))
-        elif torch.is_tensor(v):
-            out[k] = fn(v, *(r[k] for r in rest))
-        else:
-            out[k] = v
-    return out
+    of ``rest``), through dicts and lists; non-tensor leaves of ``tree`` are
+    kept as they are."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    if torch.is_tensor(tree):
+        return fn(tree, *rest)
+    return tree
 
 
-def value_and_grad(fn: Callable[..., torch.Tensor], params: Dict[str, Any], *args) -> Tuple[torch.Tensor, Dict[str, Any]]:
+def value_and_grad(fn: Callable[..., torch.Tensor], params: Any, *args) -> Tuple[torch.Tensor, Any]:
     """``(fn(params, *args), d fn / d params)``: the loss (detached) and a
     tree of gradients shaped like ``params``. Only the tensor leaves of
     ``params`` are differentiated; a leaf the loss does not reach gets a zero
     gradient, as ``jax.grad`` gives it."""
-    flat = flatten_dict(params)
-    keys = [k for k, v in flat.items() if torch.is_tensor(v)]
-    leaves = {k: flat[k].detach().requires_grad_() for k in keys}
-    loss = fn(unflatten_dict({**flat, **leaves}), *args)
-    grads = torch.autograd.grad(loss, [leaves[k] for k in keys], allow_unused=True)
-    gflat = {
-        k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(keys, grads)
-    }
-    return loss.detach(), unflatten_dict({**flat, **gflat})
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    it = iter(leaves)
+    loss = fn(tree_map(lambda _: next(it), params), *args)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads))
+    return loss.detach(), tree_map(lambda _: next(it), params)

@@ -2,7 +2,8 @@
 flash-attention forward (out and lse) against the Pallas kernel in
 interpret mode and ``flash_attention_ref``, the plain paged flash-decode
 against its Pallas kernel in interpret mode, and the ops' dispatch and
-backward contracts. The same seeded numpy inputs go into both; tolerance
+backward contracts (the backward's parity with JAX is in
+``tests/test_torch_attention_grad.py``). The same seeded numpy inputs go into both; tolerance
 1e-5 absolute in f32."""
 from __future__ import annotations
 
@@ -106,18 +107,20 @@ def test_flash_decode_plain_matches_jax(window, softcap):
 
 
 def test_attention_ops_dispatch_and_backward():
-    """``auto`` on CPU tensors runs the plain forward through the op; its
-    backward raises (kernels #6/#7 are not ported) rather than
-    differentiating the plain version; ``ref`` is plain autograd; the
+    """``auto`` on CPU tensors runs the plain forward through the op, and its
+    backward (the plain version of kernels #6/#7, recomputing from the saved
+    lse) gives the gradients of ``ref``, which is plain autograd; the
     decode op is inference-only under every backend; ``cuda`` refuses CPU
     tensors."""
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(1, 9, 9, 4, 2, 32))
+    ct = torch.from_numpy(np.random.default_rng(7).standard_normal((1, 9, 4, 32)).astype(np.float32))
     out = flash_attention(q, k, v, backend="auto")
     torch.testing.assert_close(out, flash_attention_ref_lse(q, k, v)[0], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="#6"):
-        out.sum().backward()
-    flash_attention(q, k, v, backend="ref").sum().backward()
-    assert torch.isfinite(q.grad).all() and torch.isfinite(k.grad).all()
+    got = torch.autograd.grad(torch.sum(out * ct), (q, k, v))
+    want = torch.autograd.grad(torch.sum(flash_attention(q, k, v, backend="ref") * ct), (q, k, v))
+    for a, r in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, r, rtol=0, atol=TOL)
     with pytest.raises(ValueError, match="requires CUDA tensors"):
         flash_attention(q, k, v, backend="cuda")
 

@@ -1,6 +1,6 @@
 """The port's kernels on the GPU (the Triton loss kernels and the CUDA C++
-attention kernels), against their plain PyTorch versions on the same
-inputs. These tests need a CUDA device (marker
+attention kernels, forward and backward), against their plain PyTorch
+versions on the same inputs, and one full-width training step. These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -18,8 +18,18 @@ import torch
 from repro_torch.kernels import ensemble_kl, ghm_ce, launch_counts, reset_launch_counts
 from repro_torch.kernels.ensemble_kl.kernel import ensemble_kl_bwd, ensemble_kl_fwd
 from repro_torch.kernels.ensemble_kl.ref import ensemble_kl_bwd_ref, ensemble_kl_fwd_ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref_lse
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_fwd,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_delta,
+    flash_attention_bwd_dkv_ref,
+    flash_attention_bwd_dq_ref,
+    flash_attention_ref_lse,
+)
 from repro_torch.kernels.flash_decode.kernel import flash_decode_fwd
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.ghm_ce.kernel import ghm_ce_bwd, ghm_ce_fwd
@@ -107,7 +117,7 @@ def test_ops_launch_kernels_and_match_ref_autograd(device):
     got = grads("cuda")
     assert launch_counts() == {
         "ensemble_kl_fwd": 1, "ensemble_kl_bwd": 1, "ghm_ce_fwd": 1, "ghm_ce_bwd": 1,
-        "flash_attention_fwd": 0, "flash_decode": 0,
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "flash_decode": 0,
     }
     for a, r in zip(got, grads("ref")):
         _close(a, r)
@@ -139,7 +149,9 @@ def _attn_inputs(b, sq, sk, h, kh, hd, dtype, device, seed=0):
 
 @pytest.mark.parametrize("shape", ATTN_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("causal,window,softcap", [(True, 0, 0.0), (True, 8, 0.0), (True, 0, 30.0), (False, 0, 0.0), (False, 16, 30.0)])
+@pytest.mark.parametrize(
+    "causal,window,softcap", [(True, 0, 0.0), (True, 8, 0.0), (True, 0, 30.0), (False, 0, 0.0), (False, 16, 30.0)]
+)
 def test_flash_attention_kernel_matches_plain(device, shape, dtype, causal, window, softcap):
     q, k, v = _attn_inputs(*shape, dtype, device)
     kw = dict(causal=causal, window=window, softcap=softcap)
@@ -153,6 +165,101 @@ def test_flash_attention_kernel_matches_plain(device, shape, dtype, causal, wind
     masked = want_lse == 1e30  # fully-masked rows: exactly 1e30 in both
     assert torch.equal(lse == 1e30, masked)
     _close(lse[~masked], want_lse[~masked])
+
+
+# (B, Sq, Sk, H, KH, hd) of the backward: the smollm-135m training shape,
+# a masked tail with hd 32, Sq > Sk (fully-masked rows under a window) with
+# hd 128, and Sq < Sk with G = 8
+BWD_SHAPES = [(2, 256, 256, 9, 3, 64), (2, 37, 37, 4, 2, 32), (1, 70, 33, 4, 1, 128), (2, 20, 45, 8, 1, 64)]
+BWD_MASKS = [(True, 0, 0.0), (True, 16, 30.0), (False, 0, 0.0), (False, 16, 30.0), (True, 8, 0.0)]
+
+
+def _bwd_inputs(shape, dtype, device, kw, seed=0):
+    """q, k, v, dout and the forward's residuals (plain forward in f32, so
+    both arms see the same lse and delta)."""
+    q, k, v = _attn_inputs(*shape, dtype, device, seed=seed)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed + 1)).to(dtype).to(device)
+    out, lse = flash_attention_ref_lse(q, k, v, **kw)
+    return q, k, v, dout, lse, attention_delta(out, dout)
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window,softcap", BWD_MASKS)
+def test_flash_attention_bwd_kernels_match_plain(device, shape, dtype, causal, window, softcap):
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v, dout, lse, delta = _bwd_inputs(shape, dtype, device, kw)
+    reset_launch_counts()
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention_bwd_dq"] == 1 and counts["flash_attention_bwd_dkv"] == 1
+    assert dq.dtype == dtype and dk.dtype == dtype and dv.dtype == dtype
+    _close(dq, flash_attention_bwd_dq_ref(q, k, v, dout, lse, delta, **kw))
+    for got, want in zip((dk, dv), flash_attention_bwd_dkv_ref(q, k, v, dout, lse, delta, **kw)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_bwd_kernels_are_deterministic(device, dtype):
+    """No atomics: a second call gives the same bits."""
+    kw = dict(causal=True, window=0, softcap=0.0)
+    args = _bwd_inputs(BWD_SHAPES[0], dtype, device, kw, seed=4)
+    first = (flash_attention_bwd_dq(*args, **kw), *flash_attention_bwd_dkv(*args, **kw))
+    second = (flash_attention_bwd_dq(*args, **kw), *flash_attention_bwd_dkv(*args, **kw))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_op_backward_launches_kernels(device):
+    """Through the autograd.Function: the forward and both backward kernels
+    launch once each, and the gradients match autograd of the plain op."""
+    q0, k0, v0 = _attn_inputs(2, 37, 37, 4, 2, 32, torch.float32, device, seed=5)
+    ct = torch.randn(q0.shape, generator=torch.Generator().manual_seed(6)).to(device)
+
+    def grads(backend):
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        out = flash_attention(q, k, v, causal=True, window=16, softcap=30.0, backend=backend)
+        return torch.autograd.grad(torch.sum(out * ct), (q, k, v))
+
+    reset_launch_counts()
+    got = grads("cuda")
+    counts = launch_counts()
+    assert (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"], counts["flash_attention_bwd_dkv"]) == (1, 1, 1)
+    for a, r in zip(got, grads("ref")):
+        _close(a, r)
+
+
+def test_full_width_training_step_on_card(device):
+    """One bf16 AdamW step of smollm-135m at full width (30 layers, batch 2,
+    seq 128) through the attention kernels: 30 launches of each, a finite
+    loss near log(V), finite parameters that moved."""
+    import math
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.config.train import TrainConfig
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = get_arch("smollm-135m")
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0))
+    step = make_train_step(cfg, TrainConfig(optimizer="adamw", learning_rate=1e-3))
+    opt_state = step.optimizer.init(params)
+    data = make_token_stream(0, cfg.vocab_size, 2, 128)
+    batch = {n: torch.as_tensor(a, device=device) for n, a in data.items()}
+    before = params["layers"][0]["attn"]["wq"].clone()
+    reset_launch_counts()
+    params, opt_state, metrics = step(params, opt_state, batch, 0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    assert all(counts[n] == cfg.num_layers for n in kernels)
+    loss = float(metrics["loss"])
+    assert math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 1.0
+    wq = params["layers"][0]["attn"]["wq"]
+    assert torch.isfinite(wq).all() and not torch.equal(wq, before)
 
 
 def _decode_inputs(b, h, kh, hd, ps, w, window, dtype, device, seed=0):
@@ -230,6 +337,12 @@ def test_attention_wrappers_reject_bad_inputs(device):
     q, k, v = _attn_inputs(1, 8, 8, 4, 2, 32, torch.float32, device)
     with pytest.raises(ValueError, match="share"):
         flash_attention_fwd(q, k.bfloat16(), v)
+    out, lse = flash_attention_fwd(q, k, v)
+    delta = attention_delta(out, q)
+    with pytest.raises(ValueError, match="dout must match q"):
+        flash_attention_bwd_dq(q, k, v, q.bfloat16(), lse, delta)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention_bwd_dkv(q, k, v, q, lse.bfloat16(), delta)
     qd, kp, vp, table, pos, kw = _decode_inputs(2, 4, 2, 32, 8, 3, 0, torch.float32, device)
     with pytest.raises(ValueError, match="int32"):
         flash_decode_fwd(qd, kp, vp, table.long(), pos, **kw)
