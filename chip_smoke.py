@@ -8,38 +8,47 @@ result line):
 
 1. Environment: torch / CUDA / Triton versions and the card's name and power
    limit (``nvidia-smi``). No CUDA device, or no ``src/repro_torch`` beside
-   this script, fails here. The three CUDA C++ sources are then built from
+   this script, fails here. The four CUDA C++ sources are then built from
    the checkout, one ``nvcc`` each, all started together.
 2. Kernel vs plain: each of the four Triton kernels (``ensemble_kl`` and
    ``ghm_ce``, forward and backward) is built from the checkout's sources
    and held against its plain PyTorch version on the card, in every mode,
    at the main path's shapes (K=5, B=128, V=10, f32) and at a wide tail case
-   (K=5, B=37, V=32003, f32 and bf16). Then the two CUDA C++ attention
-   kernels, in f32 and bf16: ``flash_attention_fwd`` at the smollm-135m
-   prefill shape (8 prompts × 128 tokens, 9 heads over 3 kv heads, hd 64,
-   causal) and at a tail case (Sq = Sk = 37, hd 32, with window and
-   softcap), ``flash_decode`` at the smollm-135m decode shape (8 slots,
-   16-token pages, 12 table entries) and in a windowed ring case.
+   (K=5, B=37, V=32003, f32 and bf16). Then the CUDA C++ attention
+   kernels, in f32 (the CUDA-core kernels) and bf16 (the tensor-core
+   kernels of ``flash_attention_sm90.cu``, ``_sm90`` below, and the
+   CUDA-core ones named by the caller): ``flash_attention_fwd`` at the
+   smollm-135m prefill shape (8 prompts × 128 tokens, 9 heads over 3 kv
+   heads, hd 64, causal), at its training shape (8 × 256 tokens), at tail
+   cases (Sq = Sk = 37, hd 32, with and without window and softcap) and at
+   a non-causal windowed case with Sq > Sk, hd 128 and fully-masked rows;
+   ``flash_decode`` at the smollm-135m decode shape (8 slots, 16-token
+   pages, 12 table entries) and in a windowed ring case.
    Tolerance, elementwise:
    ``|got − want| ≤ tol·(|want| + max(1, max|want|))`` with tol = 1e-4 for
    f32 outputs and 2^-7 (one bf16 rounding step) for outputs stored in bf16.
    Then the two flash-attention backward kernels (``flash_attention_bwd_dq``
    and ``flash_attention_bwd_dkv``) against ``flash_attention_bwd_ref``, in
-   f32 and bf16: at the smollm-135m training shape (8 × 256 tokens, 9 heads
-   over 3 kv heads, hd 64, causal), a tail case (Sq = Sk = 37, hd 32,
-   window 16, softcap 30) and a non-causal case with Sq ≠ Sk and hd 128; a
-   second call must give the same bits.
-   Times: CUDA events around back-to-back calls of the wrapper; for
-   ``flash_attention_fwd`` also PyTorch's ``scaled_dot_product_attention``
-   on the same inputs, and for the backward kernels its backward (its
-   forward+backward time less its forward time): the library times, which
-   the port never calls.
+   f32 and bf16 (the dk/dv pass in bf16 through both variants): at the
+   smollm-135m training shape (8 × 256 tokens, 9 heads over 3 kv heads,
+   hd 64, causal), a tail case (Sq = Sk = 37, hd 32, window 16, softcap
+   30) and two non-causal cases with Sq ≠ Sk and hd 128, one windowed with
+   fully-masked rows; a second call must give the same bits.
+   Times: CUDA events around back-to-back calls of the wrapper (``ms``,
+   the table's), and in bf16 also the device alone: calls captured in a
+   CUDA graph and replayed (``device_ms``); ``flash_attention_fwd`` in both
+   variants at the prefill and the training shapes, the dk/dv pass in both
+   variants and the dq pass at the training shape. Beside them PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs, its forward for the
+   forward, its backward (forward+backward less forward) for the backward
+   passes: the library times, which the port never calls.
 3. Small-input agreement: at a small size, the gradients of the generator
    loss, the distillation loss and the EE loss through the kernels (backend
    "cuda") agree with plain autograd (backend "ref") at the tolerance above;
    one epoch per backend runs to finite losses, and its parameter gaps are
    printed. Then the reduced smollm-135m in f32: the gradients of one
-   ``lm_loss`` through the attention kernels agree with plain autograd.
+   ``lm_loss`` through the attention kernels agree with plain autograd; the
+   run must have gone through the CUDA-core kernels only.
 4. Training path: ``repro_torch.launch.ofl`` at the paper's image width
    (5×cnn5 clients, cnn5 server, 32×32×3, 10 classes, synthetic batch 128,
    gen_iters 30) for a few epochs, with the launch counters reset just
@@ -49,26 +58,32 @@ result line):
    random weights from a seed). First an f32 check: 4 requests × 16 tokens
    through the paged engine give the same greedy tokens as the static
    dense-cache path (same prefill kernel; its top-2 logit margins must
-   exceed 1e-3). Then ``repro_torch.launch.serve`` in bf16: continuous
-   batching, paged KV, 16 requests, prompt 128, 64 new tokens, 8 slots,
-   page size 16, with the launch counters reset just before and read just
-   after; both attention kernels must have launched, every request must
+   exceed 1e-3), through the CUDA-core forward only. Then
+   ``repro_torch.launch.serve`` in bf16: continuous batching, paged KV, 16
+   requests, prompt 128, 64 new tokens, 8 slots, page size 16, with the
+   launch counters reset just before and read just after; both attention
+   kernels must have launched, every prefill through the tensor-core
+   forward, every request must
    come back with its 64 tokens, and tok/s and p50/p95 latency are printed.
    The run is then repeated under ``torch.profiler`` (device activity
    only) for the device's busy and idle share.
-6. LM training path: one f32 step of smollm-135m at full width, whose
-   gradients through the kernels are held against plain autograd (the
-   largest gap relative to each leaf's largest gradient is printed, and
-   must stay below 1e-3); then ``repro_torch.launch.train`` at full width in
-   bf16 with AdamW (batch 8, seq 256, 30 steps), with the launch counters
-   reset just before and read just after: the attention forward and both
-   backward kernels must each launch 30 layers × 30 steps times, every loss
+6. LM training path: one step of smollm-135m at full width, whose
+   gradients through the kernels are held against plain autograd: in f32
+   through the CUDA-core kernels (the largest gap relative to each leaf's
+   largest gradient is printed, and must stay below 1e-3), then in bf16
+   through the tensor-core ones (the gap is printed); then
+   ``repro_torch.launch.train`` at full width in bf16 with AdamW (batch 8,
+   seq 256, 30 steps), with the launch counters reset just before and read
+   just after: the attention forward and both backward kernels must each
+   launch 30 layers × 30 steps times, the forward and the dk/dv pass all
+   on the tensor cores, every loss
    must be finite and the last-10 mean below the first-10 mean; s/step,
    tokens/s after the first step and the peak device memory are printed.
 7. LM distillation path: ``repro_torch.launch.distill_llm`` at full width
    (K = 3 clients, 8 epochs of DHS, EE and distillation): ``kd`` finite at
    every epoch, ``w`` summing to 1, and both backward kernels launched (DHS
-   differentiates the clients, distillation the server).
+   differentiates the clients, distillation the server), the forward and
+   the dk/dv pass on the tensor cores.
 8. Summary: a ``kernels: {...}`` line, the JSON kernel table, and last the
    ``{"ok": true, "device": {...}}`` line.
 """
@@ -96,22 +111,29 @@ REPLACES = {
     "ghm_ce_fwd": "src/repro/kernels/ghm_ce/kernel.py:211",
     "ghm_ce_bwd": "src/repro/kernels/ghm_ce/kernel.py:143",
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:335",
+    "flash_attention_fwd_sm90": "src/repro/kernels/flash_attention/kernel.py:335",
     "flash_attention_bwd_dq": "src/repro/kernels/flash_attention/kernel.py:295",
     "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention/kernel.py:314",
+    "flash_attention_bwd_dkv_sm90": "src/repro/kernels/flash_attention/kernel.py:314",
     "flash_decode": "src/repro/kernels/flash_decode/kernel.py:109",
 }
 LOSS_KERNELS = ("ensemble_kl_fwd", "ensemble_kl_bwd", "ghm_ce_fwd", "ghm_ce_bwd")
-ATTN_KERNELS = ("flash_attention_fwd", "flash_decode")
-BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-TRAIN_KERNELS = ("flash_attention_fwd",) + BWD_KERNELS
+# the op counters (every launch of the op) and their tensor-core variants,
+# which serve bf16; the CUDA-core kernels serve f32
+SM90 = {"flash_attention_fwd": "flash_attention_fwd_sm90", "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_sm90"}
+ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90", "flash_decode")
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90")
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90") + BWD_KERNELS
 SOURCES = {
     "ensemble_kl_fwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
     "ensemble_kl_bwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
     "ghm_ce_fwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
     "ghm_ce_bwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
     "flash_attention_fwd": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+    "flash_attention_fwd_sm90": "src/repro_torch/kernels/flash_attention/flash_attention_sm90.cu",
     "flash_attention_bwd_dq": "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
     "flash_attention_bwd_dkv": "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv_sm90": "src/repro_torch/kernels/flash_attention/flash_attention_sm90.cu",
     "flash_decode": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
 }
 ROUTES = {n: "triton" if n in LOSS_KERNELS else "cuda" for n in REPLACES}
@@ -153,11 +175,12 @@ def environment():
     disable_tf32()
     from repro_torch.kernels.build import build_cuda_libraries
     from repro_torch.kernels.flash_attention.kernel import BWD_SOURCE as FA_BWD_SOURCE
+    from repro_torch.kernels.flash_attention.kernel import SM90_SOURCE as FA_SM90_SOURCE
     from repro_torch.kernels.flash_attention.kernel import SOURCE as FA_SOURCE
     from repro_torch.kernels.flash_decode.kernel import SOURCE as FD_SOURCE
 
     t0 = time.perf_counter()
-    build_cuda_libraries([FA_SOURCE, FA_BWD_SOURCE, FD_SOURCE])
+    build_cuda_libraries([FA_SOURCE, FA_BWD_SOURCE, FA_SM90_SOURCE, FD_SOURCE])
     print(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     return smi
 
@@ -206,6 +229,33 @@ def _time_ms(fn, iters=200, warmup=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, reps=20, iters=10):
+    """Device time per call: ``reps`` calls captured in one CUDA graph,
+    replayed ``iters`` times between CUDA events, so the host's cost per
+    call (Python, checks, the launch itself) is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graph asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def _bound_ms(nbytes, flops, peak=F32_FLOPS):
@@ -357,11 +407,25 @@ def _sdpa(q, k, v):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
 
+def _attn_fwd_bound(q, k, v, shape, peak):
+    """The forward's bound: bytes (q, k, v read once, out written once, lse
+    f32) and the causal half of the QK^T and PV products."""
+    b, sq, sk, h, kh, hd = shape
+    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + 4 * b * sq * h
+    flops = 4 * b * h * sq * sk * hd // 2
+    return _bound_ms(nbytes, flops, peak)
+
+
 def attention_kernels_vs_plain():
     """``flash_attention_fwd`` and ``flash_decode`` against their plain
-    versions, f32 and bf16, with times at the serving shapes."""
+    versions, f32 and bf16. bf16 goes to the tensor-core forward (``_sm90``)
+    and, named, to the CUDA-core one as well; f32 to the CUDA-core one.
+    Times at the serving prefill and the training shapes: the two variants
+    of the forward side by side with SDPA's forward on the same inputs,
+    per wrapper call (CUDA events) and on the device alone (CUDA graph)."""
     import torch
 
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref_lse
     from repro_torch.kernels.flash_decode.kernel import flash_decode_fwd
@@ -371,10 +435,14 @@ def attention_kernels_vs_plain():
     errs = {n: 0.0 for n in ATTN_KERNELS}
     timing = {}
     n_pre, lb = SERVE["slots"], SERVE["prompt"]
+    timed = {"smollm prefill": "prefill", "smollm train": "train"}
     attn_cases = [
         ("smollm prefill", (n_pre, lb, lb, 9, 3, 64), dict(causal=True)),
+        ("smollm train", (TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], 9, 3, 64), dict(causal=True)),
         ("tail", (2, 37, 37, 4, 2, 32), dict(causal=True)),
         ("tail window+softcap", (2, 37, 37, 4, 2, 32), dict(causal=True, window=8, softcap=30.0)),
+        # Sq > Sk, non-causal, window: the rows past the keys + window see none of them
+        ("cross hd128 window", (1, 70, 33, 4, 1, 128), dict(causal=False, window=16)),
     ]
     w_pages = (SERVE["prompt"] + SERVE["gen"]) // SERVE["page"]
     mid = SERVE["prompt"] + SERVE["gen"] // 2
@@ -387,23 +455,35 @@ def attention_kernels_vs_plain():
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        # bf16: the tensor-core kernel (picked by dtype) and the CUDA-core one (named)
+        variants = {None: "flash_attention_fwd"} if dtype == torch.float32 else {
+            None: "flash_attention_fwd_sm90", "cuda_core": "flash_attention_fwd"}
         for ci, (tag, shape, kw) in enumerate(attn_cases):
             q, k, v = _attn_case(*shape, dtype, seed=ci, device=dev)
-            out, lse = flash_attention_fwd(q, k, v, **kw)
             want_o, want_lse = flash_attention_ref_lse(q, k, v, **kw)
-            torch.cuda.synchronize()
-            name = f"flash_attention_fwd {tag} {dname}"
-            errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], _err(name + " out", out, want_o),
-                                              _lse_err(name + " lse", lse, want_lse))
-            if ci == 0:
-                b, sq, sk, h, kh, hd = shape
-                nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + 4 * b * sq * h
-                flops = 4 * b * h * sq * sk * hd // 2  # causal half of QK^T and PV
-                bound, bound_by = _bound_ms(nbytes, flops, peak)
-                timing[("flash_attention_fwd", dname)] = {
-                    "ms": _time_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
-                    "plain_ms": _time_ms(lambda: flash_attention_ref_lse(q, k, v, **kw)),
-                    "bound_ms": bound, "bound_by": bound_by, "library_ms": _time_ms(_sdpa(q, k, v)),
+            if tag == "cross hd128 window" and not bool((want_lse == 1e30).any()):
+                fail("the cross hd128 window case has no fully-masked row")
+            for variant, name in variants.items():
+                reset_launch_counts()
+                out, lse = flash_attention_fwd(q, k, v, variant=variant, **kw)
+                torch.cuda.synchronize()
+                if launch_counts()["flash_attention_fwd_sm90"] != int(name == "flash_attention_fwd_sm90"):
+                    fail(f"flash_attention_fwd {tag} {dname} variant {variant}: launched {launch_counts()}")
+                label = f"{name} {tag} {dname}"
+                errs[name] = max(errs[name], _err(label + " out", out, want_o), _lse_err(label + " lse", lse, want_lse))
+            if tag not in timed or (dtype == torch.float32 and tag != "smollm prefill"):
+                continue
+            bound, bound_by = _attn_fwd_bound(q, k, v, shape, peak)
+            plain_ms = _time_ms(lambda: flash_attention_ref_lse(q, k, v, **kw), iters=50)
+            library = _sdpa(q, k, v)
+            on_device = dtype == torch.bfloat16  # device times for the main paths' dtype
+            library_ms, library_dev = _time_ms(library), _graph_ms(library) if on_device else None
+            for variant, name in variants.items():
+                call = lambda: flash_attention_fwd(q, k, v, variant=variant, **kw)
+                timing[(name, timed[tag], dname)] = {
+                    "ms": _time_ms(call), "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": library_ms, "device_ms": _graph_ms(call) if on_device else None,
+                    "library_device_ms": library_dev,
                 }
         for ci, (tag, args) in enumerate(decode_cases):
             q, kp, vp, table, pos, kw, keys = _decode_case(*args, dtype, seed=10 + ci, device=dev)
@@ -416,16 +496,25 @@ def attention_kernels_vs_plain():
                 nbytes = 2 * keys * kh * hd * kp.element_size() + 2 * q.numel() * q.element_size() + 4 * (table.numel() + b)
                 flops = 4 * keys * (h // kh) * kh * hd
                 bound, bound_by = _bound_ms(nbytes, flops, peak)
-                timing[("flash_decode", dname)] = {
+                timing[("flash_decode", "decode", dname)] = {
                     "ms": _time_ms(lambda: flash_decode_fwd(q, kp, vp, table, pos, **kw)),
                     "plain_ms": _time_ms(lambda: flash_decode_ref(q, kp, vp, table, pos, **kw)),
                     "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
                 }
         print(f"attention kernels agree with plain versions in {dname}", flush=True)
-    for (name, dname), t in timing.items():
-        print(f"time {name} serving shape {dname}: " + json.dumps(t), flush=True)
-    # the serving path runs in bf16: its times go in the table
-    return errs, {n: timing[(n, "bfloat16")] for n in ATTN_KERNELS}
+    # the host's cost of a wrapper call: the tensor-core forward at a toy
+    # shape (one block), per call by CUDA events and on the device alone
+    q, k, v = _attn_case(1, 64, 64, 1, 1, 64, torch.bfloat16, seed=9, device=dev)
+    toy = lambda: flash_attention_fwd(q, k, v)
+    print(f"time flash_attention_fwd_sm90 at 1 x 64 tokens, 1 head (the wrapper's host floor): per call "
+          f"{_time_ms(toy):.6f} ms, device {_graph_ms(toy):.6f} ms", flush=True)
+    for (name, where, dname), t in timing.items():
+        print(f"time {name} {where} shape {dname}: " + json.dumps(t), flush=True)
+    # the main paths run in bf16: the table takes the forward at the training
+    # shape (where its launches are counted) and flash_decode at the decode shape
+    table = {n: timing[(n, "train", "bfloat16")] for n in ("flash_attention_fwd", "flash_attention_fwd_sm90")}
+    table["flash_decode"] = timing[("flash_decode", "decode", "bfloat16")]
+    return errs, {n: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} for n, t in table.items()}
 
 
 def _sdpa_bwd(q, k, v, dout):
@@ -443,10 +532,13 @@ def _sdpa_bwd(q, k, v, dout):
 
 def attention_bwd_kernels_vs_plain():
     """``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` against
-    their plain versions, f32 and bf16, a second call bitwise equal, with
-    times at the training shape."""
+    their plain versions, f32 and bf16 (the dk/dv pass in bf16 through the
+    tensor-core kernel, picked by dtype, and the CUDA-core one, named), a
+    second call bitwise equal; times at the training shape, per wrapper
+    call and on the device alone, beside SDPA's backward."""
     import torch
 
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_dkv, flash_attention_bwd_dq
     from repro_torch.kernels.flash_attention.ref import (
         _visible,
@@ -463,10 +555,13 @@ def attention_bwd_kernels_vs_plain():
         ("smollm train", (TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], 9, 3, 64), dict(causal=True)),
         ("tail window+softcap", (2, 37, 37, 4, 2, 32), dict(causal=True, window=16, softcap=30.0)),
         ("cross hd128", (2, 70, 45, 8, 2, 128), dict(causal=False)),
+        ("cross hd128 window", (1, 70, 33, 4, 1, 128), dict(causal=False, window=16)),  # fully-masked rows
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        dkv_variants = {None: "flash_attention_bwd_dkv"} if dtype == torch.float32 else {
+            None: "flash_attention_bwd_dkv_sm90", "cuda_core": "flash_attention_bwd_dkv"}
         for ci, (tag, shape, kw) in enumerate(cases):
             q, k, v = _attn_case(*shape, dtype, seed=20 + ci, device=dev)
             g = torch.Generator(device="cpu").manual_seed(30 + ci)
@@ -474,53 +569,71 @@ def attention_bwd_kernels_vs_plain():
             out, lse = flash_attention_ref_lse(q, k, v, **kw)
             delta = attention_delta(out, dout)
             args = (q, k, v, dout, lse, delta)
-            dq = flash_attention_bwd_dq(*args, **kw)
-            dk, dv = flash_attention_bwd_dkv(*args, **kw)
-            torch.cuda.synchronize()
             name = f"{tag} {dname}"
+            dq = flash_attention_bwd_dq(*args, **kw)
             want_dq = flash_attention_bwd_dq_ref(*args, **kw)
             errs["flash_attention_bwd_dq"] = max(
                 errs["flash_attention_bwd_dq"], _err(f"flash_attention_bwd_dq {name} dq", dq, want_dq)
             )
+            if not torch.equal(flash_attention_bwd_dq(*args, **kw), dq):
+                fail(f"flash_attention_bwd_dq {name}: a second call gave other bits")
             want_dk, want_dv = flash_attention_bwd_dkv_ref(*args, **kw)
-            errs["flash_attention_bwd_dkv"] = max(
-                errs["flash_attention_bwd_dkv"],
-                _err(f"flash_attention_bwd_dkv {name} dk", dk, want_dk),
-                _err(f"flash_attention_bwd_dkv {name} dv", dv, want_dv),
-            )
-            again = (flash_attention_bwd_dq(*args, **kw), *flash_attention_bwd_dkv(*args, **kw))
-            if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
-                fail(f"flash-attention backward {name}: a second call gave other bits")
-            if ci == 0:
-                b, sq, sk, h, kh, hd = shape
-                pairs = int(_visible(sq, sk, True, 0, "cpu").sum())  # the causal (query, key) pairs
-                its = q.element_size()
-                rows = 2 * 4 * b * sq * h  # lse and delta, f32
-                work = {
-                    # s, dp, dq; inputs q k v dout lse delta, output dq
-                    "flash_attention_bwd_dq": ((3 * q.numel() + 2 * k.numel()) * its + rows, 3 * 2 * b * h * pairs * hd),
-                    # s, dp, dv, dk; outputs dk dv
-                    "flash_attention_bwd_dkv": ((2 * q.numel() + 4 * k.numel()) * its + rows, 4 * 2 * b * h * pairs * hd),
+            for variant, kname in dkv_variants.items():
+                reset_launch_counts()
+                dk, dv = flash_attention_bwd_dkv(*args, variant=variant, **kw)
+                torch.cuda.synchronize()
+                if launch_counts()["flash_attention_bwd_dkv_sm90"] != int(kname == "flash_attention_bwd_dkv_sm90"):
+                    fail(f"flash_attention_bwd_dkv {name} variant {variant}: launched {launch_counts()}")
+                errs[kname] = max(errs[kname], _err(f"{kname} {name} dk", dk, want_dk), _err(f"{kname} {name} dv", dv, want_dv))
+                again = flash_attention_bwd_dkv(*args, variant=variant, **kw)
+                if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
+                    fail(f"{kname} {name}: a second call gave other bits")
+            if ci != 0:
+                continue
+            b, sq, sk, h, kh, hd = shape
+            pairs = int(_visible(sq, sk, True, 0, "cpu").sum())  # the causal (query, key) pairs
+            its = q.element_size()
+            rows = 2 * 4 * b * sq * h  # lse and delta, f32
+            work = {
+                # s, dp, dq; inputs q k v dout lse delta, output dq
+                "dq": ((3 * q.numel() + 2 * k.numel()) * its + rows, 3 * 2 * b * h * pairs * hd),
+                # s, dp, dv, dk; outputs dk dv
+                "dkv": ((2 * q.numel() + 4 * k.numel()) * its + rows, 4 * 2 * b * h * pairs * hd),
+            }
+            both, fwd = _sdpa_bwd(q, k, v, dout)
+            library = _time_ms(both, iters=50) - _time_ms(fwd, iters=50)
+            on_device = dtype == torch.bfloat16  # device times for the main paths' dtype
+            library_dev = _graph_ms(both) - _graph_ms(fwd) if on_device else None
+            calls = {"flash_attention_bwd_dq": ("dq", lambda: flash_attention_bwd_dq(*args, **kw),
+                                                lambda: flash_attention_bwd_dq_ref(*args, **kw))}
+            for variant, kname in dkv_variants.items():
+                calls[kname] = ("dkv", lambda variant=variant: flash_attention_bwd_dkv(*args, variant=variant, **kw),
+                                lambda: flash_attention_bwd_dkv_ref(*args, **kw))
+            for n, (w, kern, plain) in calls.items():
+                bound, bound_by = _bound_ms(*work[w], peak)
+                timing[(n, dname)] = {
+                    "ms": _time_ms(kern, iters=50), "plain_ms": _time_ms(plain, iters=20),
+                    "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
+                    "device_ms": _graph_ms(kern) if on_device else None, "library_device_ms": library_dev,
                 }
-                both, fwd = _sdpa_bwd(q, k, v, dout)
-                library = _time_ms(both, iters=50) - _time_ms(fwd, iters=50)
-                calls = {
-                    "flash_attention_bwd_dq": (lambda: flash_attention_bwd_dq(*args, **kw),
-                                               lambda: flash_attention_bwd_dq_ref(*args, **kw)),
-                    "flash_attention_bwd_dkv": (lambda: flash_attention_bwd_dkv(*args, **kw),
-                                                lambda: flash_attention_bwd_dkv_ref(*args, **kw)),
-                }
-                for n, (kern, plain) in calls.items():
-                    bound, bound_by = _bound_ms(*work[n], peak)
-                    timing[(n, dname)] = {
-                        "ms": _time_ms(kern, iters=50), "plain_ms": _time_ms(plain, iters=20),
-                        "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
-                    }
         print(f"attention backward kernels agree with plain versions in {dname}, bitwise on a second call", flush=True)
     for (name, dname), t in timing.items():
         print(f"time {name} training shape {dname}: " + json.dumps(t), flush=True)
     # the training path runs in bf16: its times go in the table
-    return errs, {n: timing[(n, "bfloat16")] for n in BWD_KERNELS}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return errs, {n: {k: timing[(n, "bfloat16")][k] for k in keys} for n in BWD_KERNELS}
+
+
+def _check_variants(where, counts, dtype):
+    """The attention launches of a run in ``dtype``: bf16 runs go through the
+    tensor-core kernels only (their counters equal the op counters), f32
+    runs through the CUDA-core kernels only; the forward ran at least once."""
+    if counts["flash_attention_fwd"] == 0:
+        fail(f"{where}: the attention forward never launched")
+    for op, variant in SM90.items():
+        want = counts[op] if dtype == "bfloat16" else 0
+        if counts[variant] != want:
+            fail(f"{where} ({dtype}): {variant} launched {counts[variant]} times, expected {want} of {counts[op]} {op}")
 
 
 # ---------------------------------------------------------------------------
@@ -638,13 +751,16 @@ def lm_small_input_agreement():
     from repro_torch.config.model import reduced_variant
     from repro_torch.config.registry import get_arch
     from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import init_lm
 
     dev = torch.device("cuda")
     cfg = reduced_variant(get_arch("smollm-135m")).replace(dtype="float32", param_dtype="float32")
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(3))
     batch = {n: torch.as_tensor(a, device=dev) for n, a in make_token_stream(3, cfg.vocab_size, 4, 64).items()}
+    reset_launch_counts()
     got, want = _lm_grads(cfg, params, batch)
+    _check_variants("reduced lm_loss", launch_counts(), "float32")
     worst = max(_err(f"reduced lm_loss {name}", got[name], w) for name, w in want.items())
     print(f"small input: reduced smollm-135m lm_loss gradients, kernels vs plain autograd, largest abs err {worst:.3e}",
           flush=True)
@@ -699,6 +815,7 @@ def serving_parity_f32():
 
     from repro_torch.config.registry import get_arch
     from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import init_lm, lm_forward
     from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine, static_generate
 
@@ -709,11 +826,13 @@ def serving_parity_f32():
     n, gen, prompt = 4, 16, SERVE["prompt"]
     tokens = make_token_stream(1, cfg.vocab_size, n, prompt)["tokens"]
     ecfg = EngineConfig(max_slots=n, max_seq=prompt + gen, max_new=gen, page_size=SERVE["page"], kv_layout="paged")
+    reset_launch_counts()
     comps = ContinuousScheduler(ServeEngine(cfg, params, ecfg), clock=ManualClock()).run(
         [Request(rid=i, tokens=tokens[i], max_new_tokens=gen) for i in range(n)]
     )
     prompts = torch.as_tensor(tokens, device=dev)
     want = static_generate(params, cfg, {"tokens": prompts}, gen)
+    _check_variants("f32 serving", launch_counts(), "float32")
     with torch.inference_mode():  # the logits behind each static token, teacher-forced
         logits, _ = lm_forward(params, cfg, {"tokens": torch.cat([prompts, want[:, :-1].to(prompts.dtype)], 1)})
     top2 = logits[:, prompt - 1 :].topk(2, dim=-1).values
@@ -745,6 +864,7 @@ def serving_path():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: launch_counts()[n] for n in ATTN_KERNELS}
+    _check_variants("serving path", launch_counts(), "bfloat16")
     comps = result["completions"]
     summary = {k: result[k] for k in ("tok_per_s", "tokens", "p50_s", "p95_s", "ttft_p50_s", "ttft_p95_s", "wall_s")}
     print(f"serving path ({wall:.1f} s with set-up): {json.dumps(summary)}", flush=True)
@@ -778,23 +898,37 @@ def lm_training_path():
     from repro_torch.models.transformer import init_lm
 
     dev = torch.device("cuda")
-    # one f32 step at full width: kernel gradients against plain autograd
-    cfg = get_arch("smollm-135m").replace(dtype="float32")
+    # one step at full width (f32 params), with f32 and then bf16 activations:
+    # kernel gradients against plain autograd
+    cfg = get_arch("smollm-135m")
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(5))
     batch = {n: torch.as_tensor(a, device=dev) for n, a in make_token_stream(5, cfg.vocab_size, 2, TRAIN["seq"]).items()}
-    got, want = _lm_grads(cfg, params, batch)
-    gaps = {}
-    for name, w in want.items():
-        g = got[name]
-        if not bool(torch.isfinite(g).all()):
-            fail(f"f32 full-width step: gradient {name} not finite")
-        gaps[name] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-    worst = max(gaps, key=gaps.get)
-    print(f"f32 full-width lm_loss step: loss {float(got['loss']):.6f} (plain {float(want['loss']):.6f}); largest "
-          f"gradient gap relative to the leaf's largest gradient {gaps[worst]:.3e} ({worst})", flush=True)
-    if gaps[worst] > 1e-3:
-        fail(f"f32 full-width step: gradient gap {gaps[worst]:.3e} at {worst} beyond 1e-3")
-    del params, got, want
+    def gaps(got, want):
+        """Each leaf's largest gap relative to its largest gradient:
+        ``(largest over leaves, its leaf, median over leaves)``."""
+        rel = {n: float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30) for n, w in want.items()}
+        worst = max(rel, key=rel.get)
+        return rel[worst], worst, float(np.median(list(rel.values())))
+
+    plain = {}
+    for dtype in ("float32", "bfloat16"):
+        reset_launch_counts()
+        got, plain[dtype] = _lm_grads(cfg.replace(dtype=dtype), params, batch)
+        _check_variants(f"{dtype} full-width step", launch_counts(), dtype)
+        for name, g in got.items():
+            if not bool(torch.isfinite(g).all()):
+                fail(f"{dtype} full-width step: gradient {name} not finite")
+        gap, leaf, median = gaps(got, plain[dtype])
+        print(f"{dtype} full-width lm_loss step, kernels vs plain autograd: loss {float(got['loss']):.6f} (plain "
+              f"{float(plain[dtype]['loss']):.6f}); largest gradient gap relative to the leaf's largest gradient "
+              f"{gap:.3e} ({leaf}), median over leaves {median:.3e}", flush=True)
+        if dtype == "float32" and gap > 1e-3:
+            fail(f"f32 full-width step: gradient gap {gap:.3e} at {leaf} beyond 1e-3")
+        del got
+    gap, leaf, median = gaps(plain["bfloat16"], plain["float32"])
+    print(f"yardstick, plain autograd in bf16 vs in f32 activations: largest gradient gap {gap:.3e} ({leaf}), "
+          f"median over leaves {median:.3e}", flush=True)
+    del params, plain
 
     argv = ["--arch", "smollm-135m", "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
             "--steps", str(TRAIN["steps"]), "--optimizer", "adamw", "--device", "cuda"]
@@ -804,6 +938,7 @@ def lm_training_path():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: launch_counts()[n] for n in TRAIN_KERNELS}
+    _check_variants("LM training path", launch_counts(), "bfloat16")
     losses = result["losses"]
     summary = {k: result[k] for k in ("first10", "last10", "s_per_step", "tok_per_s", "max_memory_bytes", "params")}
     print(f"LM training path ({wall:.1f} s with set-up): {json.dumps(summary)}; launches {json.dumps(counts)}", flush=True)
@@ -833,6 +968,7 @@ def lm_distill_path():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: launch_counts()[n] for n in TRAIN_KERNELS}
+    _check_variants("LM distillation path", launch_counts(), "bfloat16")
     print(f"LM distillation path ({wall:.1f} s with set-up): kd {result['kd']}, final w {result['w'][-1]}; "
           f"launches {json.dumps(counts)}", flush=True)
     if len(result["kd"]) != 8 or not all(math.isfinite(x) for x in result["kd"]):
@@ -863,8 +999,9 @@ def main() -> None:
     serving = serving_path()
     counts.update(serving)
     counts.update(lm_training_path())
-    print(f"flash_attention_fwd launches: serving path {serving['flash_attention_fwd']}, "
-          f"LM training path {counts['flash_attention_fwd']} (the table's)", flush=True)
+    print(f"flash_attention_fwd launches: serving path {serving['flash_attention_fwd']} (tensor cores "
+          f"{serving['flash_attention_fwd_sm90']}), LM training path {counts['flash_attention_fwd']} (tensor cores "
+          f"{counts['flash_attention_fwd_sm90']}; the table's)", flush=True)
     lm_distill_path()
     print("kernels: " + json.dumps({n: {"launches": counts[n], "max_abs_err": errs[n]} for n in REPLACES}))
     table = [

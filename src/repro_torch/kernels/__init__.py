@@ -6,7 +6,8 @@
   (Eq. 5–6, Eq. 11), forward and backward
 * :mod:`repro_torch.kernels.flash_attention` — blocked causal / SWA /
   softcap attention with GQA, forward and backward (dq and dk/dv passes;
-  CUDA C++, train/prefill)
+  CUDA C++, train/prefill; the forward and the dk/dv pass on the tensor
+  cores for bf16, on the CUDA cores for f32)
 * :mod:`repro_torch.kernels.flash_decode` — paged Sq=1 decode attention
   (CUDA C++, inference-only)
 

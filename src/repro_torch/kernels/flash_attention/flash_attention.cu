@@ -21,8 +21,11 @@
 //
 // Bound. At the serving shapes (N <= 8 prompts, Sq = Sk <= a few hundred,
 // hd = 64) the work is a few hundred MFLOP: the kernel is launch- and
-// latency-bound. It computes in f32 on the CUDA cores; wgmma tiles, TMA
-// and warp specialisation are later work.
+// latency-bound. It computes in f32 on the CUDA cores, which is what f32
+// inputs need (their checks hold f32 products, not bf16 ones): it serves
+// f32, and bf16 only when a caller names it. bf16 inputs, the main paths',
+// go to the tensor-core forward of flash_attention_sm90.cu (bf16 wgmma
+// tiles fed by TMA), whose header note gives its bound and design.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 

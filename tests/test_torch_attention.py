@@ -15,7 +15,7 @@ from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_attention_ref
 from repro.kernels.flash_decode.kernel import flash_decode_pallas
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref_lse
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention.kernel import _pick, attention_variant, flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.flash_decode.kernel import flash_decode_fwd
 
@@ -66,6 +66,33 @@ def test_flash_attention_fully_masked_rows():
     np.testing.assert_allclose(got_lse[:, ~masked], want_lse[:, ~masked], rtol=0, atol=TOL)
     assert (got_o[:, masked] == 0).all()
     assert (got_lse[:, masked] == 1e30).all()
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "sm90"), (torch.float32, "cuda_core")])
+def test_attention_variant_by_dtype(dtype, want, hd):
+    """The wrappers' choice of kernel: bf16 → the tensor-core kernels of
+    ``flash_attention_sm90.cu``, f32 → the CUDA-core kernels."""
+    assert attention_variant(dtype, hd) == want
+    assert _pick("flash_attention_fwd", torch.zeros((1, 2, 1, hd), dtype=dtype), None) == want
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 48), (torch.float32, 16), (torch.bfloat16, 256), (torch.float16, 64)])
+def test_attention_variant_rejects_what_no_kernel_takes(dtype, hd):
+    with pytest.raises(ValueError):
+        attention_variant(dtype, hd)
+
+
+def test_attention_variant_override():
+    """A caller may name the CUDA-core kernel for bf16 inputs (timing the
+    two side by side), never the tensor-core kernel for f32, nor an
+    unknown name."""
+    bf16, f32 = torch.zeros((1, 2, 1, 64), dtype=torch.bfloat16), torch.zeros((1, 2, 1, 64))
+    assert _pick("flash_attention_fwd", bf16, "cuda_core") == "cuda_core"
+    assert _pick("flash_attention_fwd", bf16, "sm90") == "sm90"
+    for q, variant in ((f32, "sm90"), (bf16, "wgmma")):
+        with pytest.raises(ValueError, match="variant"):
+            _pick("flash_attention_fwd", q, variant)
 
 
 def _decode_case(window, softcap, seed):

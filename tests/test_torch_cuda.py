@@ -1,6 +1,7 @@
 """The port's kernels on the GPU (the Triton loss kernels and the CUDA C++
-attention kernels, forward and backward), against their plain PyTorch
-versions on the same inputs, and one full-width training step. These tests need a CUDA device (marker
+attention kernels, forward and backward: the tensor-core kernels for bf16,
+the CUDA-core kernels for f32), against their plain PyTorch versions on
+the same inputs, and one full-width training step. These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -117,7 +118,8 @@ def test_ops_launch_kernels_and_match_ref_autograd(device):
     got = grads("cuda")
     assert launch_counts() == {
         "ensemble_kl_fwd": 1, "ensemble_kl_bwd": 1, "ghm_ce_fwd": 1, "ghm_ce_bwd": 1,
-        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "flash_decode": 0,
+        "flash_attention_fwd": 0, "flash_attention_fwd_sm90": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dkv_sm90": 0, "flash_decode": 0,
     }
     for a, r in zip(got, grads("ref")):
         _close(a, r)
@@ -158,7 +160,9 @@ def test_flash_attention_kernel_matches_plain(device, shape, dtype, causal, wind
     reset_launch_counts()
     out, lse = flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert launch_counts()["flash_attention_fwd"] == 1
+    counts = launch_counts()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_fwd_sm90"] == int(dtype == torch.bfloat16)  # bf16 → the tensor cores
     want_o, want_lse = flash_attention_ref_lse(q, k, v, **kw)
     assert out.dtype == dtype and lse.dtype == torch.float32
     _close(out, want_o)
@@ -195,8 +199,47 @@ def test_flash_attention_bwd_kernels_match_plain(device, shape, dtype, causal, w
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts["flash_attention_bwd_dq"] == 1 and counts["flash_attention_bwd_dkv"] == 1
+    assert counts["flash_attention_bwd_dkv_sm90"] == int(dtype == torch.bfloat16)
     assert dq.dtype == dtype and dk.dtype == dtype and dv.dtype == dtype
     _close(dq, flash_attention_bwd_dq_ref(q, k, v, dout, lse, delta, **kw))
+    for got, want in zip((dk, dv), flash_attention_bwd_dkv_ref(q, k, v, dout, lse, delta, **kw)):
+        _close(got, want)
+
+
+def test_flash_attention_sm90_long_sequence(device):
+    """bf16 at 1024 tokens (9 heads over 3 kv heads, hd 64, causal): the
+    forward's K/V ring and the dk/dv pass's Q/dout ring wrap many times."""
+    kw = dict(causal=True, window=0, softcap=0.0)
+    shape = (1, 1024, 1024, 9, 3, 64)
+    q, k, v = _attn_inputs(*shape, torch.bfloat16, device, seed=7)
+    reset_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    want_o, want_lse = flash_attention_ref_lse(q, k, v, **kw)
+    _close(out, want_o)
+    _close(lse, want_lse)
+    args = _bwd_inputs(shape, torch.bfloat16, device, kw, seed=7)
+    for got, want in zip(flash_attention_bwd_dkv(*args, **kw), flash_attention_bwd_dkv_ref(*args, **kw)):
+        _close(got, want)
+    counts = launch_counts()
+    assert counts["flash_attention_fwd_sm90"] == 1 and counts["flash_attention_bwd_dkv_sm90"] == 1
+
+
+@pytest.mark.parametrize("causal,window,softcap", BWD_MASKS)
+def test_cuda_core_variant_on_bf16_matches_plain(device, causal, window, softcap):
+    """The CUDA-core kernels still take bf16 when a caller names them
+    (``chip_smoke.py`` times them beside the tensor-core kernels)."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v, dout, lse, delta = _bwd_inputs(BWD_SHAPES[1], torch.bfloat16, device, kw, seed=8)
+    reset_launch_counts()
+    out, got_lse = flash_attention_fwd(q, k, v, variant="cuda_core", **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, variant="cuda_core", **kw)
+    counts = launch_counts()
+    assert counts["flash_attention_fwd"] == 1 and counts["flash_attention_fwd_sm90"] == 0
+    assert counts["flash_attention_bwd_dkv"] == 1 and counts["flash_attention_bwd_dkv_sm90"] == 0
+    want_o, want_lse = flash_attention_ref_lse(q, k, v, **kw)
+    _close(out, want_o)
+    masked = want_lse == 1e30
+    _close(got_lse[~masked], want_lse[~masked])
     for got, want in zip((dk, dv), flash_attention_bwd_dkv_ref(q, k, v, dout, lse, delta, **kw)):
         _close(got, want)
 
@@ -256,6 +299,8 @@ def test_full_width_training_step_on_card(device):
     counts = launch_counts()
     kernels = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     assert all(counts[n] == cfg.num_layers for n in kernels)
+    # bf16 activations: the forward and the dk/dv pass ran on the tensor cores
+    assert counts["flash_attention_fwd_sm90"] == counts["flash_attention_bwd_dkv_sm90"] == cfg.num_layers
     loss = float(metrics["loss"])
     assert math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 1.0
     wq = params["layers"][0]["attn"]["wq"]
