@@ -24,21 +24,26 @@ result line):
    a non-causal windowed case with Sq > Sk, hd 128 and fully-masked rows;
    ``flash_decode`` at the smollm-135m decode shape (8 slots, 16-token
    pages, 12 table entries) and in a windowed ring case.
-   Tolerance, elementwise:
+   ``flash_decode`` (the split kernel and its combine) also at ragged
+   positions from 0 to the last slot, at hd 128 with one query head per kv
+   head, and with a table far wider than the live pages; a second call
+   must give the same bits. Tolerance, elementwise:
    ``|got − want| ≤ tol·(|want| + max(1, max|want|))`` with tol = 1e-4 for
    f32 outputs and 2^-7 (one bf16 rounding step) for outputs stored in bf16.
    Then the two flash-attention backward kernels (``flash_attention_bwd_dq``
    and ``flash_attention_bwd_dkv``) against ``flash_attention_bwd_ref``, in
-   f32 and bf16 (the dk/dv pass in bf16 through both variants): at the
+   f32 and bf16 (both passes in bf16 through both variants): at the
    smollm-135m training shape (8 × 256 tokens, 9 heads over 3 kv heads,
    hd 64, causal), a tail case (Sq = Sk = 37, hd 32, window 16, softcap
    30) and two non-causal cases with Sq ≠ Sk and hd 128, one windowed with
    fully-masked rows; a second call must give the same bits.
    Times: CUDA events around back-to-back calls of the wrapper (``ms``,
    the table's), and in bf16 also the device alone: calls captured in a
-   CUDA graph and replayed (``device_ms``); ``flash_attention_fwd`` in both
-   variants at the prefill and the training shapes, the dk/dv pass in both
-   variants and the dq pass at the training shape. Beside them PyTorch's
+   CUDA graph and replayed (``device_ms``); the four loss kernels at the
+   main shape, ``flash_attention_fwd`` in both
+   variants at the prefill and the training shapes, both backward passes in
+   both variants at the training shape and ``flash_decode`` at the decode
+   shape. Beside them PyTorch's
    ``scaled_dot_product_attention`` on the same inputs, its forward for the
    forward, its backward (forward+backward less forward) for the backward
    passes: the library times, which the port never calls.
@@ -71,19 +76,21 @@ result line):
    gradients through the kernels are held against plain autograd: in f32
    through the CUDA-core kernels (the largest gap relative to each leaf's
    largest gradient is printed, and must stay below 1e-3), then in bf16
-   through the tensor-core ones (the gap is printed); then
+   through the tensor-core ones (the gap is printed, and must stay within
+   2× the gap between plain autograd in bf16 and in f32: the kernels round
+   P and dS to bf16, which may move the gradients no more than bf16
+   activations do); then
    ``repro_torch.launch.train`` at full width in bf16 with AdamW (batch 8,
    seq 256, 30 steps), with the launch counters reset just before and read
    just after: the attention forward and both backward kernels must each
-   launch 30 layers × 30 steps times, the forward and the dk/dv pass all
-   on the tensor cores, every loss
+   launch 30 layers × 30 steps times, all on the tensor cores, every loss
    must be finite and the last-10 mean below the first-10 mean; s/step,
    tokens/s after the first step and the peak device memory are printed.
 7. LM distillation path: ``repro_torch.launch.distill_llm`` at full width
    (K = 3 clients, 8 epochs of DHS, EE and distillation): ``kd`` finite at
    every epoch, ``w`` summing to 1, and both backward kernels launched (DHS
-   differentiates the clients, distillation the server), the forward and
-   the dk/dv pass on the tensor cores.
+   differentiates the clients, distillation the server), all on the
+   tensor cores.
 8. Summary: a ``kernels: {...}`` line, the JSON kernel table, and last the
    ``{"ok": true, "device": {...}}`` line.
 """
@@ -113,6 +120,7 @@ REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:335",
     "flash_attention_fwd_sm90": "src/repro/kernels/flash_attention/kernel.py:335",
     "flash_attention_bwd_dq": "src/repro/kernels/flash_attention/kernel.py:295",
+    "flash_attention_bwd_dq_sm90": "src/repro/kernels/flash_attention/kernel.py:295",
     "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention/kernel.py:314",
     "flash_attention_bwd_dkv_sm90": "src/repro/kernels/flash_attention/kernel.py:314",
     "flash_decode": "src/repro/kernels/flash_decode/kernel.py:109",
@@ -120,9 +128,15 @@ REPLACES = {
 LOSS_KERNELS = ("ensemble_kl_fwd", "ensemble_kl_bwd", "ghm_ce_fwd", "ghm_ce_bwd")
 # the op counters (every launch of the op) and their tensor-core variants,
 # which serve bf16; the CUDA-core kernels serve f32
-SM90 = {"flash_attention_fwd": "flash_attention_fwd_sm90", "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_sm90"}
+SM90 = {
+    "flash_attention_fwd": "flash_attention_fwd_sm90",
+    "flash_attention_bwd_dq": "flash_attention_bwd_dq_sm90",
+    "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_sm90",
+}
 ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90", "flash_decode")
-BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90")
+BWD_KERNELS = (
+    "flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90",
+)
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90") + BWD_KERNELS
 SOURCES = {
     "ensemble_kl_fwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
@@ -132,6 +146,7 @@ SOURCES = {
     "flash_attention_fwd": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
     "flash_attention_fwd_sm90": "src/repro_torch/kernels/flash_attention/flash_attention_sm90.cu",
     "flash_attention_bwd_dq": "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq_sm90": "src/repro_torch/kernels/flash_attention/flash_attention_sm90.cu",
     "flash_attention_bwd_dkv": "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
     "flash_attention_bwd_dkv_sm90": "src/repro_torch/kernels/flash_attention/flash_attention_sm90.cu",
     "flash_decode": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
@@ -346,11 +361,13 @@ def kernels_vs_plain():
             timing[(name, tag)] = {
                 "ms": _time_ms(kern), "plain_ms": _time_ms(plain),
                 "bound_ms": bound, "bound_by": bound_by,
+                "device_ms": _graph_ms(kern) if shape is MAIN else None,  # the main path's shape
             }
     for (name, tag), t in timing.items():
         print(f"time {name} {tag}: " + json.dumps(t), flush=True)
     main_tag = f"K={MAIN['k']} B={MAIN['b']} V={MAIN['v']} float32"
-    return errs, {n: timing[(n, main_tag)] for n in LOSS_KERNELS}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    return errs, {n: {k: timing[(n, main_tag)][k] for k in keys} for n in LOSS_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -451,6 +468,9 @@ def attention_kernels_vs_plain():
         ("smollm decode", (SERVE["slots"], 9, 3, 64, SERVE["page"], w_pages, 0, [mid] * SERVE["slots"])),
         ("smollm decode ragged", (SERVE["slots"], 9, 3, 64, SERVE["page"], w_pages, 0, ragged)),
         ("ring", (3, 4, 2, 32, 8, 5, 16, [3, 20, 37])),
+        ("hd128 one head per kv head", (2, 8, 8, 128, 64, 3, 0, [0, 150])),
+        # max_seq far beyond the positions reached: 11 live entries of 256
+        ("smollm decode wide table", (SERVE["slots"], 9, 3, 64, SERVE["page"], 256, 0, [mid] * SERVE["slots"])),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
@@ -491,15 +511,19 @@ def attention_kernels_vs_plain():
             want = flash_decode_ref(q, kp, vp, table, pos, **kw)
             torch.cuda.synchronize()
             errs["flash_decode"] = max(errs["flash_decode"], _err(f"flash_decode {tag} {dname}", out, want))
+            if not torch.equal(flash_decode_fwd(q, kp, vp, table, pos, **kw), out):
+                fail(f"flash_decode {tag} {dname}: a second call gave other bits")
             if ci == 0:
                 b, h, kh, hd = args[:4]
                 nbytes = 2 * keys * kh * hd * kp.element_size() + 2 * q.numel() * q.element_size() + 4 * (table.numel() + b)
                 flops = 4 * keys * (h // kh) * kh * hd
                 bound, bound_by = _bound_ms(nbytes, flops, peak)
+                call = lambda: flash_decode_fwd(q, kp, vp, table, pos, **kw)
                 timing[("flash_decode", "decode", dname)] = {
-                    "ms": _time_ms(lambda: flash_decode_fwd(q, kp, vp, table, pos, **kw)),
+                    "ms": _time_ms(call),
                     "plain_ms": _time_ms(lambda: flash_decode_ref(q, kp, vp, table, pos, **kw)),
                     "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                    "device_ms": _graph_ms(call) if dtype == torch.bfloat16 else None,
                 }
         print(f"attention kernels agree with plain versions in {dname}", flush=True)
     # the host's cost of a wrapper call: the tensor-core forward at a toy
@@ -532,8 +556,8 @@ def _sdpa_bwd(q, k, v, dout):
 
 def attention_bwd_kernels_vs_plain():
     """``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` against
-    their plain versions, f32 and bf16 (the dk/dv pass in bf16 through the
-    tensor-core kernel, picked by dtype, and the CUDA-core one, named), a
+    their plain versions, f32 and bf16 (both passes in bf16 through the
+    tensor-core kernels, picked by dtype, and the CUDA-core ones, named), a
     second call bitwise equal; times at the training shape, per wrapper
     call and on the device alone, beside SDPA's backward."""
     import torch
@@ -560,8 +584,12 @@ def attention_bwd_kernels_vs_plain():
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-        dkv_variants = {None: "flash_attention_bwd_dkv"} if dtype == torch.float32 else {
-            None: "flash_attention_bwd_dkv_sm90", "cuda_core": "flash_attention_bwd_dkv"}
+        # bf16: the tensor-core kernels (picked by dtype) and the CUDA-core ones (named)
+        passes = {"dq": {None: "flash_attention_bwd_dq"}, "dkv": {None: "flash_attention_bwd_dkv"}}
+        if dtype == torch.bfloat16:
+            passes = {w: {None: f"flash_attention_bwd_{w}_sm90", "cuda_core": f"flash_attention_bwd_{w}"} for w in passes}
+        fns = {"dq": (flash_attention_bwd_dq, flash_attention_bwd_dq_ref),
+               "dkv": (flash_attention_bwd_dkv, flash_attention_bwd_dkv_ref)}
         for ci, (tag, shape, kw) in enumerate(cases):
             q, k, v = _attn_case(*shape, dtype, seed=20 + ci, device=dev)
             g = torch.Generator(device="cpu").manual_seed(30 + ci)
@@ -570,24 +598,22 @@ def attention_bwd_kernels_vs_plain():
             delta = attention_delta(out, dout)
             args = (q, k, v, dout, lse, delta)
             name = f"{tag} {dname}"
-            dq = flash_attention_bwd_dq(*args, **kw)
-            want_dq = flash_attention_bwd_dq_ref(*args, **kw)
-            errs["flash_attention_bwd_dq"] = max(
-                errs["flash_attention_bwd_dq"], _err(f"flash_attention_bwd_dq {name} dq", dq, want_dq)
-            )
-            if not torch.equal(flash_attention_bwd_dq(*args, **kw), dq):
-                fail(f"flash_attention_bwd_dq {name}: a second call gave other bits")
-            want_dk, want_dv = flash_attention_bwd_dkv_ref(*args, **kw)
-            for variant, kname in dkv_variants.items():
-                reset_launch_counts()
-                dk, dv = flash_attention_bwd_dkv(*args, variant=variant, **kw)
-                torch.cuda.synchronize()
-                if launch_counts()["flash_attention_bwd_dkv_sm90"] != int(kname == "flash_attention_bwd_dkv_sm90"):
-                    fail(f"flash_attention_bwd_dkv {name} variant {variant}: launched {launch_counts()}")
-                errs[kname] = max(errs[kname], _err(f"{kname} {name} dk", dk, want_dk), _err(f"{kname} {name} dv", dv, want_dv))
-                again = flash_attention_bwd_dkv(*args, variant=variant, **kw)
-                if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
-                    fail(f"{kname} {name}: a second call gave other bits")
+            for w, variants in passes.items():
+                kern, plain = fns[w]
+                outs = ("dq",) if w == "dq" else ("dk", "dv")
+                as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+                want = as_tuple(plain(*args, **kw))
+                for variant, kname in variants.items():
+                    reset_launch_counts()
+                    got = as_tuple(kern(*args, variant=variant, **kw))
+                    torch.cuda.synchronize()
+                    if launch_counts()[f"flash_attention_bwd_{w}_sm90"] != int(kname.endswith("_sm90")):
+                        fail(f"flash_attention_bwd_{w} {name} variant {variant}: launched {launch_counts()}")
+                    for out_name, a, r in zip(outs, got, want):
+                        errs[kname] = max(errs[kname], _err(f"{kname} {name} {out_name}", a, r))
+                    again = as_tuple(kern(*args, variant=variant, **kw))
+                    if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                        fail(f"{kname} {name}: a second call gave other bits")
             if ci != 0:
                 continue
             b, sq, sk, h, kh, hd = shape
@@ -604,11 +630,12 @@ def attention_bwd_kernels_vs_plain():
             library = _time_ms(both, iters=50) - _time_ms(fwd, iters=50)
             on_device = dtype == torch.bfloat16  # device times for the main paths' dtype
             library_dev = _graph_ms(both) - _graph_ms(fwd) if on_device else None
-            calls = {"flash_attention_bwd_dq": ("dq", lambda: flash_attention_bwd_dq(*args, **kw),
-                                                lambda: flash_attention_bwd_dq_ref(*args, **kw))}
-            for variant, kname in dkv_variants.items():
-                calls[kname] = ("dkv", lambda variant=variant: flash_attention_bwd_dkv(*args, variant=variant, **kw),
-                                lambda: flash_attention_bwd_dkv_ref(*args, **kw))
+            calls = {}
+            for w, variants in passes.items():
+                kern, plain = fns[w]
+                for variant, kname in variants.items():
+                    calls[kname] = (w, lambda kern=kern, variant=variant: kern(*args, variant=variant, **kw),
+                                    lambda plain=plain: plain(*args, **kw))
             for n, (w, kern, plain) in calls.items():
                 bound, bound_by = _bound_ms(*work[w], peak)
                 timing[(n, dname)] = {
@@ -910,10 +937,11 @@ def lm_training_path():
         worst = max(rel, key=rel.get)
         return rel[worst], worst, float(np.median(list(rel.values())))
 
-    plain = {}
+    plain, kernels = {}, {}
     for dtype in ("float32", "bfloat16"):
         reset_launch_counts()
-        got, plain[dtype] = _lm_grads(cfg.replace(dtype=dtype), params, batch)
+        kernels[dtype], plain[dtype] = _lm_grads(cfg.replace(dtype=dtype), params, batch)
+        got = kernels[dtype]
         _check_variants(f"{dtype} full-width step", launch_counts(), dtype)
         for name, g in got.items():
             if not bool(torch.isfinite(g).all()):
@@ -924,11 +952,18 @@ def lm_training_path():
               f"{gap:.3e} ({leaf}), median over leaves {median:.3e}", flush=True)
         if dtype == "float32" and gap > 1e-3:
             fail(f"f32 full-width step: gradient gap {gap:.3e} at {leaf} beyond 1e-3")
-        del got
     gap, leaf, median = gaps(plain["bfloat16"], plain["float32"])
     print(f"yardstick, plain autograd in bf16 vs in f32 activations: largest gradient gap {gap:.3e} ({leaf}), "
           f"median over leaves {median:.3e}", flush=True)
-    del params, plain
+    # the gate on the kernels' bf16 rounding (P and dS rounded to bf16 for
+    # the tensor cores): no further from the f32 gradients than twice what
+    # bf16 activations alone move them
+    kgap, kleaf, kmedian = gaps(kernels["bfloat16"], plain["float32"])
+    print(f"bf16 kernels vs plain autograd in f32 activations: largest gradient gap {kgap:.3e} ({kleaf}), median "
+          f"over leaves {kmedian:.3e}; limit 2 x {gap:.3e}", flush=True)
+    if kgap > 2 * gap:
+        fail(f"bf16 full-width step: the kernels' gradient gap to f32 {kgap:.3e} at {kleaf} beyond 2 x {gap:.3e}")
+    del params, plain, kernels
 
     argv = ["--arch", "smollm-135m", "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
             "--steps", str(TRAIN["steps"]), "--optimizer", "adamw", "--device", "cuda"]

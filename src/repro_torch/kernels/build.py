@@ -43,7 +43,8 @@ LAUNCHES: Dict[str, int] = {
     "ghm_ce_bwd": 0,
     "flash_attention_fwd": 0,  # every launch of the op, either variant
     "flash_attention_fwd_sm90": 0,  # of those, the tensor-core kernel's
-    "flash_attention_bwd_dq": 0,
+    "flash_attention_bwd_dq": 0,  # every launch of the op, either variant
+    "flash_attention_bwd_dq_sm90": 0,  # of those, the tensor-core kernel's
     "flash_attention_bwd_dkv": 0,
     "flash_attention_bwd_dkv_sm90": 0,
     "flash_decode": 0,

@@ -1,9 +1,11 @@
 // Flash attention on Hopper's tensor cores (sm_90a), bf16 in, f32
-// accumulate: the forward and the dk/dv backward pass of the Pallas TPU
+// accumulate: the forward and both backward passes of the Pallas TPU
 // kernels in src/repro/kernels/flash_attention/kernel.py,
 //
 //   flash_fwd_sm90_kernel     <- _kernel          (:32, pallas_call :372 in
 //                                                  flash_attention_pallas)
+//   flash_bwd_dq_sm90_kernel  <- _bwd_dq_kernel   (:124, pallas_call :295 in
+//                                                  flash_attention_bwd_pallas)
 //   flash_bwd_dkv_sm90_kernel <- _bwd_dkv_kernel  (:173, pallas_call :314 in
 //                                                  flash_attention_bwd_pallas)
 //
@@ -17,26 +19,32 @@
 // from 0. Masks: k < Sk; causal k <= q; window k > q - window; softcap
 // cap * tanh(s / cap) on the scaled scores before masking. hd in
 // {32, 64, 128}. The forward writes out (bf16) and lse (f32); a
-// fully-masked row gets out = 0 and lse = 1e30. The dk/dv pass rebuilds
-// p = exp(s - lse) and du = p (dp - delta) dact from the forward's lse, and
+// fully-masked row gets out = 0 and lse = 1e30. The backward passes
+// rebuild p = exp(s - lse) and du = p (dp - delta) dact from the forward's
+// lse (a fully-masked row's p is exactly 0, so its dq is 0). The dq pass
+// writes dq = scale du k (bf16), each row by one block. The dk/dv pass
 // writes dk = scale du^T q and dv = p^T dout (bf16), each summed over the G
-// query heads of its kv head inside one block, in a fixed order, with no
-// atomics: a second call gives the same bits.
+// query heads of its kv head inside one block, in a fixed order. Neither
+// uses atomics: a second call gives the same bits.
 //
 // Bound. At smollm-135m's training shape (8 x 256 tokens, 9 heads over 3
 // kv heads, hd 64, causal) the forward does 0.6 GFLOP of products over
-// 6.4 MB and the dk/dv pass 1.2 GFLOP over about 9 MB: at the bf16 tensor
-// cores' rate (989 TFLOP/s) both are bound by the bytes (2-3 us at
-// 3.35 TB/s); the CUDA-core kernels they replace for bf16 computed in f32,
-// far from either bound. What the design does about it:
+// 6.4 MB, the dq pass 0.9 GFLOP and the dk/dv pass 1.2 GFLOP over about
+// 9 MB each: at the bf16 tensor cores' rate (989 TFLOP/s) all three are
+// bound by the bytes (2-3 us at 3.35 TB/s); the CUDA-core kernels they
+// replace for bf16 computed in f32, far from either bound (the dq pass
+// there took 187 us, bound by its f32 arithmetic and shared-memory reads).
+// What the design does about it:
 //
 // * Products on the tensor cores. Every matrix product is a wgmma
 //   (m64nNk16, bf16 in, f32 accumulate) issued by one consumer warpgroup
-//   (4 warps). S = Q K^T reads both operands from shared memory, K-major;
-//   P V takes P from registers: the m64n64 accumulator of S, rounded to
-//   bf16, is already laid out as wgmma's A fragments for the next product,
-//   so P never touches shared memory. V (and, in the dk/dv pass, dout and
-//   Q) are MN-major B operands, read with wgmma's transpose bit.
+//   (4 warps). S = Q K^T (and dP = dout V^T) read both operands from
+//   shared memory, K-major; P V takes P from registers: the m64n64
+//   accumulator of S, rounded to bf16, is already laid out as wgmma's A
+//   fragments for the next product, so P never touches shared memory. dS
+//   feeds dS K (dq pass) and dS^T Q (dk/dv pass) the same way. V, K (dq
+//   pass) and dout and Q (dk/dv pass) are then MN-major B operands, read
+//   with wgmma's transpose bit.
 // * Copies by TMA, overlapped with the products. One producer warp issues
 //   4-D tensor-map loads (cp.async.bulk.tensor) of whole 64-row tiles
 //   straight from the JAX layouts (rows of one head are H * hd apart, which
@@ -51,10 +59,18 @@
 //   cross the causal diagonal, the window edge or a sequence end are
 //   masked; tiles no row can see are never loaded.
 //
-// Forward: one block per (query head, batch row, 64 query positions). The G
-// heads of one kv head re-read its K/V tiles from L2 (a training batch's K
-// and V are 1.5 MB against 50 MB of L2), which keeps each row's position
-// equal to its row index. dk/dv pass: one block per (64 keys, kv head,
+// Forward and dq pass: one block per (query head, batch row, 64 query
+// positions), q tiles last to first so the heaviest causal blocks start in
+// the first wave (288 blocks at the training shape). The G heads of one kv
+// head re-read its K/V tiles from L2 (a training batch's K and V are
+// 1.5 MB against 50 MB of L2), which keeps each row's position equal to its
+// row index. The dq pass loads its Q and dout tiles once, streams K and V
+// through the ring, and keeps dq in the warpgroup's registers over the
+// sweep beside S and dP (64 + 64 f32 a thread, and at hd 128 another 64 for
+// dq; ptxas reports no spill at any hd). Its lse and delta (two rows a
+// thread) sit in registers. dS is rounded to bf16 for dS K, as P is for
+// P V; the f32 CUDA-core pass stays for f32 inputs.
+// dk/dv pass: one block per (64 keys, kv head,
 // batch row); the K and V tiles are loaded once, and the block walks the
 // G heads and, for each, the 64-row q tiles that can see its keys (causal:
 // from its first key; window: below its last key + window), with dk and
@@ -600,6 +616,147 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
 }
 
 // ---------------------------------------------------------------------------
+// dq pass
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int KH, int causal, int window,
+                         float softcap, float scale) {
+  using T = Tile<HD>;
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];  // q/dout, full[STAGES], empty[STAGES]
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t q_tile = base, do_tile = base + T::BYTES;
+  const uint32_t q_bar = smem_u32(&bars[0]);
+  auto k_tile = [&](int s) { return base + (2 + s) * T::BYTES; };
+  auto v_tile = [&](int s) { return base + (2 + STAGES + s) * T::BYTES; };
+  auto full = [&](int s) { return smem_u32(&bars[1 + s]); };
+  auto empty = [&](int s) { return smem_u32(&bars[1 + STAGES + s]); };
+
+  // as in the forward: q tiles last to first, and the kv tiles some row of
+  // this block can see
+  const int h = blockIdx.x, b = blockIdx.y, kh = h / (H / KH);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
+  const int q_last = min(q0 + BM, Sq) - 1;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int t_first = k_lo / BN;
+  const int n_tiles = k_hi > k_lo ? (k_hi + BN - 1) / BN - t_first : 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp: one thread issues every copy
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(q_bar, 2 * T::BYTES);
+      T::load(q_tile, &tq, q_bar, h, q0, b);
+      T::load(do_tile, &tdo, q_bar, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * T::BYTES);
+        const int key0 = (t_first + i) * BN;
+        T::load(k_tile(s), &tk, full(s), kh, key0, b);
+        T::load(v_tile(s), &tv, full(s), kh, key0, b);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread owns rows row0 and row0 + 8 of the tile,
+  // whose lse (log2 units) and delta it keeps in registers
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = warp * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qp = q0 + row0 + 8 * hf;
+    const size_t row = (static_cast<size_t>(b) * Sq + qp) * H + h;
+    row_lse[hf] = qp < Sq ? lse[row] * LOG2E : MASKED_LSE;
+    row_delta[hf] = qp < Sq ? delta[row] : 0.f;
+  }
+  float dqa[HD / 2], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+  const float qk_scale = scale * LOG2E;
+
+  mbar_wait(q_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full(s), (i / STAGES) & 1);
+
+    // S = Q K^T and dP = dout V^T
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss(sc, T::k_major(q_tile, kk), T::k_major(k_tile(s), kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss(dp, T::k_major(do_tile, kk), T::k_major(v_tile(s), kk), kk);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P = exp(s - lse), masked; dS = P (dP - delta) dact, in place of dP
+    const int key0 = (t_first + i) * BN;
+    const bool edge = key0 + BN > Sk || (causal && key0 + BN - 1 > q0) || (window > 0 && key0 <= q0 + BM - 1 - window);
+#pragma unroll
+    for (int idx = 0; idx < 32; ++idx) {
+      const int hf = (idx >> 1) & 1;
+      float p, dact = 1.f;
+      if (softcap > 0.f) {
+        const float t = tanhf(sc[idx] * (scale / softcap));
+        p = exp2f(fmaf(t, softcap * LOG2E, -row_lse[hf]));
+        dact = 1.f - t * t;
+      } else {
+        p = exp2f(fmaf(sc[idx], qk_scale, -row_lse[hf]));
+      }
+      if (edge && !visible(q0 + row0 + 8 * hf, key0 + 8 * (idx >> 2) + col0 + (idx & 1), Sq, Sk, causal, window))
+        p = 0.f;
+      dp[idx] = p * (dp[idx] - row_delta[hf]) * dact;
+    }
+
+    // dQ += dS K, dS from registers (rounded to bf16), K MN-major
+    uint32_t da[4][4];
+    to_a_frags(dp, da);
+    fence_regs(dqa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dqa, da[kk], T::mn_major(k_tile(s), kk));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(dqa);
+    mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qp = q0 + row0 + 8 * hf;
+    if (qp >= Sq) continue;
+    const size_t row = (static_cast<size_t>(b) * Sq + qp) * H + h;
+    __nv_bfloat16* dst = dq + row * HD + col0;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(dqa[4 * j + 2 * hf] * scale, dqa[4 * j + 2 * hf + 1] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side: tensor maps and launchers
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -690,6 +847,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+              void* dq, int B, int Sq, int Sk, int H, int KH, int causal, int window, float softcap,
+              cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (int err = make_map<HD>(&mq, q, H, Sq, B)) return err;
+  if (int err = make_map<HD>(&mk, k, KH, Sk, B)) return err;
+  if (int err = make_map<HD>(&mv, v, KH, Sk, B)) return err;
+  if (int err = make_map<HD>(&mdo, dout, H, Sq, B)) return err;
+  const size_t smem = 1024 + (2 + 2 * STAGES) * Tile<HD>::BYTES;
+  auto kern = flash_bwd_dq_sm90_kernel<HD>;
+  static const int smem_err = set_smem(kern, smem);
+  if (smem_err) return smem_err;
+  dim3 grid(H, B, (Sq + BM - 1) / BM);
+  kern<<<grid, THREADS, smem, stream>>>(mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), Sq, Sk, H, KH,
+                                         causal, window, softcap, 1.f / sqrtf((float)HD));
+  return (int)cudaGetLastError();
+}
+
 // also past the grid's limits: 65535 batch rows, 65535 q tiles
 bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
   return B <= 0 || KH <= 0 || H % KH != 0 || Sq <= 0 || Sk <= 0 || B > 65535 || (Sq + BM - 1) / BM > 65535;
@@ -724,6 +900,20 @@ extern "C" int flash_attention_bwd_dkv_sm90(const void* q, const void* k, const 
     case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, KH, causal, window, softcap, s);
     case 128:
       return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, KH, causal, window, softcap, s);
+    default: return ERR_SHAPE;
+  }
+}
+
+extern "C" int flash_attention_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                           const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,
+                                           int H, int KH, int hd, int causal, int window, float softcap,
+                                           void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KH)) return ERR_SHAPE;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KH, causal, window, softcap, s);
+    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KH, causal, window, softcap, s);
+    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KH, causal, window, softcap, s);
     default: return ERR_SHAPE;
   }
 }

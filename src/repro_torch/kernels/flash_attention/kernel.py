@@ -3,14 +3,16 @@ wrappers of its kernels. Each source's header note says what the TPU
 kernel it replaces is, what bounds it on the H100 and what its design does
 about that:
 
-* ``flash_attention_sm90.cu``: the forward and the dk/dv backward pass on
-  the tensor cores (bf16 ``wgmma`` tiles fed by TMA through a 2-stage
-  mbarrier ring, one producer warp and one consumer warpgroup). They serve
-  bf16 inputs, the main paths' dtype.
+* ``flash_attention_sm90.cu``: the forward and both backward passes (dq
+  and dk/dv) on the tensor cores (bf16 ``wgmma`` tiles fed by TMA through
+  a 2-stage mbarrier ring, one producer warp and one consumer warpgroup).
+  They serve bf16 inputs, the main paths' dtype; at the training shape
+  they are bound by bytes, and the design keeps every score tile in
+  registers.
 * ``flash_attention.cu`` (forward) and ``flash_attention_bwd.cu`` (the dq
-  pass, and the dk/dv pass for f32): f32 arithmetic on the CUDA cores.
-  They serve f32 inputs, whose checks need f32 products, not bf16 ones;
-  the dq pass serves bf16 too (its tensor-core version is later work).
+  and dk/dv passes): f32 arithmetic on the CUDA cores, bound by that
+  arithmetic. They serve f32 inputs, whose checks need f32 products, not
+  bf16 ones, and bf16 inputs only when a caller names them.
 
 Replaces the Pallas TPU kernels of ``repro/kernels/flash_attention/kernel.py``:
 ``flash_attention_pallas`` (``_kernel``) and both passes of
@@ -53,6 +55,7 @@ _LAUNCHER_SPECS = {
     "flash_attention_bwd_dq": (BWD_SOURCE, 7, True),
     "flash_attention_bwd_dkv": (BWD_SOURCE, 8, True),
     "flash_attention_fwd_sm90": (SM90_SOURCE, 5, False),
+    "flash_attention_bwd_dq_sm90": (SM90_SOURCE, 7, False),
     "flash_attention_bwd_dkv_sm90": (SM90_SOURCE, 8, False),
 }
 _LAUNCHERS = {}
@@ -162,20 +165,29 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, softca
     return out, lse
 
 
-def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
-    """The dq pass: dq (B, Sq, H, hd) in q's dtype. Launches the CUDA kernel
-    for CUDA tensors; computes the plain version for CPU tensors."""
+def flash_attention_bwd_dq(
+    q, k, v, dout, lse, delta, *, causal: bool = True, window: int = 0, softcap: float = 0.0, variant=None
+):
+    """The dq pass: dq (B, Sq, H, hd) in q's dtype. Launches a CUDA kernel
+    for CUDA tensors (:func:`attention_variant` picks it, unless
+    ``variant`` names one); computes the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, dout, lse, delta, causal=causal, window=window, softcap=softcap)
     _check_bwd("flash_attention_bwd_dq", q, k, v, dout, lse, delta)
+    variant = _pick("flash_attention_bwd_dq", q, variant)
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
-    err = _launcher("flash_attention_bwd_dq")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_shape_args(q, k, causal, window, softcap), DTYPE_CODES[q.dtype], stream_ptr(q),
-    )
-    check_launch("flash_attention_bwd_dq", err)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    shape = _shape_args(q, k, causal, window, softcap)
+    if variant == "sm90":
+        _check_aligned("flash_attention_bwd_dq", q, k, v, dout)
+        err = _launcher("flash_attention_bwd_dq_sm90")(*ptrs, *shape, stream_ptr(q))
+        check_launch("flash_attention_bwd_dq_sm90", err)
+        LAUNCHES["flash_attention_bwd_dq_sm90"] += 1
+    else:
+        err = _launcher("flash_attention_bwd_dq")(*ptrs, *shape, DTYPE_CODES[q.dtype], stream_ptr(q))
+        check_launch("flash_attention_bwd_dq", err)
     LAUNCHES["flash_attention_bwd_dq"] += 1
     return dq
 

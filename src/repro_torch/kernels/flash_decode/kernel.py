@@ -8,14 +8,19 @@ through the per-slot page table.
 
 What bounds it on the H100: bytes — every live K/V page is read once for
 a few flops per element — and, at the serving shapes (8 slots, a few
-hundred positions, 30 layers), the launch.
+hundred positions, 30 layers), the latency of a launch and of one trip to
+memory.
 
-What the design does about it: the TPU's scalar-prefetched page gather
-becomes a page-id load and pointer arithmetic in the kernel; one block per
-(kv head, row) stages each live page in shared memory once for all G query
-heads (one warp each), skips pages no valid index lies on (the JAX
-``page_live`` predicate), and zero-fills masked positions so scratch-page
-entries never leak into the result.
+What the design does about it (split-KV decode, "flash-decoding"): the
+grid is (S, KH, B), where :func:`decode_splits` derives the S splits from
+B, KH and W alone so that the blocks cover the card's SMs. Each block
+reads its row's position on the device, takes the s-th of S near-equal
+shares of the row's live table entries (:func:`live_entries`,
+:func:`split_range`: the same arithmetic as the kernel), and puts all of
+its pages' K and V rows in flight at once (``cp.async``), zero-filling
+masked positions so scratch-page entries never leak into the result. A
+second kernel, launched by the same call, combines the splits' partial
+softmax statistics in a fixed order, so a second call gives the same bits.
 """
 from __future__ import annotations
 
@@ -30,7 +35,30 @@ from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 SOURCE = Path(__file__).with_name("flash_decode.cu")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 32  # one warp per query head of a kv head
+MAX_GROUP = 32  # query heads per kv head one block holds
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def decode_splits(b: int, kh: int, w: int) -> int:
+    """S, the number of splits of each (row, kv head)'s live table entries:
+    enough that the B·KH·S blocks cover the card's SMs, and at most one
+    split per table entry. A function of the shapes alone, so the grid never
+    waits for the positions."""
+    return max(1, min(w, -(-SMS // max(1, b * kh))))
+
+
+def live_entries(pos: int, ps: int, w: int, cache_len: int) -> int:
+    """The table entries of a row at position ``pos`` that can hold a valid
+    index (the JAX ``page_live`` predicate): those up to ⌈(pos+1)/ps⌉, or,
+    once a ring of ``cache_len`` has wrapped, all ⌈cache_len/ps⌉; never more
+    than W. The kernel computes the same on the device."""
+    return max(0, min(w, -(-min(pos + 1, cache_len) // ps)))
+
+
+def split_range(n_live: int, splits: int, s: int) -> tuple[int, int]:
+    """The table entries ``[lo, hi)`` split ``s`` of ``splits`` takes: the
+    s-th of near-equal shares of the ``n_live`` live entries, in order."""
+    return s * n_live // splits, (s + 1) * n_live // splits
 
 
 def _lib():
@@ -39,7 +67,7 @@ def _lib():
     fn = lib.flash_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 8 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 7 + [i] * 8 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -63,9 +91,10 @@ def _check(q, k_pages, v_pages, page_table, pos):
 
 
 def flash_decode_fwd(q, k_pages, v_pages, page_table, pos, *, window: int = 0, softcap: float = 0.0, cache_len: int = 0):
-    """(B, H, hd) in q's dtype. Launches the CUDA kernel for CUDA tensors;
-    computes the plain version for CPU tensors. ``cache_len`` 0 means the
-    table extent W·ps."""
+    """(B, H, hd) in q's dtype. Launches the CUDA kernels for CUDA tensors
+    (a call is two kernels: the splits, then their combine, unless S = 1;
+    it counts as one launch); computes the plain version for CPU tensors.
+    ``cache_len`` 0 means the table extent W·ps."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap, cache_len=cache_len)
     _check(q, k_pages, v_pages, page_table, pos)
@@ -75,10 +104,15 @@ def flash_decode_fwd(q, k_pages, v_pages, page_table, pos, *, window: int = 0, s
     out = torch.empty_like(q)
     if b == 0:
         return out
+    for t in (k_pages, v_pages):  # cp.async copies 16-byte pieces
+        if t.data_ptr() % 16:
+            raise ValueError("flash_decode: the pages must start at a 16-byte-aligned address")
+    splits = decode_splits(b, kh, w)
+    part = torch.empty(b * h * splits * (hd + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
     err = _lib()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, h, kh, hd, ps, w, int(cache_len or w * ps), int(window), float(softcap), DTYPE_CODES[q.dtype],
-        stream_ptr(q),
+        part.data_ptr() if part is not None else None, b, h, kh, hd, ps, w, int(cache_len or w * ps), int(window),
+        float(softcap), splits, DTYPE_CODES[q.dtype], stream_ptr(q),
     )
     check_launch("flash_decode", err)
     LAUNCHES["flash_decode"] += 1

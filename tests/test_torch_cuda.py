@@ -1,7 +1,8 @@
 """The port's kernels on the GPU (the Triton loss kernels and the CUDA C++
-attention kernels, forward and backward: the tensor-core kernels for bf16,
-the CUDA-core kernels for f32), against their plain PyTorch versions on
-the same inputs, and one full-width training step. These tests need a CUDA device (marker
+attention kernels, forward and both backward passes: the tensor-core
+kernels for bf16, the CUDA-core kernels for f32; split-KV paged decode),
+against their plain PyTorch versions on the same inputs, a second call
+bitwise equal, and one full-width training step. These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -119,7 +120,8 @@ def test_ops_launch_kernels_and_match_ref_autograd(device):
     assert launch_counts() == {
         "ensemble_kl_fwd": 1, "ensemble_kl_bwd": 1, "ghm_ce_fwd": 1, "ghm_ce_bwd": 1,
         "flash_attention_fwd": 0, "flash_attention_fwd_sm90": 0, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dkv_sm90": 0, "flash_decode": 0,
+        "flash_attention_bwd_dq_sm90": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dkv_sm90": 0,
+        "flash_decode": 0,
     }
     for a, r in zip(got, grads("ref")):
         _close(a, r)
@@ -199,7 +201,8 @@ def test_flash_attention_bwd_kernels_match_plain(device, shape, dtype, causal, w
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts["flash_attention_bwd_dq"] == 1 and counts["flash_attention_bwd_dkv"] == 1
-    assert counts["flash_attention_bwd_dkv_sm90"] == int(dtype == torch.bfloat16)
+    # bf16 → the tensor-core passes, both of them
+    assert counts["flash_attention_bwd_dq_sm90"] == counts["flash_attention_bwd_dkv_sm90"] == int(dtype == torch.bfloat16)
     assert dq.dtype == dtype and dk.dtype == dtype and dv.dtype == dtype
     _close(dq, flash_attention_bwd_dq_ref(q, k, v, dout, lse, delta, **kw))
     for got, want in zip((dk, dv), flash_attention_bwd_dkv_ref(q, k, v, dout, lse, delta, **kw)):
@@ -208,7 +211,8 @@ def test_flash_attention_bwd_kernels_match_plain(device, shape, dtype, causal, w
 
 def test_flash_attention_sm90_long_sequence(device):
     """bf16 at 1024 tokens (9 heads over 3 kv heads, hd 64, causal): the
-    forward's K/V ring and the dk/dv pass's Q/dout ring wrap many times."""
+    forward's and the dq pass's K/V ring and the dk/dv pass's Q/dout ring
+    wrap many times."""
     kw = dict(causal=True, window=0, softcap=0.0)
     shape = (1, 1024, 1024, 9, 3, 64)
     q, k, v = _attn_inputs(*shape, torch.bfloat16, device, seed=7)
@@ -218,10 +222,12 @@ def test_flash_attention_sm90_long_sequence(device):
     _close(out, want_o)
     _close(lse, want_lse)
     args = _bwd_inputs(shape, torch.bfloat16, device, kw, seed=7)
+    _close(flash_attention_bwd_dq(*args, **kw), flash_attention_bwd_dq_ref(*args, **kw))
     for got, want in zip(flash_attention_bwd_dkv(*args, **kw), flash_attention_bwd_dkv_ref(*args, **kw)):
         _close(got, want)
     counts = launch_counts()
     assert counts["flash_attention_fwd_sm90"] == 1 and counts["flash_attention_bwd_dkv_sm90"] == 1
+    assert counts["flash_attention_bwd_dq_sm90"] == 1
 
 
 @pytest.mark.parametrize("causal,window,softcap", BWD_MASKS)
@@ -232,23 +238,28 @@ def test_cuda_core_variant_on_bf16_matches_plain(device, causal, window, softcap
     q, k, v, dout, lse, delta = _bwd_inputs(BWD_SHAPES[1], torch.bfloat16, device, kw, seed=8)
     reset_launch_counts()
     out, got_lse = flash_attention_fwd(q, k, v, variant="cuda_core", **kw)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, variant="cuda_core", **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, variant="cuda_core", **kw)
     counts = launch_counts()
     assert counts["flash_attention_fwd"] == 1 and counts["flash_attention_fwd_sm90"] == 0
+    assert counts["flash_attention_bwd_dq"] == 1 and counts["flash_attention_bwd_dq_sm90"] == 0
     assert counts["flash_attention_bwd_dkv"] == 1 and counts["flash_attention_bwd_dkv_sm90"] == 0
     want_o, want_lse = flash_attention_ref_lse(q, k, v, **kw)
     _close(out, want_o)
     masked = want_lse == 1e30
     _close(got_lse[~masked], want_lse[~masked])
+    _close(dq, flash_attention_bwd_dq_ref(q, k, v, dout, lse, delta, **kw))
     for got, want in zip((dk, dv), flash_attention_bwd_dkv_ref(q, k, v, dout, lse, delta, **kw)):
         _close(got, want)
 
 
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_flash_attention_bwd_kernels_are_deterministic(device, dtype):
+@pytest.mark.parametrize("causal,window,softcap", BWD_MASKS)
+def test_flash_attention_bwd_kernels_are_deterministic(device, shape, dtype, causal, window, softcap):
     """No atomics: a second call gives the same bits."""
-    kw = dict(causal=True, window=0, softcap=0.0)
-    args = _bwd_inputs(BWD_SHAPES[0], dtype, device, kw, seed=4)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    args = _bwd_inputs(shape, dtype, device, kw, seed=4)
     first = (flash_attention_bwd_dq(*args, **kw), *flash_attention_bwd_dkv(*args, **kw))
     second = (flash_attention_bwd_dq(*args, **kw), *flash_attention_bwd_dkv(*args, **kw))
     for a, b in zip(first, second):
@@ -299,17 +310,19 @@ def test_full_width_training_step_on_card(device):
     counts = launch_counts()
     kernels = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     assert all(counts[n] == cfg.num_layers for n in kernels)
-    # bf16 activations: the forward and the dk/dv pass ran on the tensor cores
+    # bf16 activations: the forward and both backward passes ran on the tensor cores
     assert counts["flash_attention_fwd_sm90"] == counts["flash_attention_bwd_dkv_sm90"] == cfg.num_layers
+    assert counts["flash_attention_bwd_dq_sm90"] == cfg.num_layers
     loss = float(metrics["loss"])
     assert math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 1.0
     wq = params["layers"][0]["attn"]["wq"]
     assert torch.isfinite(wq).all() and not torch.equal(wq, before)
 
 
-def _decode_inputs(b, h, kh, hd, ps, w, window, dtype, device, seed=0):
+def _decode_inputs(b, h, kh, hd, ps, w, window, dtype, device, seed=0, pos=None, max_pos=None):
     """Each row owns the pages covering its positions; the rest of its table
-    points at a scratch page holding NaN."""
+    points at a scratch page holding NaN. ``pos`` fixes the positions;
+    otherwise they are drawn below ``max_pos`` (default W·ps), row 0 at 0."""
     g = torch.Generator().manual_seed(seed)
     n_pages = b * w + 1
     kp = torch.randn((n_pages, ps, kh, hd), generator=g)
@@ -317,8 +330,11 @@ def _decode_inputs(b, h, kh, hd, ps, w, window, dtype, device, seed=0):
     kp[-1] = float("nan")
     vp[-1] = float("nan")
     cl = min(window, w * ps) if window else w * ps
-    pos = torch.randint(0, w * ps, (b,), generator=g, dtype=torch.int32)
-    pos[0] = 0
+    if pos is None:
+        pos = torch.randint(0, max_pos or w * ps, (b,), generator=g, dtype=torch.int32)
+        pos[0] = 0
+    else:
+        pos = torch.tensor(pos, dtype=torch.int32)
     table = torch.full((b, w), n_pages - 1, dtype=torch.int32)
     perm = torch.randperm(n_pages - 1, generator=g).to(torch.int32)
     for r in range(b):
@@ -345,6 +361,28 @@ def test_flash_decode_kernel_matches_plain(device, shape, dtype, window, softcap
     assert launch_counts()["flash_decode"] == 1
     assert out.dtype == dtype
     _close(out, flash_decode_ref(q, kp, vp, table, pos, softcap=softcap, **kw))
+    assert torch.equal(flash_decode_fwd(q, kp, vp, table, pos, softcap=softcap, **kw), out)  # no atomics
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (0, 30.0), (40, 0.0)])
+@pytest.mark.parametrize("case", ["ragged", "wide table"])
+def test_flash_decode_splits_match_plain(device, dtype, window, softcap, case):
+    """The split kernel and its combine: ragged positions from 0 up to the
+    last slot of the table (rows with one live page beside full ones, so
+    some splits are empty), and a table far wider than the live pages
+    (max_seq much larger than the positions reached). A second call gives
+    the same bits."""
+    b, h, kh, hd, ps = 8, 9, 3, 64, 16
+    if case == "ragged":
+        w = 12
+        pos = [i * (w * ps - 1) // (b - 1) for i in range(b)]
+        q, kp, vp, table, pos, kw = _decode_inputs(b, h, kh, hd, ps, w, window, dtype, device, seed=3, pos=pos)
+    else:
+        q, kp, vp, table, pos, kw = _decode_inputs(b, h, kh, hd, ps, 256, window, dtype, device, seed=4, max_pos=100)
+    out = flash_decode_fwd(q, kp, vp, table, pos, softcap=softcap, **kw)
+    _close(out, flash_decode_ref(q, kp, vp, table, pos, softcap=softcap, **kw))
+    assert torch.equal(flash_decode_fwd(q, kp, vp, table, pos, softcap=softcap, **kw), out)
 
 
 def test_engine_on_card_launches_kernels_and_layouts_agree(device):
