@@ -8,13 +8,17 @@ result line):
 
 1. Environment: torch / CUDA / Triton versions and the card's name and power
    limit (``nvidia-smi``). No CUDA device, or no ``src/repro_torch`` beside
-   this script, fails here. The four CUDA C++ sources are then built from
+   this script, fails here. The six CUDA C++ sources are then built from
    the checkout, one ``nvcc`` each, all started together.
-2. Kernel vs plain: each of the four Triton kernels (``ensemble_kl`` and
-   ``ghm_ce``, forward and backward) is built from the checkout's sources
-   and held against its plain PyTorch version on the card, in every mode,
-   at the main path's shapes (K=5, B=128, V=10, f32) and at a wide tail case
-   (K=5, B=37, V=32003, f32 and bf16). Then the CUDA C++ attention
+2. Kernel vs plain: each of the four loss kernels (``ensemble_kl`` and
+   ``ghm_ce``: the forwards in Triton, the backwards in CUDA C++) is built
+   from the checkout's sources and held against its plain PyTorch version
+   on the card, in every mode and, for the backwards, for every non-empty
+   subset of the cotangents they can compute, at the main path's shapes
+   (K=5, B=128, V=10, f32), at a wide tail case (K=5, B=37, V=32003, f32
+   and bf16) and at 20 clients on 100 classes (K=20, B=256, V=100, f32);
+   at the first two a second backward call and a CUDA-graph replay must
+   give the eager call's bits. Then the CUDA C++ attention
    kernels, in f32 (the CUDA-core kernels) and bf16 (the tensor-core
    kernels of ``flash_attention_sm90.cu``, ``_sm90`` below, and the
    CUDA-core ones named by the caller): ``flash_attention_fwd`` at the
@@ -40,7 +44,9 @@ result line):
    Times: CUDA events around back-to-back calls of the wrapper (``ms``,
    the table's), and in bf16 also the device alone: calls captured in a
    CUDA graph and replayed (``device_ms``); the four loss kernels at the
-   main shape, ``flash_attention_fwd`` in both
+   main shape and the two backwards also at the wide one in f32 and bf16,
+   each backward in the generator's mode (g_client and g_student, and
+   g_client), ``flash_attention_fwd`` in both
    variants at the prefill and the training shapes, both backward passes in
    both variants at the training shape and ``flash_decode`` at the decode
    shape. Beside them PyTorch's
@@ -112,6 +118,7 @@ BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 
 MAIN = dict(k=5, b=128, v=10)
 WIDE = dict(k=5, b=37, v=32003)
+CLIENTS20 = dict(k=20, b=256, v=100)  # the paper's client sweep goes to 20
 REPLACES = {
     "ensemble_kl_fwd": "src/repro/kernels/ensemble_kl/kernel.py:217",
     "ensemble_kl_bwd": "src/repro/kernels/ensemble_kl/kernel.py:144",
@@ -140,9 +147,9 @@ BWD_KERNELS = (
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90") + BWD_KERNELS
 SOURCES = {
     "ensemble_kl_fwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
-    "ensemble_kl_bwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
+    "ensemble_kl_bwd": "src/repro_torch/kernels/ensemble_kl/ensemble_kl_bwd.cu",
     "ghm_ce_fwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
-    "ghm_ce_bwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
+    "ghm_ce_bwd": "src/repro_torch/kernels/ghm_ce/ghm_ce_bwd.cu",
     "flash_attention_fwd": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
     "flash_attention_fwd_sm90": "src/repro_torch/kernels/flash_attention/flash_attention_sm90.cu",
     "flash_attention_bwd_dq": "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
@@ -151,7 +158,7 @@ SOURCES = {
     "flash_attention_bwd_dkv_sm90": "src/repro_torch/kernels/flash_attention/flash_attention_sm90.cu",
     "flash_decode": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
 }
-ROUTES = {n: "triton" if n in LOSS_KERNELS else "cuda" for n in REPLACES}
+ROUTES = {n: "triton" if n in ("ensemble_kl_fwd", "ghm_ce_fwd") else "cuda" for n in REPLACES}
 
 # serving: smollm-135m at full width
 SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
@@ -189,13 +196,15 @@ def environment():
 
     disable_tf32()
     from repro_torch.kernels.build import build_cuda_libraries
+    from repro_torch.kernels.ensemble_kl.kernel import BWD_SOURCE as KL_BWD_SOURCE
     from repro_torch.kernels.flash_attention.kernel import BWD_SOURCE as FA_BWD_SOURCE
     from repro_torch.kernels.flash_attention.kernel import SM90_SOURCE as FA_SM90_SOURCE
     from repro_torch.kernels.flash_attention.kernel import SOURCE as FA_SOURCE
     from repro_torch.kernels.flash_decode.kernel import SOURCE as FD_SOURCE
+    from repro_torch.kernels.ghm_ce.kernel import BWD_SOURCE as CE_BWD_SOURCE
 
     t0 = time.perf_counter()
-    build_cuda_libraries([FA_SOURCE, FA_BWD_SOURCE, FA_SM90_SOURCE, FD_SOURCE])
+    build_cuda_libraries([FA_SOURCE, FA_BWD_SOURCE, FA_SM90_SOURCE, FD_SOURCE, KL_BWD_SOURCE, CE_BWD_SOURCE])
     print(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     return smi
 
@@ -273,29 +282,127 @@ def _graph_ms(fn, reps=20, iters=10):
     return start.elapsed_time(end) / (iters * reps)
 
 
+def _host_ms(fn, iters=2000):
+    """Host time per call: the host clock around back-to-back calls (the
+    device keeps up with a few-microsecond kernel), then a synchronise."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
+def loss_bwd_host_split(cl, st, w, labels, ct, out, lse_t, lse_s, lse, ly):
+    """Where the host's time goes in one call of each loss backward wrapper
+    in the generator's mode at the main shape: the argument checks, the
+    output allocations, the stream lookup and the ``ctypes`` launch, each
+    timed alone, beside the whole call."""
+    import torch
+
+    from repro_torch.kernels.build import loss_bwd_geometry, stream_ptr
+    from repro_torch.kernels.ensemble_kl import kernel as klk
+    from repro_torch.kernels.ghm_ce import kernel as cek
+
+    k, b, v = cl.shape
+    blocks, vec, _ = loss_bwd_geometry(b * v, cl.element_size(), True)
+    g_cl, g_st = torch.empty_like(cl), torch.empty_like(st)
+    kl_args = (cl.data_ptr(), st.data_ptr(), w.data_ptr(), ct.data_ptr(), out.data_ptr(), lse_t.data_ptr(),
+               lse_s.data_ptr(), g_cl.data_ptr(), g_st.data_ptr(), None, None, None, k, b, v, 4.0, 0, 0, vec, blocks)
+    ce_args = (cl.data_ptr(), labels.data_ptr(), w.data_ptr(), ct.data_ptr(), lse.data_ptr(), ly.data_ptr(),
+               g_cl.data_ptr(), None, None, None, k, b, v, 1, 0, cek.LABEL_CODES[labels.dtype], vec, blocks)
+    stream = stream_ptr(w)
+    kl_fn, ce_fn = klk._bwd_lib(), cek._bwd_lib()
+    parts = {
+        "ensemble_kl_bwd": {
+            "call": lambda: klk.ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0, needs=(True, True, False)),
+            "checks": lambda: klk._check_bwd(cl, st, w, ct, out, lse_t, lse_s),
+            "outputs": lambda: (torch.empty_like(cl), torch.empty_like(st)),
+            "stream": lambda: stream_ptr(w),
+            "launch": lambda: kl_fn(*kl_args, stream),
+        },
+        "ghm_ce_bwd": {
+            "call": lambda: cek.ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, True, needs=(True, False)),
+            "checks": lambda: cek._check_bwd(cl, labels, w, ct, lse, ly),
+            "outputs": lambda: torch.empty_like(cl),
+            "stream": lambda: stream_ptr(w),
+            "launch": lambda: ce_fn(*ce_args, stream),
+        },
+    }
+    for name, fns in parts.items():
+        t = {part: _host_ms(fn) for part, fn in fns.items()}
+        t["rest"] = t["call"] - sum(t[p] for p in ("checks", "outputs", "stream", "launch"))
+        print(f"host split {name} (generator's mode, main shape), ms per call: " + json.dumps(t), flush=True)
+
+
 def _bound_ms(nbytes, flops, peak=F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _work(name, k, b, v, itemsize):
+def _work(name, k, b, v, itemsize, needs=None):
     """Bytes each kernel must move (each input read once, each output
     written once) and f32 operations it does: per (b, v) element a K-step
     fma combine (2K) plus ~10 ops of scaling, exponentials and sums in the
-    forward; the backward rebuilds the combine, forms the cotangents (K
-    multiplies for g_client, 2K for the g_w dot products) plus ~12 ops."""
+    forward; the backward rebuilds the combine and forms the cotangents in
+    ``needs`` (K multiplies for g_client, 2K for the g_w dot products, ~4 for
+    g_student) plus ~8 ops, and writes only those."""
     n = b * v
     if name == "ensemble_kl_fwd":
         return (k * n + n) * itemsize + 4 * k + 3 * 4 * b, n * (2 * k + 10)
-    if name == "ensemble_kl_bwd":
-        return (2 * (k * n + n)) * itemsize + 4 * k + 4 * 4 * b + 4 * k, n * (5 * k + 12)
     if name == "ghm_ce_fwd":
         return k * n * itemsize + 4 * k + 8 * b + 3 * 4 * b, n * (2 * k + 6)
-    return 2 * k * n * itemsize + 4 * k + 8 * b + 3 * 4 * b + 4 * k, n * (5 * k + 8)
+    if name == "ensemble_kl_bwd":
+        cl, st, gw = needs
+        written = (k * n * cl + n * st) * itemsize + 4 * k * gw
+        return (k * n + n) * itemsize + 4 * k + 4 * 4 * b + written, n * (2 * k + 8 + k * cl + 4 * st + 2 * k * gw)
+    cl, gw = needs
+    written = k * n * itemsize * cl + 4 * k * gw
+    return k * n * itemsize + 4 * k + 8 * b + 3 * 4 * b + written, n * (2 * k + 8 + k * cl + 2 * k * gw)
+
+
+def _same_bits(name, a, b):
+    import torch
+
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{name}: gave other bits")
+
+
+def _replayed(fn):
+    """``(eager outputs, outputs of the same call captured in a CUDA graph
+    and replayed twice)``."""
+    import torch
+
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, captured
 
 
 def kernels_vs_plain():
+    """The four loss kernels against their plain versions: the forwards in
+    every mode, the backwards in every mode and for every non-empty subset
+    of the cotangents they can compute, at the main shape, at the wide
+    vocabulary in f32 and bf16, and at 20 clients on 100 classes; at the
+    main shape and the wide one a second backward call and a CUDA-graph
+    replay must give the eager call's bits. Times per call and on the device
+    alone, the backwards in the mode the main path calls them in most (the
+    generator's: g_client and g_student, g_client)."""
     import torch
 
     from repro_torch.kernels.ensemble_kl.kernel import ensemble_kl_bwd, ensemble_kl_fwd
@@ -306,7 +413,9 @@ def kernels_vs_plain():
     dev = torch.device("cuda")
     errs = {n: 0.0 for n in LOSS_KERNELS}
     timing = {}
-    shapes = [(MAIN, torch.float32), (WIDE, torch.float32), (WIDE, torch.bfloat16)]
+    subsets_kl = [(a, b, c) for a in (False, True) for b in (False, True) for c in (False, True) if a or b or c]
+    subsets_ce = [(True, False), (False, True), (True, True)]
+    shapes = [(MAIN, torch.float32), (WIDE, torch.float32), (WIDE, torch.bfloat16), (CLIENTS20, torch.float32)]
     for si, (shape, dtype) in enumerate(shapes):
         k, b, v = shape["k"], shape["b"], shape["v"]
         cl, st, w, labels, ct = _case(k, b, v, dtype, seed=si, device=dev)
@@ -318,11 +427,15 @@ def kernels_vs_plain():
                 e = _err(f"ensemble_kl_fwd {tag} T={temp} {name_o}", a, r)
                 errs["ensemble_kl_fwd"] = max(errs["ensemble_kl_fwd"], e)
             out, lse_t, lse_s = want
-            got = ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, temp)
             want = ensemble_kl_bwd_ref(cl, st, w, ct, out, lse_t, lse_s, temp)
-            for name_o, a, r in zip(("g_client", "g_student", "g_w"), got, want):
-                e = _err(f"ensemble_kl_bwd {tag} T={temp} {name_o}", a, r)
-                errs["ensemble_kl_bwd"] = max(errs["ensemble_kl_bwd"], e)
+            for needs in subsets_kl:
+                got = ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, temp, needs=needs)
+                for name_o, a, r, x in zip(("g_client", "g_student", "g_w"), got, want, needs):
+                    if (a is None) == x:
+                        fail(f"ensemble_kl_bwd {tag} T={temp} needs={needs}: {name_o} is {a is None and 'None'}")
+                    if x:
+                        e = _err(f"ensemble_kl_bwd {tag} T={temp} needs={needs} {name_o}", a, r)
+                        errs["ensemble_kl_bwd"] = max(errs["ensemble_kl_bwd"], e)
         for weighted in (True, False):
             got = ghm_ce_fwd(cl, labels, w, weighted)
             want = ghm_ce_fwd_ref(cl, labels, w, weighted)
@@ -331,37 +444,61 @@ def kernels_vs_plain():
                 errs["ghm_ce_fwd"] = max(errs["ghm_ce_fwd"], e)
             _, lse, ly = want
             for stop in ((True, False) if weighted else (False,)):
-                got = ghm_ce_bwd(cl, labels, w, ct, lse, ly, weighted, stop)
                 want = ghm_ce_bwd_ref(cl, labels, w, ct, lse, ly, weighted, stop)
-                for name_o, a, r in zip(("g_client", "g_w"), got, want):
-                    e = _err(f"ghm_ce_bwd {tag} weighted={weighted} stop={stop} {name_o}", a, r)
-                    errs["ghm_ce_bwd"] = max(errs["ghm_ce_bwd"], e)
+                for needs in subsets_ce:
+                    got = ghm_ce_bwd(cl, labels, w, ct, lse, ly, weighted, stop, needs=needs)
+                    for name_o, a, r, x in zip(("g_client", "g_w"), got, want, needs):
+                        if (a is None) == x:
+                            fail(f"ghm_ce_bwd {tag} weighted={weighted} stop={stop} needs={needs}: {name_o} wrong")
+                        if x:
+                            e = _err(f"ghm_ce_bwd {tag} weighted={weighted} stop={stop} needs={needs} {name_o}", a, r)
+                            errs["ghm_ce_bwd"] = max(errs["ghm_ce_bwd"], e)
         torch.cuda.synchronize()
         print(f"kernels agree with plain versions at {tag}", flush=True)
 
-        # times: ensemble_kl at T=4 (distillation), ghm_ce weighted with the
-        # difficulty held constant (the generator loss)
         out, lse_t, lse_s = ensemble_kl_fwd_ref(cl, st, w, 4.0)
         _, lse, ly = ghm_ce_fwd_ref(cl, labels, w, True)
+        if shape is not CLIENTS20 and dtype == torch.float32:
+            # every cotangent (g_w across blocks at the wide shape): a second
+            # call and a graph replay give the eager call's bits
+            kl_all = lambda: ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0)
+            ce_all = lambda: ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, False)
+            for name, fn in (("ensemble_kl_bwd", kl_all), ("ghm_ce_bwd", ce_all)):
+                first = fn()
+                _same_bits(f"{name} {tag}, a second call", first, fn())
+                _same_bits(f"{name} {tag}, a CUDA-graph replay", *_replayed(fn))
+            print(f"loss backward kernels at {tag}: a second call and a graph replay give the same bits", flush=True)
+        if shape is CLIENTS20:
+            continue
+
+        # times: ensemble_kl at T=4, ghm_ce weighted with the difficulty held
+        # constant; the backwards in the generator's mode
+        gen_kl, gen_ce = (True, True, False), (True, False)
         calls = {
-            "ensemble_kl_fwd": (lambda: ensemble_kl_fwd(cl, st, w, 4.0), lambda: ensemble_kl_fwd_ref(cl, st, w, 4.0)),
+            "ensemble_kl_fwd": (lambda: ensemble_kl_fwd(cl, st, w, 4.0), lambda: ensemble_kl_fwd_ref(cl, st, w, 4.0),
+                                None),
             "ensemble_kl_bwd": (
-                lambda: ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0),
-                lambda: ensemble_kl_bwd_ref(cl, st, w, ct, out, lse_t, lse_s, 4.0),
+                lambda: ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0, needs=gen_kl),
+                lambda: ensemble_kl_bwd_ref(cl, st, w, ct, out, lse_t, lse_s, 4.0, needs=gen_kl),
+                gen_kl,
             ),
-            "ghm_ce_fwd": (lambda: ghm_ce_fwd(cl, labels, w, True), lambda: ghm_ce_fwd_ref(cl, labels, w, True)),
+            "ghm_ce_fwd": (lambda: ghm_ce_fwd(cl, labels, w, True), lambda: ghm_ce_fwd_ref(cl, labels, w, True), None),
             "ghm_ce_bwd": (
-                lambda: ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, True),
-                lambda: ghm_ce_bwd_ref(cl, labels, w, ct, lse, ly, True, True),
+                lambda: ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, True, needs=gen_ce),
+                lambda: ghm_ce_bwd_ref(cl, labels, w, ct, lse, ly, True, True, needs=gen_ce),
+                gen_ce,
             ),
         }
-        for name, (kern, plain) in calls.items():
-            nbytes, flops = _work(name, k, b, v, cl.element_size())
+        if shape is MAIN:
+            loss_bwd_host_split(cl, st, w, labels, ct, out, lse_t, lse_s, lse, ly)
+        for name, (kern, plain, needs) in calls.items():
+            if shape is not MAIN and needs is None:
+                continue  # the forwards at the main shape only, as before
+            nbytes, flops = _work(name, k, b, v, cl.element_size(), needs)
             bound, bound_by = _bound_ms(nbytes, flops)
             timing[(name, tag)] = {
                 "ms": _time_ms(kern), "plain_ms": _time_ms(plain),
-                "bound_ms": bound, "bound_by": bound_by,
-                "device_ms": _graph_ms(kern) if shape is MAIN else None,  # the main path's shape
+                "bound_ms": bound, "bound_by": bound_by, "device_ms": _graph_ms(kern),
             }
     for (name, tag), t in timing.items():
         print(f"time {name} {tag}: " + json.dumps(t), flush=True)

@@ -1,12 +1,12 @@
 """Building the hand kernels: where the compiled kernels are cached, and
 the launch counters.
 
-Triton kernels: Triton is imported only inside :func:`triton_modules`,
-which the kernel wrappers call the first time they launch, so every module
-of the package imports on a machine without Triton. They compile on first
-use into ``build/triton`` at the root of the checkout (listed in
-``.gitignore``); ``TRITON_CACHE_DIR`` / ``TRITON_HOME``, when set, take
-precedence.
+Triton kernels (the loss forwards): Triton is imported only inside
+:func:`triton_modules`, which the kernel wrappers call the first time they
+launch, so every module of the package imports on a machine without
+Triton. They compile on first use into ``build/triton`` at the root of the
+checkout (listed in ``.gitignore``); ``TRITON_CACHE_DIR`` /
+``TRITON_HOME``, when set, take precedence.
 
 CUDA C++ kernels: each ``.cu`` source beside its wrapper exports plain
 ``extern "C"`` launchers. :func:`cuda_library` compiles it with ``nvcc``
@@ -100,22 +100,6 @@ def row_blocks(b: int, v: int) -> tuple[int, int]:
     return block_b, block_v
 
 
-# triton.language; jit() binds it before the first build
-tl = None
-
-
-def _gw_reduce_body(part_ptr, gw_ptr, NB, K, BLOCK_R: tl.constexpr, BLOCK_K: tl.constexpr):
-    """Sum the ``(NB, BLOCK_K)`` per-program ``g_w`` partials over programs,
-    in a fixed order (one program; no atomics, so the result is the same on
-    every run)."""
-    kk = tl.arange(0, BLOCK_K)
-    acc = tl.zeros([BLOCK_R, BLOCK_K], tl.float32)
-    for r0 in range(0, NB, BLOCK_R):
-        r = r0 + tl.arange(0, BLOCK_R)
-        acc += tl.load(part_ptr + r[:, None] * BLOCK_K + kk[None, :], mask=(r < NB)[:, None], other=0.0)
-    tl.store(gw_ptr + kk, tl.sum(acc, axis=0), mask=kk < K)
-
-
 _JITTED = {}
 
 
@@ -128,15 +112,6 @@ def jit(body):
         body.__globals__["tl"] = tl
         _JITTED[body] = triton.jit(body)
     return _JITTED[body]
-
-
-def reduce_partials(partials: torch.Tensor, k: int) -> torch.Tensor:
-    """Second pass of a backward kernel's ``g_w``: ``(NB, BLOCK_K)`` f32
-    partials → ``(k,)`` f32."""
-    nb, block_k = partials.shape
-    gw = torch.empty(k, dtype=torch.float32, device=partials.device)
-    jit(_gw_reduce_body)[(1,)](partials, gw, nb, k, BLOCK_R=64, BLOCK_K=block_k, num_warps=4)
-    return gw
 
 
 # ---------------------------------------------------------------------------
@@ -199,3 +174,58 @@ def check_launch(name: str, err: int) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# the loss backward kernels (ensemble_kl_bwd.cu, ghm_ce_bwd.cu)
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+#: Threads of a block of the loss backward kernels, and the blocks each SM
+#: keeps resident at once (their ``__launch_bounds__``).
+LOSS_BWD_THREADS = 256
+LOSS_BWD_BLOCKS_PER_SM = 3
+
+
+def loss_bwd_geometry(n: int, itemsize: int, aligned: bool) -> tuple[int, int, int]:
+    """``(blocks, vec, scratch_rows)`` of a loss backward launch over the
+    ``n`` elements of the (B, V) plane, ``itemsize`` the widest logit dtype's.
+
+    ``vec``: the elements a thread moves per access, 16 bytes' worth when
+    ``aligned`` (every plane starts 16-byte aligned) and ``n`` is a multiple
+    of it, else 1 (the thread then takes 8 bytes' worth of single elements a
+    block width apart). ``blocks``: enough that each thread takes at least
+    two steps of the grid-stride loop (one block at the main path's K=5,
+    B=128, V=10), at most what the card keeps resident at once.
+    ``scratch_rows``: the columns of the ``g_w`` partials a launch writes,
+    one per block; 0 for one block, which writes ``g_w`` itself."""
+    vec = 16 // itemsize
+    if not aligned or n % vec:
+        vec = 1
+    per_step = LOSS_BWD_THREADS * max(vec, 8 // itemsize)
+    blocks = max(1, min(-(-n // (2 * per_step)), SMS * LOSS_BWD_BLOCKS_PER_SM))
+    return blocks, vec, blocks if blocks > 1 else 0
+
+
+_GW_SCRATCH: Dict[torch.device, tuple] = {}
+_GW_OUTGROWN: list = []
+
+
+def gw_scratch(device: torch.device, floats: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(partials, ticket)`` on ``device`` for a launch whose ``g_w`` spans
+    blocks: at least ``floats`` f32 partials, and the integer ticket the last
+    block takes, zeroed once (every launch leaves it at 0). One pair per
+    device, shared by both loss backward kernels, which run on one stream.
+    The partials grow only outside a CUDA-graph capture, and an outgrown
+    buffer stays alive, since a captured graph may still point at it."""
+    cur = _GW_SCRATCH.get(device)
+    if cur is None or cur[0].numel() < floats:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the g_w scratch cannot grow during a CUDA-graph capture: make the same call once before capturing"
+            )
+        if cur is not None:
+            _GW_OUTGROWN.append(cur[0])
+        ticket = cur[1] if cur is not None else torch.zeros(1, dtype=torch.int32, device=device)
+        cur = (torch.empty(max(floats, 4096), dtype=torch.float32, device=device), ticket)
+        _GW_SCRATCH[device] = cur
+    return cur

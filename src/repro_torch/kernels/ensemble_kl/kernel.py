@@ -1,4 +1,6 @@
-"""Fused weighted-ensemble + temperature-KL kernels for Hopper, in Triton.
+"""Fused weighted-ensemble + temperature-KL kernels for Hopper: the forward
+in Triton, the backward in CUDA C++ (``ensemble_kl_bwd.cu`` beside this
+file), and their wrappers.
 
 Replaces the Pallas TPU kernels ``repro/kernels/ensemble_kl/kernel.py``
 ``ensemble_kl_pallas`` (forward, ``_kernel``) and ``ensemble_kl_bwd_pallas``
@@ -12,29 +14,28 @@ and ``s = student / T``:
   device memory, and online max/sum statistics over V;
 * backward: from ``g``, ``out``, ``lse_t``, ``lse_s``, the cotangents
   ``g_client = w_k·g_ens``, ``g_student = T·g·(q − p)`` and
-  ``g_w = ⟨g_ens, client_k⟩`` with ``g_ens = T·g·p⊙((t−lse_t)−(s−lse_s)−out/T²)``.
+  ``g_w = ⟨g_ens, client_k⟩`` with ``g_ens = T·g·p⊙((t−lse_t)−(s−lse_s)−out/T²)``,
+  each only when the caller asks for it.
 
 What bounds them on the H100: bytes. There is no matrix product: the
 combine is a K-step fma, and each element of the client stack is read once
-(twice in the backward, the second time from L1/L2) for a handful of flops,
-far below the ~20 flop/byte the card needs before arithmetic would matter.
-At the main path's K=5, B=128, V=10 the forward reads about 31 KB, about
-9 ns at 3.35 TB/s, so the launch itself dominates.
+for a handful of flops, far below the ~20 flop/byte the card needs before
+arithmetic would matter. At the main path's K=5, B=128, V=10 the forward
+reads about 31 KB, about 9 ns at 3.35 TB/s, so the launch itself dominates.
 
 What the design does about it: in the forward, one program per block of
 rows walks V in ``BLOCK_V`` chunks (the TPU's vocab-minor grid becomes this
-loop) and keeps the online statistics in registers. The backward needs no
-loop: with ``lse_t``/``lse_s`` saved, every (row block, V chunk) tile is
-independent, so it runs one program per tile over a 2-D grid. Both mask
-the B and V tails instead of padding them to the TPU's (8, 128) tiles. The
-TPU backward accumulates ``g_w`` in an output block every grid step
-revisits, which is safe only because TPU grids run in order; here each
-program writes its own ``(K,)`` f32 partial and a second one-program
-launch sums the partials in a fixed order, with no float atomics, so
-``g_w`` is the same on every run. The backward computes in f32 and stores
-in the input dtypes.
+loop) and keeps the online statistics in registers, masking the B and V
+tails instead of padding them to the TPU's (8, 128) tiles. The backward is
+one launch of an elementwise grid over the (B, V) plane that computes only
+the wanted cotangents and combines ``g_w`` across blocks in the same launch,
+in a fixed order with no float atomics; ``ensemble_kl_bwd.cu`` says how. Both
+compute in f32 and store in the input dtypes.
 """
 from __future__ import annotations
+
+import ctypes
+from pathlib import Path
 
 import torch
 
@@ -42,13 +43,19 @@ from repro_torch.kernels.build import (
     FLOAT_DTYPES,
     LAUNCHES,
     check_cuda,
+    check_launch,
     check_rows,
+    cuda_library,
+    gw_scratch,
     jit,
-    next_pow2,
-    reduce_partials,
+    loss_bwd_geometry,
     row_blocks,
+    stream_ptr,
 )
 from repro_torch.kernels.ensemble_kl.ref import ensemble_kl_bwd_ref, ensemble_kl_fwd_ref
+
+BWD_SOURCE = Path(__file__).with_name("ensemble_kl_bwd.cu")
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # triton.language; build.jit binds it before the first build, so this module
@@ -102,47 +109,6 @@ def _fwd_body(
     tl.store(lses_ptr + rows, lse_s, mask=rmask)
 
 
-def _bwd_body(
-    w_ptr, cl_ptr, st_ptr, g_ptr, out_ptr, lset_ptr, lses_ptr, gcl_ptr, gst_ptr, part_ptr,
-    K, B, V, stride_k,
-    T: tl.constexpr, BLOCK_B: tl.constexpr, BLOCK_V: tl.constexpr, BLOCK_K: tl.constexpr,
-):
-    """One (row block, V chunk) tile per program: the residuals make the
-    tiles independent, so the backward needs no loop over V."""
-    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-    cols = tl.program_id(1) * BLOCK_V + tl.arange(0, BLOCK_V)
-    rmask = rows < B
-    mask = rmask[:, None] & (cols < V)[None, :]
-    offs = rows.to(tl.int64)[:, None] * V + cols[None, :]
-    # rows past B carry a zero cotangent, so every gradient they touch is 0
-    lse_t = tl.load(lset_ptr + rows, mask=rmask, other=0.0)
-    lse_s = tl.load(lses_ptr + rows, mask=rmask, other=0.0)
-    g_t = tl.load(g_ptr + rows, mask=rmask, other=0.0) * T
-    kl_u = tl.load(out_ptr + rows, mask=rmask, other=0.0) / (T * T)
-    t = tl.zeros([BLOCK_B, BLOCK_V], tl.float32)
-    for k in range(K):
-        wk = tl.load(w_ptr + k)
-        c = tl.load(cl_ptr + k.to(tl.int64) * stride_k + offs, mask=mask, other=0.0)
-        t += wk * c.to(tl.float32)
-    lt = t / T - lse_t[:, None]
-    ls = tl.load(st_ptr + offs, mask=mask, other=0.0).to(tl.float32) / T - lse_s[:, None]
-    p = tl.exp(lt)
-    q = tl.exp(ls)
-    g_ens = tl.where(mask, g_t[:, None] * (p * (lt - ls - kl_u[:, None])), 0.0)
-    g_st = g_t[:, None] * (q - p)
-    tl.store(gst_ptr + offs, g_st.to(gst_ptr.dtype.element_ty), mask=mask)
-    kk = tl.arange(0, BLOCK_K)
-    gw = tl.zeros([BLOCK_K], tl.float32)
-    for k in range(K):
-        wk = tl.load(w_ptr + k)
-        koff = k.to(tl.int64) * stride_k + offs
-        c = tl.load(cl_ptr + koff, mask=mask, other=0.0).to(tl.float32)
-        tl.store(gcl_ptr + koff, (wk * g_ens).to(gcl_ptr.dtype.element_ty), mask=mask)
-        gw = tl.where(kk == k, gw + tl.sum(tl.sum(c * g_ens, axis=1), axis=0), gw)
-    pid = tl.program_id(0) * tl.num_programs(1) + tl.program_id(1)
-    tl.store(part_ptr + pid * BLOCK_K + kk, gw, mask=kk < K)
-
-
 def _check_inputs(name, client_logits, student_logits, w):
     check_cuda(name, client_logits, student_logits, w)
     if client_logits.dim() != 3 or tuple(student_logits.shape) != tuple(client_logits.shape[1:]):
@@ -175,27 +141,47 @@ def ensemble_kl_fwd(client_logits, student_logits, w, temperature: float = 1.0):
     return out, lse_t, lse_s
 
 
-def ensemble_kl_bwd(client_logits, student_logits, w, g, out, lse_t, lse_s, temperature: float = 1.0):
-    """``(g_client, g_student, g_w)`` in the dtypes of the inputs. Launches
-    the Triton kernel (and its fixed-order ``g_w`` reduction) for CUDA
-    tensors; computes the plain version for CPU tensors."""
-    if client_logits.device.type == "cpu":
-        return ensemble_kl_bwd_ref(client_logits, student_logits, w, g, out, lse_t, lse_s, temperature)
+def _check_bwd(client_logits, student_logits, w, g, out, lse_t, lse_s):
     _check_inputs("ensemble_kl_bwd", client_logits, student_logits, w)
-    k, b, v = client_logits.shape
     check_cuda("ensemble_kl_bwd", client_logits, g, out, lse_t, lse_s)
-    check_rows("ensemble_kl_bwd", b, g, out, lse_t, lse_s)
-    g_cl = torch.empty_like(client_logits)
-    g_st = torch.empty_like(student_logits)
-    block_b, block_v = row_blocks(b, v)
-    block_k = max(2, next_pow2(k))
-    grid = (-(-b // block_b), -(-v // block_v))
-    partials = torch.empty((grid[0] * grid[1], block_k), dtype=torch.float32, device=w.device)
-    jit(_bwd_body)[grid](
-        w, client_logits, student_logits, g, out, lse_t, lse_s, g_cl, g_st, partials,
-        k, b, v, b * v,
-        T=float(temperature), BLOCK_B=block_b, BLOCK_V=block_v, BLOCK_K=block_k, num_warps=4,
+    check_rows("ensemble_kl_bwd", client_logits.shape[1], g, out, lse_t, lse_s)
+
+
+def _bwd_lib():
+    """The backward's launcher in the built library, with its C signature."""
+    fn = cuda_library(BWD_SOURCE).ensemble_kl_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 12 + [i] * 3 + [ctypes.c_float] + [i] * 4 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ensemble_kl_bwd(
+    client_logits, student_logits, w, g, out, lse_t, lse_s, temperature: float = 1.0, needs=(True, True, True)
+):
+    """``(g_client, g_student, g_w)`` in the dtypes of the inputs, each
+    ``None`` where ``needs`` (three flags, in that order) leaves it out.
+    Launches the CUDA kernel, once, for CUDA tensors; computes the plain
+    version for CPU tensors."""
+    if client_logits.device.type == "cpu":
+        return ensemble_kl_bwd_ref(client_logits, student_logits, w, g, out, lse_t, lse_s, temperature, needs)
+    _check_bwd(client_logits, student_logits, w, g, out, lse_t, lse_s)
+    k, b, v = client_logits.shape
+    want_cl, want_st, want_w = (bool(x) for x in needs)
+    g_cl = torch.empty_like(client_logits) if want_cl else None
+    g_st = torch.empty_like(student_logits) if want_st else None
+    g_w = torch.empty(k, dtype=torch.float32, device=w.device) if want_w else None
+    itemsize = max(client_logits.element_size(), student_logits.element_size())
+    aligned = client_logits.data_ptr() % 16 == 0 and student_logits.data_ptr() % 16 == 0
+    blocks, vec, rows = loss_bwd_geometry(b * v, itemsize, aligned)
+    part, ticket = gw_scratch(w.device, k * rows) if want_w and rows else (None, None)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    err = _bwd_lib()(
+        client_logits.data_ptr(), student_logits.data_ptr(), w.data_ptr(), g.data_ptr(), out.data_ptr(),
+        lse_t.data_ptr(), lse_s.data_ptr(), ptr(g_cl), ptr(g_st), ptr(g_w), ptr(part), ptr(ticket), k, b, v, float(temperature), DTYPE_CODES[client_logits.dtype], DTYPE_CODES[student_logits.dtype], vec,
+        blocks, stream_ptr(w),
     )
-    g_w = reduce_partials(partials, k)
+    check_launch("ensemble_kl_bwd", err)
     LAUNCHES["ensemble_kl_bwd"] += 1
     return g_cl, g_st, g_w

@@ -4,10 +4,11 @@
 Under ``"auto"``/``"cuda"`` the op is a ``torch.autograd.Function`` whose
 forward is the forward kernel, saving ``out``, ``lse_t`` and ``lse_s`` (the
 kernel's online-softmax statistics) as residuals, and whose backward is the
-backward kernel, emitting the client, student and ``w`` cotangents in one
-pass. The student cotangent drives server distillation (Eq. 4) and the
-generator's adversarial term (Eq. 7); the client cotangent reaches the
-generator through the client CNNs. ``"ref"`` is plain autograd of
+backward kernel, emitting in one pass only the cotangents autograd asks for
+(``ctx.needs_input_grad``). The student cotangent drives server
+distillation (Eq. 4) and the generator's adversarial term (Eq. 7); the
+client cotangent reaches the generator through the client CNNs; on the
+Co-Boosting path nothing differentiates ``w`` through this op. ``"ref"`` is plain autograd of
 :func:`ensemble_kl_ref`.
 """
 from __future__ import annotations
@@ -31,7 +32,8 @@ class EnsembleKL(torch.autograd.Function):
     def backward(ctx, g):
         client_logits, student_logits, w, out, lse_t, lse_s = ctx.saved_tensors
         g_cl, g_st, g_w = ensemble_kl_bwd(
-            client_logits, student_logits, w, g.float().contiguous(), out, lse_t, lse_s, ctx.temperature
+            client_logits, student_logits, w, g.float().contiguous(), out, lse_t, lse_s, ctx.temperature,
+            needs=ctx.needs_input_grad[:3],
         )
         return g_cl, g_st, g_w, None
 

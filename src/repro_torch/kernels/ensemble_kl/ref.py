@@ -39,7 +39,9 @@ def ensemble_kl_fwd_ref(client_logits, student_logits, w, temperature: float = 1
     return out, lse_t, lse_s
 
 
-def ensemble_kl_bwd_ref(client_logits, student_logits, w, g, out, lse_t, lse_s, temperature: float = 1.0):
+def ensemble_kl_bwd_ref(
+    client_logits, student_logits, w, g, out, lse_t, lse_s, temperature: float = 1.0, needs=(True, True, True)
+):
     """``(g_client, g_student, g_w)`` for the per-sample cotangent ``g`` (B,):
 
         g_ens     = T·g·p ⊙ ((t − lse_t) − (s − lse_s) − out/T²)
@@ -47,14 +49,16 @@ def ensemble_kl_bwd_ref(client_logits, student_logits, w, g, out, lse_t, lse_s, 
         g_student = T·g·(q − p)
         g_w       = ⟨g_ens, client_k⟩
 
-    in the dtypes of client_logits, student_logits and w."""
+    in the dtypes of client_logits, student_logits and w; each ``None`` where
+    ``needs`` (three flags, in that order) leaves it out."""
+    want_cl, want_st, want_w = needs
     t, s = _teacher_student(client_logits, student_logits, w, temperature)
     lt, ls = t - lse_t[:, None], s - lse_s[:, None]
     p, q = torch.exp(lt), torch.exp(ls)
     g_t = (g.float() * temperature)[:, None]
     kl_u = (out / (temperature * temperature))[:, None]
     g_ens = g_t * (p * (lt - ls - kl_u))
-    g_cl = w.float()[:, None, None] * g_ens[None]
-    g_st = g_t * (q - p)
-    g_w = torch.einsum("kbv,bv->k", client_logits.float(), g_ens)
-    return g_cl.to(client_logits.dtype), g_st.to(student_logits.dtype), g_w.to(w.dtype)
+    g_cl = (w.float()[:, None, None] * g_ens[None]).to(client_logits.dtype) if want_cl else None
+    g_st = (g_t * (q - p)).to(student_logits.dtype) if want_st else None
+    g_w = torch.einsum("kbv,bv->k", client_logits.float(), g_ens).to(w.dtype) if want_w else None
+    return g_cl, g_st, g_w

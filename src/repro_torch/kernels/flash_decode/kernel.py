@@ -29,14 +29,13 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES, check_cuda, check_launch, cuda_library, stream_ptr
+from repro_torch.kernels.build import SMS, LAUNCHES, check_cuda, check_launch, cuda_library, stream_ptr
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 SOURCE = Path(__file__).with_name("flash_decode.cu")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 32  # query heads per kv head one block holds
-SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def decode_splits(b: int, kh: int, w: int) -> int:

@@ -1,4 +1,6 @@
-"""Fused GHM-difficulty-weighted cross-entropy kernels for Hopper, in Triton.
+"""Fused GHM-difficulty-weighted cross-entropy kernels for Hopper: the
+forward in Triton, the backward in CUDA C++ (``ghm_ce_bwd.cu`` beside this
+file), and their wrappers.
 
 Replaces the Pallas TPU kernels ``repro/kernels/ghm_ce/kernel.py``
 ``ghm_ce_pallas`` (forward, ``_kernel``) and ``ghm_ce_bwd_pallas``
@@ -13,7 +15,8 @@ What they compute, per row b, over the weighted ensemble
 * backward: ``g_t = g·coeff·(p − onehot)`` with ``coeff`` 1 (plain CE),
   ``1 − p_y`` (``stop_difficulty_grad``, the Eq. 6 generator loss) or
   ``1 − p_y + p_y·nll``; ``g_client = w_k·g_t`` and ``g_w = ⟨g_t, client_k⟩``
-  (the Eq. 12 EE step reads ``g_w``). Labels carry no gradient.
+  (the Eq. 12 EE step reads ``g_w``), each only when the caller asks for
+  it. Labels carry no gradient.
 
 What bounds them on the H100: bytes, as for ``ensemble_kl``: a K-step fma
 and a row reduction per element, no matrix product. At K=5, B=128, V=10 the
@@ -22,15 +25,17 @@ dominates.
 
 What the design does about it: the forward runs one program per block of
 rows, looping over V in ``BLOCK_V`` chunks with the statistics in
-registers; the backward, whose tiles are independent once ``lse`` and
-``ly`` are saved, runs one program per (row block, V chunk) tile. Both
-mask the B and V tails. The mode (``weighted``, ``stop_difficulty_grad``)
-is a compile-time flag. ``g_w`` is written as per-program partials and
-summed by a second one-program launch in a fixed order (the TPU kernel's
-revisited accumulator block relies on in-order grids, which a GPU does not
-have).
+registers, masking the B and V tails; the mode (``weighted``) is a
+compile-time flag. The backward is one launch of an elementwise grid over
+the (B, V) plane that computes only the wanted cotangents and combines
+``g_w`` across blocks in the same launch, in a fixed order with no float
+atomics (the TPU kernel's revisited accumulator block relies on in-order
+grids, which a GPU does not have); ``ghm_ce_bwd.cu`` says how.
 """
 from __future__ import annotations
+
+import ctypes
+from pathlib import Path
 
 import torch
 
@@ -38,13 +43,20 @@ from repro_torch.kernels.build import (
     FLOAT_DTYPES,
     LAUNCHES,
     check_cuda,
+    check_launch,
     check_rows,
+    cuda_library,
+    gw_scratch,
     jit,
-    next_pow2,
-    reduce_partials,
+    loss_bwd_geometry,
     row_blocks,
+    stream_ptr,
 )
 from repro_torch.kernels.ghm_ce.ref import ghm_ce_bwd_ref, ghm_ce_fwd_ref
+
+BWD_SOURCE = Path(__file__).with_name("ghm_ce_bwd.cu")
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+LABEL_CODES = {torch.int32: 0, torch.int64: 1}
 
 
 # triton.language; build.jit binds it before the first build, so this module
@@ -88,52 +100,6 @@ def _fwd_body(
     tl.store(ly_ptr + rows, ly, mask=rmask)
 
 
-def _bwd_body(
-    w_ptr, cl_ptr, lab_ptr, g_ptr, lse_ptr, ly_ptr, gcl_ptr, part_ptr, K, B, V, stride_k,
-    WEIGHTED: tl.constexpr, STOP_GRAD: tl.constexpr,
-    BLOCK_B: tl.constexpr, BLOCK_V: tl.constexpr, BLOCK_K: tl.constexpr,
-):
-    """One (row block, V chunk) tile per program: the residuals make the
-    tiles independent, so the backward needs no loop over V."""
-    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-    cols = tl.program_id(1) * BLOCK_V + tl.arange(0, BLOCK_V)
-    rmask = rows < B
-    mask = rmask[:, None] & (cols < V)[None, :]
-    offs = rows.to(tl.int64)[:, None] * V + cols[None, :]
-    # rows past B carry a zero cotangent, so every gradient they touch is 0
-    lab = tl.load(lab_ptr + rows, mask=rmask, other=0)
-    lse = tl.load(lse_ptr + rows, mask=rmask, other=0.0)
-    ly = tl.load(ly_ptr + rows, mask=rmask, other=0.0)
-    g = tl.load(g_ptr + rows, mask=rmask, other=0.0)
-    if WEIGHTED:
-        py = tl.exp(ly - lse)
-        if STOP_GRAD:
-            coeff = 1.0 - py
-        else:
-            coeff = 1.0 - py + py * (lse - ly)
-        gc = g * coeff
-    else:
-        gc = g
-    t = tl.zeros([BLOCK_B, BLOCK_V], tl.float32)
-    for k in range(K):
-        wk = tl.load(w_ptr + k)
-        c = tl.load(cl_ptr + k.to(tl.int64) * stride_k + offs, mask=mask, other=0.0)
-        t += wk * c.to(tl.float32)
-    p = tl.exp(t - lse[:, None])
-    onehot = tl.where(cols[None, :] == lab[:, None], 1.0, 0.0)
-    g_t = tl.where(mask, gc[:, None] * (p - onehot), 0.0)
-    kk = tl.arange(0, BLOCK_K)
-    gw = tl.zeros([BLOCK_K], tl.float32)
-    for k in range(K):
-        wk = tl.load(w_ptr + k)
-        koff = k.to(tl.int64) * stride_k + offs
-        c = tl.load(cl_ptr + koff, mask=mask, other=0.0).to(tl.float32)
-        tl.store(gcl_ptr + koff, (wk * g_t).to(gcl_ptr.dtype.element_ty), mask=mask)
-        gw = tl.where(kk == k, gw + tl.sum(tl.sum(c * g_t, axis=1), axis=0), gw)
-    pid = tl.program_id(0) * tl.num_programs(1) + tl.program_id(1)
-    tl.store(part_ptr + pid * BLOCK_K + kk, gw, mask=kk < K)
-
-
 def _check_inputs(name, client_logits, labels, w):
     check_cuda(name, client_logits, labels, w)
     if client_logits.dim() != 3 or tuple(labels.shape) != (client_logits.shape[1],):
@@ -166,26 +132,46 @@ def ghm_ce_fwd(client_logits, labels, w, weighted: bool = True):
     return out, lse, ly
 
 
-def ghm_ce_bwd(client_logits, labels, w, g, lse, ly, weighted: bool = True, stop_difficulty_grad: bool = False):
-    """``(g_client, g_w)`` in the dtypes of the inputs. Launches the Triton
-    kernel (and its fixed-order ``g_w`` reduction) for CUDA tensors;
-    computes the plain version for CPU tensors."""
-    if client_logits.device.type == "cpu":
-        return ghm_ce_bwd_ref(client_logits, labels, w, g, lse, ly, weighted, stop_difficulty_grad)
+def _check_bwd(client_logits, labels, w, g, lse, ly):
     _check_inputs("ghm_ce_bwd", client_logits, labels, w)
-    k, b, v = client_logits.shape
     check_cuda("ghm_ce_bwd", client_logits, g, lse, ly)
-    check_rows("ghm_ce_bwd", b, g, lse, ly)
-    g_cl = torch.empty_like(client_logits)
-    block_b, block_v = row_blocks(b, v)
-    block_k = max(2, next_pow2(k))
-    grid = (-(-b // block_b), -(-v // block_v))
-    partials = torch.empty((grid[0] * grid[1], block_k), dtype=torch.float32, device=w.device)
-    jit(_bwd_body)[grid](
-        w, client_logits, labels, g, lse, ly, g_cl, partials, k, b, v, b * v,
-        WEIGHTED=bool(weighted), STOP_GRAD=bool(stop_difficulty_grad),
-        BLOCK_B=block_b, BLOCK_V=block_v, BLOCK_K=block_k, num_warps=4,
+    check_rows("ghm_ce_bwd", client_logits.shape[1], g, lse, ly)
+
+
+def _bwd_lib():
+    """The backward's launcher in the built library, with its C signature."""
+    fn = cuda_library(BWD_SOURCE).ghm_ce_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 10 + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ghm_ce_bwd(
+    client_logits, labels, w, g, lse, ly, weighted: bool = True, stop_difficulty_grad: bool = False,
+    needs=(True, True),
+):
+    """``(g_client, g_w)`` in the dtypes of the inputs, each ``None`` where
+    ``needs`` (two flags, in that order) leaves it out. Launches the CUDA
+    kernel, once, for CUDA tensors; computes the plain version for CPU
+    tensors."""
+    if client_logits.device.type == "cpu":
+        return ghm_ce_bwd_ref(client_logits, labels, w, g, lse, ly, weighted, stop_difficulty_grad, needs)
+    _check_bwd(client_logits, labels, w, g, lse, ly)
+    k, b, v = client_logits.shape
+    want_cl, want_w = (bool(x) for x in needs)
+    g_cl = torch.empty_like(client_logits) if want_cl else None
+    g_w = torch.empty(k, dtype=torch.float32, device=w.device) if want_w else None
+    blocks, vec, rows = loss_bwd_geometry(b * v, client_logits.element_size(), client_logits.data_ptr() % 16 == 0)
+    part, ticket = gw_scratch(w.device, k * rows) if want_w and rows else (None, None)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    mode = 0 if not weighted else (1 if stop_difficulty_grad else 2)  # the coefficient's three forms
+    err = _bwd_lib()(
+        client_logits.data_ptr(), labels.data_ptr(), w.data_ptr(), g.data_ptr(), lse.data_ptr(), ly.data_ptr(),
+        ptr(g_cl), ptr(g_w), ptr(part), ptr(ticket), k, b, v, mode, DTYPE_CODES[client_logits.dtype],
+        LABEL_CODES[labels.dtype], vec, blocks, stream_ptr(w),
     )
-    g_w = reduce_partials(partials, k)
+    check_launch("ghm_ce_bwd", err)
     LAUNCHES["ghm_ce_bwd"] += 1
     return g_cl, g_w

@@ -4,7 +4,9 @@
 Under ``"auto"``/``"cuda"`` the op is a ``torch.autograd.Function`` whose
 forward is the forward kernel, saving the ensemble logsumexp ``lse`` and the
 label logit ``ly`` as residuals, and whose backward is the backward kernel,
-emitting the client and ``w`` cotangents; labels are integer and get none.
+emitting only the cotangents autograd asks for (``ctx.needs_input_grad``):
+the client cotangent for the generator's steps (Eq. 6), the ``w``
+cotangent for the EE step (Eq. 12); labels are integer and get none.
 ``"ref"`` is plain autograd of :func:`ghm_ce_ref`.
 
 With ``t = A_w``, ``p = softmax(t)``, ``p_y`` the label probability,
@@ -35,9 +37,10 @@ class GhmCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         client_logits, labels, w, lse, ly = ctx.saved_tensors
+        need = ctx.needs_input_grad
         g_cl, g_w = ghm_ce_bwd(
-            client_logits, labels, w, g.float().contiguous(), lse, ly,
-            ctx.weighted, ctx.stop_difficulty_grad,
+            client_logits, labels, w, g.float().contiguous(), lse, ly, ctx.weighted, ctx.stop_difficulty_grad,
+            needs=(need[0], need[2]),
         )
         return g_cl, None, g_w, None, None
 

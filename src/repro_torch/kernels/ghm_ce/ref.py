@@ -49,11 +49,16 @@ def ghm_ce_fwd_ref(client_logits, labels, w, weighted: bool = True):
     return nll, lse, ly
 
 
-def ghm_ce_bwd_ref(client_logits, labels, w, g, lse, ly, weighted: bool = True, stop_difficulty_grad: bool = False):
+def ghm_ce_bwd_ref(
+    client_logits, labels, w, g, lse, ly, weighted: bool = True, stop_difficulty_grad: bool = False,
+    needs=(True, True),
+):
     """``(g_client, g_w)`` for the per-sample cotangent ``g`` (B,):
     ``g_t = g·coeff·(p − onehot)`` with ``coeff`` 1 (plain CE), ``1 − p_y``
     (difficulty held constant) or ``1 − p_y + p_y·nll`` (full gradient);
-    ``g_client = w_k·g_t``, ``g_w = ⟨g_t, client_k⟩``."""
+    ``g_client = w_k·g_t``, ``g_w = ⟨g_t, client_k⟩``; each ``None`` where
+    ``needs`` (two flags, in that order) leaves it out."""
+    want_cl, want_w = needs
     t = _ensemble(client_logits, w)
     p = torch.exp(t - lse[:, None])
     onehot = torch.nn.functional.one_hot(labels.long(), t.shape[-1]).float()
@@ -65,6 +70,6 @@ def ghm_ce_bwd_ref(client_logits, labels, w, g, lse, ly, weighted: bool = True, 
         if not stop_difficulty_grad:
             coeff = coeff + py * (lse - ly)
     g_t = (g.float() * coeff)[:, None] * (p - onehot)
-    g_cl = w.float()[:, None, None] * g_t[None]
-    g_w = torch.einsum("kbv,bv->k", client_logits.float(), g_t)
-    return g_cl.to(client_logits.dtype), g_w.to(w.dtype)
+    g_cl = (w.float()[:, None, None] * g_t[None]).to(client_logits.dtype) if want_cl else None
+    g_w = torch.einsum("kbv,bv->k", client_logits.float(), g_t).to(w.dtype) if want_w else None
+    return g_cl, g_w

@@ -1,4 +1,5 @@
-"""The port's kernels on the GPU (the Triton loss kernels and the CUDA C++
+"""The port's kernels on the GPU (the loss kernels: Triton forwards and CUDA
+C++ backwards that compute only the wanted cotangents; the CUDA C++
 attention kernels, forward and both backward passes: the tensor-core
 kernels for bf16, the CUDA-core kernels for f32; split-KV paged decode),
 against their plain PyTorch versions on the same inputs, a second call
@@ -39,7 +40,9 @@ from repro_torch.kernels.ghm_ce.ref import ghm_ce_bwd_ref, ghm_ce_fwd_ref
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(5, 128, 10), (3, 5, 33), (5, 37, 32003)]
+# (K, B, V): the main path's, a masked tail, a wide vocabulary, 20 clients
+# on 100 classes (the paper's client sweep), and one client
+SHAPES = [(5, 128, 10), (3, 5, 33), (5, 37, 32003), (20, 256, 100), (1, 128, 10)]
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -105,13 +108,18 @@ def test_ghm_ce_kernels_match_plain(device, k, b, v, dtype, weighted, stop):
 def test_ops_launch_kernels_and_match_ref_autograd(device):
     """Through the autograd.Functions: every kernel launches once per pass,
     the gradients match autograd of the plain oracle, and ``g_w`` is the
-    same bit for bit on a second run (fixed-order reduction)."""
+    same bit for bit on a second run (fixed-order reduction). Then for each
+    subset of the inputs that require grad (the generator's steps: logits
+    only; the distillation sweep: the student's; the EE step: ``w``'s), the
+    backward launches once and only those inputs get gradients, matching
+    the plain oracle."""
     cl0, st0, w0, labels, ct = _inputs(5, 128, 10, torch.float32, device, seed=2)
 
-    def grads(backend):
-        cl, st, w = (t.clone().requires_grad_() for t in (cl0, st0, w0))
+    def grads(backend, want=(True, True, True)):
+        cl, st, w = (t.clone().requires_grad_(x) for t, x in zip((cl0, st0, w0), want))
         loss = torch.sum(ensemble_kl(cl, st, w, 4.0, backend=backend) * ct)
-        loss = loss + torch.sum(ghm_ce(cl, labels, w, True, backend=backend, stop_difficulty_grad=True) * ct)
+        if want[0] or want[2]:
+            loss = loss + torch.sum(ghm_ce(cl, labels, w, True, backend=backend, stop_difficulty_grad=True) * ct)
         loss.backward()
         return cl.grad, st.grad, w.grad
 
@@ -126,6 +134,156 @@ def test_ops_launch_kernels_and_match_ref_autograd(device):
     for a, r in zip(got, grads("ref")):
         _close(a, r)
     assert torch.equal(grads("cuda")[2], got[2])
+    for want in [(a, b, c) for a in (False, True) for b in (False, True) for c in (False, True) if a or b or c]:
+        reset_launch_counts()
+        got = grads("cuda", want)
+        counts = launch_counts()
+        assert counts["ensemble_kl_bwd"] == 1 and counts["ghm_ce_bwd"] == int(want[0] or want[2])
+        for a, r, x in zip(got, grads("ref", want), want):
+            assert (a is None) == (not x) and (r is None) == (not x)
+            if x:
+                _close(a, r)
+
+
+# ---------------------------------------------------------------------------
+# the loss backward kernels (CUDA C++): every cotangent subset, determinism,
+# the g_w ticket, CUDA graphs
+
+NEEDS_KL = [(a, b, c) for a in (False, True) for b in (False, True) for c in (False, True) if a or b or c]
+NEEDS_CE = [(True, False), (False, True), (True, True)]
+CE_MODES = [(False, False), (True, True), (True, False)]
+
+
+def _kl_case(k, b, v, dtype, device, temperature=4.0, seed=0):
+    cl, st, w, _, ct = _inputs(k, b, v, dtype, device, seed=seed)
+    out, lse_t, lse_s = ensemble_kl_fwd_ref(cl, st, w, temperature)
+    return (cl, st, w, ct, out, lse_t, lse_s, temperature)
+
+
+def _ce_case(k, b, v, dtype, device, weighted=False, seed=1):
+    cl, _, w, labels, ct = _inputs(k, b, v, dtype, device, seed=seed)
+    _, lse, ly = ghm_ce_fwd_ref(cl, labels, w, weighted)
+    return cl, labels, w, ct, lse, ly
+
+
+@pytest.mark.parametrize("k,b,v", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("needs", NEEDS_KL, ids=lambda n: "".join(str(int(x)) for x in n))
+def test_ensemble_kl_bwd_every_cotangent_subset(device, k, b, v, dtype, needs):
+    args = _kl_case(k, b, v, dtype, device)
+    reset_launch_counts()
+    got = ensemble_kl_bwd(*args, needs=needs)
+    torch.cuda.synchronize()
+    assert launch_counts()["ensemble_kl_bwd"] == 1
+    for a, r, x in zip(got, ensemble_kl_bwd_ref(*args), needs):
+        assert (a is None) == (not x)
+        if x:
+            assert a.dtype == r.dtype
+            _close(a, r)
+
+
+@pytest.mark.parametrize("k,b,v", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("weighted,stop", CE_MODES)
+@pytest.mark.parametrize("needs", NEEDS_CE, ids=lambda n: "".join(str(int(x)) for x in n))
+def test_ghm_ce_bwd_every_cotangent_subset(device, k, b, v, dtype, weighted, stop, needs):
+    cl, labels, w, ct, lse, ly = _ce_case(k, b, v, dtype, device, weighted)
+    reset_launch_counts()
+    got = ghm_ce_bwd(cl, labels, w, ct, lse, ly, weighted, stop, needs=needs)
+    torch.cuda.synchronize()
+    assert launch_counts()["ghm_ce_bwd"] == 1
+    for a, r, x in zip(got, ghm_ce_bwd_ref(cl, labels, w, ct, lse, ly, weighted, stop), needs):
+        assert (a is None) == (not x)
+        if x:
+            assert a.dtype == r.dtype
+            _close(a, r)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ghm_ce_bwd_int32_labels(device, dtype):
+    cl, labels, w, ct, lse, ly = _ce_case(5, 37, 1001, dtype, device, True)
+    want = ghm_ce_bwd_ref(cl, labels, w, ct, lse, ly, True, True)
+    for a, r in zip(ghm_ce_bwd(cl, labels.int(), w, ct, lse, ly, True, True), want):
+        _close(a, r)
+
+
+def test_loss_bwd_unaligned_planes_take_single_elements(device):
+    """Logits that start off a 16-byte boundary (a view one element in) go
+    through the single-element path and agree with the plain versions."""
+    from repro_torch.kernels.build import loss_bwd_geometry
+
+    base = torch.randn(5 * 128 * 12 + 1, device=device)
+    cl = base[1:].view(5, 128, 12)
+    st = torch.randn(128 * 12 + 1, device=device)[1:].view(128, 12)
+    assert loss_bwd_geometry(128 * 12, 4, cl.data_ptr() % 16 == 0)[1] == 1
+    w = torch.softmax(torch.randn(5, device=device), 0)
+    ct = torch.randn(128, device=device)
+    out, lse_t, lse_s = ensemble_kl_fwd_ref(cl, st, w, 2.0)
+    for a, r in zip(ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 2.0),
+                    ensemble_kl_bwd_ref(cl, st, w, ct, out, lse_t, lse_s, 2.0)):
+        _close(a, r)
+    labels = torch.randint(0, 12, (128,), device=device)
+    _, lse, ly = ghm_ce_fwd_ref(cl, labels, w, False)
+    for a, r in zip(ghm_ce_bwd(cl, labels, w, ct, lse, ly, False), ghm_ce_bwd_ref(cl, labels, w, ct, lse, ly, False)):
+        _close(a, r)
+
+
+# (K, B, V) whose grids have many blocks: the wide vocabulary, and 20
+# clients on a vocabulary wide enough to fill the card
+MANY_BLOCKS = [(5, 37, 32003), (20, 64, 8192)]
+
+
+@pytest.mark.parametrize("k,b,v", MANY_BLOCKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_loss_bwd_second_call_same_bits(device, k, b, v, dtype):
+    """No float atomics: at a many-block grid, a second call gives the same
+    bits, g_w included."""
+    from repro_torch.kernels.build import loss_bwd_geometry
+
+    assert loss_bwd_geometry(b * v, 4, True)[0] > 100
+    args = _kl_case(k, b, v, dtype, device)
+    first = ensemble_kl_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(first, ensemble_kl_bwd(*args)))
+    ce = _ce_case(k, b, v, dtype, device, True)
+    first = ghm_ce_bwd(*ce, True, False)
+    assert all(torch.equal(x, y) for x, y in zip(first, ghm_ce_bwd(*ce, True, False)))
+
+
+def test_loss_bwd_ticket_left_at_zero(device):
+    """A many-block call, then a one-block call, then the many-block call
+    again: all right, so each launch left the g_w ticket at 0."""
+    wide = _ce_case(5, 37, 32003, torch.float32, device)
+    main = _ce_case(5, 128, 10, torch.float32, device)
+    kl = _kl_case(5, 37, 32003, torch.float32, device)
+    for args in (wide, main, wide, main, wide):
+        got = ghm_ce_bwd(*args, False, False, needs=(False, True))[1]
+        _close(got, ghm_ce_bwd_ref(*args, False, False)[1])
+        got = ensemble_kl_bwd(*kl, needs=(False, False, True))[2]
+        _close(got, ensemble_kl_bwd_ref(*kl)[2])
+
+
+@pytest.mark.parametrize("k,b,v", [(5, 128, 10), (5, 37, 32003)])
+def test_loss_bwd_cuda_graph_replay_equals_eager(device, k, b, v):
+    """A captured call, replayed, gives the eager call's bits: the g_w
+    scratch exists before the capture and the ticket is back at 0 after
+    every launch."""
+    kl = _kl_case(k, b, v, torch.float32, device)
+    ce = _ce_case(k, b, v, torch.float32, device, True)
+    eager = (*ensemble_kl_bwd(*kl), *ghm_ce_bwd(*ce, True, True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            ensemble_kl_bwd(*kl)
+            ghm_ce_bwd(*ce, True, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = (*ensemble_kl_bwd(*kl), *ghm_ce_bwd(*ce, True, True))
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(captured, eager))
 
 
 def test_wrappers_reject_bad_inputs(device):

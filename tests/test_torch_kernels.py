@@ -194,6 +194,108 @@ def test_ghm_ce_cotangents_match_jax(case_args, weighted, stop, backend):
     _close(w.grad, want[1], atol_w)
 
 
+# ---------------------------------------------------------------------------
+# only the cotangents autograd asks for: for each subset of the inputs that
+# require grad, the Function's backward returns None exactly for the others,
+# and the rest match the JAX cotangents at the tolerances above
+
+NEEDS_CASES = [CASES[1], CASES[2], CASES[3]]  # the main path's shape, several vocab tiles, bf16
+NEEDS_IDS = [CASE_IDS[1], CASE_IDS[2], CASE_IDS[3]]
+KL_SUBSETS = [(a, b, c) for a in (False, True) for b in (False, True) for c in (False, True) if a or b or c]
+
+
+def _needs_id(subset):
+    return "needs-" + "".join(str(int(x)) for x in subset)
+
+
+@pytest.mark.parametrize("case_args", NEEDS_CASES, ids=NEEDS_IDS)
+@pytest.mark.parametrize("subset", KL_SUBSETS, ids=_needs_id)
+def test_ensemble_kl_backward_returns_only_needed_cotangents(case_args, subset):
+    c = make_case(7, *case_args)
+    dt, temperature = c["dtype"], 4.0
+    ct = jnp.asarray(c["ct"])
+
+    def f(cl, st, w):
+        return jnp.vdot(jax_ensemble_kl(cl, st, w, temperature, backend="ref"), ct)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(_jnp(c["cl"], dt), _jnp(c["st"], dt), _jnp(c["w"]))
+    args = (_torch(c["cl"], dt, subset[0]), _torch(c["st"], dt, subset[1]), _torch(c["w"], grad=subset[2]))
+    out = ensemble_kl(*args, temperature, backend="auto")
+    got = out.grad_fn.apply(torch.from_numpy(c["ct"]))  # the Function's backward, as autograd calls it
+    assert got[3] is None  # the temperature
+    atol_logits, atol_w = _cond_atols(c, TOL)
+    tols = ("bf16" if dt == "bf16" else atol_logits,) * 2 + (atol_w,)
+    for i in range(3):
+        if not subset[i]:
+            assert got[i] is None, i
+            continue
+        assert got[i].dtype == args[i].dtype
+        _close(got[i], want[i], tols[i])
+    torch.sum(out * torch.from_numpy(c["ct"])).backward()
+    for i in range(3):
+        assert (args[i].grad is None) == (not subset[i])
+
+
+@pytest.mark.parametrize("case_args", NEEDS_CASES, ids=NEEDS_IDS)
+@pytest.mark.parametrize(
+    "weighted,stop", [(False, False), (True, True), (True, False)], ids=["ce", "ghs-stopgrad", "ghs-full"]
+)
+@pytest.mark.parametrize("subset", [(True, False), (False, True), (True, True)], ids=_needs_id)
+def test_ghm_ce_backward_returns_only_needed_cotangents(case_args, weighted, stop, subset):
+    c = make_case(8, *case_args)
+    dt = c["dtype"]
+    ct, lbl = jnp.asarray(c["ct"]), jnp.asarray(c["labels"])
+
+    def f(cl, w):
+        return jnp.vdot(jax_ghm_ce(cl, lbl, w, weighted, backend="ref", stop_difficulty_grad=stop), ct)
+
+    want = jax.grad(f, argnums=(0, 1))(_jnp(c["cl"], dt), _jnp(c["w"]))
+    cl, w = _torch(c["cl"], dt, subset[0]), _torch(c["w"], grad=subset[1])
+    out = ghm_ce(cl, torch.from_numpy(c["labels"]).long(), w, weighted, backend="auto", stop_difficulty_grad=stop)
+    got = out.grad_fn.apply(torch.from_numpy(c["ct"]))
+    assert got[1] is None and got[3] is None and got[4] is None  # labels and the two flags
+    atol_logits, atol_w = _cond_atols(c, TOL)
+    for i, x, wi, tol in ((0, cl, 0, "bf16" if dt == "bf16" else atol_logits), (2, w, 1, atol_w)):
+        if not subset[wi]:
+            assert got[i] is None, i
+            continue
+        assert got[i].dtype == x.dtype
+        _close(got[i], want[wi], tol)
+
+
+@pytest.mark.parametrize(
+    "n,itemsize,aligned",
+    [(1280, 4, True), (1280, 2, True), (37 * 32003, 4, True), (37 * 32003, 2, True), (256 * 100, 4, True),
+     (1280, 4, False), (5 * 33, 4, True), (1, 2, True), (4096 * 1024, 2, True)],
+)
+def test_loss_bwd_geometry(n, itemsize, aligned):
+    """The loss backward kernels' grid: 16-byte accesses only where the
+    plane allows them, one block at the main path's K=5, B=128, V=10, every
+    thread at least two steps of the grid-stride loop until the grid fills
+    the card's resident blocks, and one partials column per block when
+    there is more than one."""
+    from repro_torch.kernels.build import (
+        LOSS_BWD_BLOCKS_PER_SM,
+        LOSS_BWD_THREADS,
+        SMS,
+        loss_bwd_geometry,
+    )
+
+    blocks, vec, rows = loss_bwd_geometry(n, itemsize, aligned)
+    cap = SMS * LOSS_BWD_BLOCKS_PER_SM
+    assert vec in (1, 16 // itemsize)
+    assert (vec > 1) == (aligned and n % (16 // itemsize) == 0)
+    assert 1 <= blocks <= cap
+    per_step = LOSS_BWD_THREADS * max(vec, 8 // itemsize)  # elements a block takes per step
+    assert blocks == cap or blocks * per_step * 2 >= n
+    assert blocks == 1 or (blocks - 1) * per_step * 2 < n  # no block without two steps' work
+    assert rows == (blocks if blocks > 1 else 0)
+    if n == 1280 and aligned:  # the main path's plane, fresh (aligned) tensors
+        assert blocks == 1
+    if n == 37 * 32003:
+        assert blocks == cap and vec == 1
+
+
 def test_ghm_ce_accepts_int32_labels():
     c = make_case(4, 3, 5, 33, "f32", 2.0, "softmax")
     cl = _torch(c["cl"])
