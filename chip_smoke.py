@@ -6,19 +6,25 @@
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
-1. Environment: torch / CUDA / Triton versions and the card's name and power
+1. Environment: torch and CUDA versions and the card's name and power
    limit (``nvidia-smi``). No CUDA device, or no ``src/repro_torch`` beside
-   this script, fails here. The six CUDA C++ sources are then built from
+   this script, fails here. The eight CUDA C++ sources are then built from
    the checkout, one ``nvcc`` each, all started together.
-2. Kernel vs plain: each of the four loss kernels (``ensemble_kl`` and
-   ``ghm_ce``: the forwards in Triton, the backwards in CUDA C++) is built
-   from the checkout's sources and held against its plain PyTorch version
+2. Kernel vs plain: first, the raw stream lookup every wrapper passes its
+   kernel (``build.stream_ptr``) must equal
+   ``torch.cuda.current_stream().cuda_stream`` on the default stream, on a
+   side stream and inside a CUDA-graph capture. Then each of the four
+   loss kernels (``ensemble_kl`` and ``ghm_ce``, forward and backward, all
+   CUDA C++) is held against its plain PyTorch version
    on the card, in every mode and, for the backwards, for every non-empty
    subset of the cotangents they can compute, at the main path's shapes
    (K=5, B=128, V=10, f32), at a wide tail case (K=5, B=37, V=32003, f32
    and bf16) and at 20 clients on 100 classes (K=20, B=256, V=100, f32);
-   at the first two a second backward call and a CUDA-graph replay must
-   give the eager call's bits. Then the CUDA C++ attention
+   the forwards also at one row of an LM vocabulary (K=5, B=1, V=151936)
+   and on planes that start one element off a 16-byte boundary (K=5,
+   B=37, V=32000). A second forward call and a CUDA-graph replay must give
+   the eager call's bits at every shape, a second backward call and a
+   replay at the first two. Then the CUDA C++ attention
    kernels, in f32 (the CUDA-core kernels) and bf16 (the tensor-core
    kernels of ``flash_attention_sm90.cu``, ``_sm90`` below, and the
    CUDA-core ones named by the caller): ``flash_attention_fwd`` at the
@@ -43,10 +49,11 @@ result line):
    fully-masked rows; a second call must give the same bits.
    Times: CUDA events around back-to-back calls of the wrapper (``ms``,
    the table's), and in bf16 also the device alone: calls captured in a
-   CUDA graph and replayed (``device_ms``); the four loss kernels at the
-   main shape and the two backwards also at the wide one in f32 and bf16,
-   each backward in the generator's mode (g_client and g_student, and
-   g_client), ``flash_attention_fwd`` in both
+   CUDA graph and replayed (``device_ms``); the two forwards at every
+   shape above, the two backwards at the main shape and the wide one in
+   f32 and bf16, each in the generator's mode (g_client and g_student, and
+   g_client), with the host's share of one call of each of the four at the
+   main shape split into its parts, ``flash_attention_fwd`` in both
    variants at the prefill and the training shapes, both backward passes in
    both variants at the training shape and ``flash_decode`` at the decode
    shape. Beside them PyTorch's
@@ -119,6 +126,8 @@ BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 MAIN = dict(k=5, b=128, v=10)
 WIDE = dict(k=5, b=37, v=32003)
 CLIENTS20 = dict(k=20, b=256, v=100)  # the paper's client sweep goes to 20
+LM_ROW = dict(k=5, b=1, v=151936)  # one row of an LM vocabulary
+UNALIGNED = dict(k=5, b=37, v=32000, offset=1)  # every plane one element off a 16-byte boundary
 REPLACES = {
     "ensemble_kl_fwd": "src/repro/kernels/ensemble_kl/kernel.py:217",
     "ensemble_kl_bwd": "src/repro/kernels/ensemble_kl/kernel.py:144",
@@ -146,9 +155,9 @@ BWD_KERNELS = (
 )
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_sm90") + BWD_KERNELS
 SOURCES = {
-    "ensemble_kl_fwd": "src/repro_torch/kernels/ensemble_kl/kernel.py",
+    "ensemble_kl_fwd": "src/repro_torch/kernels/ensemble_kl/ensemble_kl_fwd.cu",
     "ensemble_kl_bwd": "src/repro_torch/kernels/ensemble_kl/ensemble_kl_bwd.cu",
-    "ghm_ce_fwd": "src/repro_torch/kernels/ghm_ce/kernel.py",
+    "ghm_ce_fwd": "src/repro_torch/kernels/ghm_ce/ghm_ce_fwd.cu",
     "ghm_ce_bwd": "src/repro_torch/kernels/ghm_ce/ghm_ce_bwd.cu",
     "flash_attention_fwd": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
     "flash_attention_fwd_sm90": "src/repro_torch/kernels/flash_attention/flash_attention_sm90.cu",
@@ -158,7 +167,7 @@ SOURCES = {
     "flash_attention_bwd_dkv_sm90": "src/repro_torch/kernels/flash_attention/flash_attention_sm90.cu",
     "flash_decode": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
 }
-ROUTES = {n: "triton" if n in ("ensemble_kl_fwd", "ghm_ce_fwd") else "cuda" for n in REPLACES}
+ROUTES = {n: "cuda" for n in REPLACES}
 
 # serving: smollm-135m at full width
 SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
@@ -183,28 +192,28 @@ def environment():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.build import triton_modules
-
-    triton, _ = triton_modules()  # points Triton's cache at build/ in the checkout first
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} triton {triton.__version__}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     from repro_torch.utils.device import disable_tf32
 
     disable_tf32()
     from repro_torch.kernels.build import build_cuda_libraries
     from repro_torch.kernels.ensemble_kl.kernel import BWD_SOURCE as KL_BWD_SOURCE
+    from repro_torch.kernels.ensemble_kl.kernel import FWD_SOURCE as KL_FWD_SOURCE
     from repro_torch.kernels.flash_attention.kernel import BWD_SOURCE as FA_BWD_SOURCE
     from repro_torch.kernels.flash_attention.kernel import SM90_SOURCE as FA_SM90_SOURCE
     from repro_torch.kernels.flash_attention.kernel import SOURCE as FA_SOURCE
     from repro_torch.kernels.flash_decode.kernel import SOURCE as FD_SOURCE
     from repro_torch.kernels.ghm_ce.kernel import BWD_SOURCE as CE_BWD_SOURCE
+    from repro_torch.kernels.ghm_ce.kernel import FWD_SOURCE as CE_FWD_SOURCE
 
     t0 = time.perf_counter()
-    build_cuda_libraries([FA_SOURCE, FA_BWD_SOURCE, FA_SM90_SOURCE, FD_SOURCE, KL_BWD_SOURCE, CE_BWD_SOURCE])
+    build_cuda_libraries([FA_SOURCE, FA_BWD_SOURCE, FA_SM90_SOURCE, FD_SOURCE, KL_FWD_SOURCE, KL_BWD_SOURCE,
+                          CE_FWD_SOURCE, CE_BWD_SOURCE])
     print(f"built the CUDA kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     return smi
 
@@ -213,16 +222,18 @@ def environment():
 # phase 2
 
 
-def _case(k, b, v, dtype, seed, device):
+def _case(k, b, v, dtype, seed, device, offset=0):
+    """Logits, weights, labels and a row cotangent; with ``offset``, the
+    logits are views that start that many elements into their storage."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    cl = (torch.randn((k, b, v), generator=g) * 2).to(dtype)
-    st = (torch.randn((b, v), generator=g) * 2).to(dtype)
+    cl = (torch.randn(k * b * v + offset, generator=g) * 2).to(dtype).to(device)[offset:].view(k, b, v)
+    st = (torch.randn(b * v + offset, generator=g) * 2).to(dtype).to(device)[offset:].view(b, v)
     w = torch.softmax(torch.randn((k,), generator=g), 0)
     labels = torch.randint(0, v, (b,), generator=g)
     ct = torch.randn((b,), generator=g)
-    return [t.to(device) for t in (cl, st, w, labels, ct)]
+    return [cl, st] + [t.to(device) for t in (w, labels, ct)]
 
 
 def _err(name, got, want):
@@ -298,46 +309,103 @@ def _host_ms(fn, iters=2000):
     return dt / iters * 1e3
 
 
-def loss_bwd_host_split(cl, st, w, labels, ct, out, lse_t, lse_s, lse, ly):
-    """Where the host's time goes in one call of each loss backward wrapper
-    in the generator's mode at the main shape: the argument checks, the
-    output allocations, the stream lookup and the ``ctypes`` launch, each
-    timed alone, beside the whole call."""
+def loss_host_split(cl, st, w, labels, ct, out, lse_t, lse_s, lse, ly):
+    """Where the host's time goes in one call of each loss wrapper at the
+    main shape, the backwards in the generator's mode: the argument checks,
+    the output allocations, the stream lookup and the ``ctypes`` launch,
+    each timed alone, beside the whole call; ``rest`` is what the wrapper's
+    own Python adds."""
     import torch
 
-    from repro_torch.kernels.build import loss_bwd_geometry, stream_ptr
+    from repro_torch.kernels.build import loss_bwd_geometry, loss_fwd_geometry, stream_ptr
     from repro_torch.kernels.ensemble_kl import kernel as klk
     from repro_torch.kernels.ghm_ce import kernel as cek
 
     k, b, v = cl.shape
     blocks, vec, _ = loss_bwd_geometry(b * v, cl.element_size(), True)
+    geo = loss_fwd_geometry(b, v, cl.element_size(), True)
+    if geo.splits != 1:
+        fail(f"the main shape's forward splits its rows: {geo}")
+    fwd_geo = (geo.vec, geo.lanes, geo.splits, geo.span, geo.blocks)
+    res = torch.empty((3, b), dtype=torch.float32, device=w.device)
     g_cl, g_st = torch.empty_like(cl), torch.empty_like(st)
-    kl_args = (cl.data_ptr(), st.data_ptr(), w.data_ptr(), ct.data_ptr(), out.data_ptr(), lse_t.data_ptr(),
-               lse_s.data_ptr(), g_cl.data_ptr(), g_st.data_ptr(), None, None, None, k, b, v, 4.0, 0, 0, vec, blocks)
-    ce_args = (cl.data_ptr(), labels.data_ptr(), w.data_ptr(), ct.data_ptr(), lse.data_ptr(), ly.data_ptr(),
-               g_cl.data_ptr(), None, None, None, k, b, v, 1, 0, cek.LABEL_CODES[labels.dtype], vec, blocks)
+    label_code = cek.LABEL_CODES[labels.dtype]
+    args = {
+        "ensemble_kl_fwd": (cl.data_ptr(), st.data_ptr(), w.data_ptr(), res.data_ptr(), None, None, k, b, v, 4.0, 0,
+                            0, *fwd_geo),
+        "ensemble_kl_bwd": (cl.data_ptr(), st.data_ptr(), w.data_ptr(), ct.data_ptr(), out.data_ptr(),
+                            lse_t.data_ptr(), lse_s.data_ptr(), g_cl.data_ptr(), g_st.data_ptr(), None, None, None, k,
+                            b, v, 4.0, 0, 0, vec, blocks),
+        "ghm_ce_fwd": (cl.data_ptr(), labels.data_ptr(), w.data_ptr(), res.data_ptr(), None, None, k, b, v, 1, 0,
+                       label_code, *fwd_geo),
+        "ghm_ce_bwd": (cl.data_ptr(), labels.data_ptr(), w.data_ptr(), ct.data_ptr(), lse.data_ptr(), ly.data_ptr(),
+                       g_cl.data_ptr(), None, None, None, k, b, v, 1, 0, label_code, vec, blocks),
+    }
+    libs = {"ensemble_kl_fwd": klk._fwd_lib(), "ensemble_kl_bwd": klk._bwd_lib(), "ghm_ce_fwd": cek._fwd_lib(),
+            "ghm_ce_bwd": cek._bwd_lib()}
     stream = stream_ptr(w)
-    kl_fn, ce_fn = klk._bwd_lib(), cek._bwd_lib()
     parts = {
+        "ensemble_kl_fwd": {
+            "call": lambda: klk.ensemble_kl_fwd(cl, st, w, 4.0),
+            "checks": lambda: klk._check_inputs("ensemble_kl_fwd", cl, st, w),
+            "outputs": lambda: torch.empty((3, b), dtype=torch.float32, device=w.device),
+        },
         "ensemble_kl_bwd": {
             "call": lambda: klk.ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0, needs=(True, True, False)),
             "checks": lambda: klk._check_bwd(cl, st, w, ct, out, lse_t, lse_s),
             "outputs": lambda: (torch.empty_like(cl), torch.empty_like(st)),
-            "stream": lambda: stream_ptr(w),
-            "launch": lambda: kl_fn(*kl_args, stream),
+        },
+        "ghm_ce_fwd": {
+            "call": lambda: cek.ghm_ce_fwd(cl, labels, w, True),
+            "checks": lambda: cek._check_inputs("ghm_ce_fwd", cl, labels, w),
+            "outputs": lambda: torch.empty((3, b), dtype=torch.float32, device=w.device),
         },
         "ghm_ce_bwd": {
             "call": lambda: cek.ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, True, needs=(True, False)),
             "checks": lambda: cek._check_bwd(cl, labels, w, ct, lse, ly),
             "outputs": lambda: torch.empty_like(cl),
-            "stream": lambda: stream_ptr(w),
-            "launch": lambda: ce_fn(*ce_args, stream),
         },
     }
     for name, fns in parts.items():
-        t = {part: _host_ms(fn) for part, fn in fns.items()}
-        t["rest"] = t["call"] - sum(t[p] for p in ("checks", "outputs", "stream", "launch"))
-        print(f"host split {name} (generator's mode, main shape), ms per call: " + json.dumps(t), flush=True)
+        fn, a = libs[name], args[name]
+        fns["stream"] = lambda: stream_ptr(w)
+        fns["launch"] = lambda: fn(*a, stream)
+        t = {part: _host_ms(f) for part, f in fns.items()}
+        t["rest"] = t["call"] - sum(t[q] for q in ("checks", "outputs", "stream", "launch"))
+        mode = ", generator's mode" if name.endswith("bwd") else ""
+        print(f"host split {name} (main shape{mode}), ms per call: " + json.dumps(t), flush=True)
+
+
+def check_stream_lookup():
+    """The raw stream lookup every ``ctypes`` wrapper passes its kernel
+    equals ``torch.cuda.current_stream().cuda_stream`` on the default
+    stream, on a side stream and inside a CUDA-graph capture, and costs
+    less per call."""
+    import torch
+
+    from repro_torch.kernels.build import stream_ptr
+
+    x = torch.zeros(1, device="cuda")
+
+    def same(where):
+        got, want = stream_ptr(x), torch.cuda.current_stream().cuda_stream
+        if got != want:
+            fail(f"stream_ptr gave {got:#x} on {where}, torch.cuda.current_stream() {want:#x}")
+
+    same("the default stream")
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        same("a side stream")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        same("a CUDA-graph capture")
+        x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    t = {"stream_ptr": _host_ms(lambda: stream_ptr(x)),
+         "current_stream": _host_ms(lambda: torch.cuda.current_stream(x.device).cuda_stream)}
+    print("stream lookup agrees on the default stream, a side stream and in a graph capture; ms per call: "
+          + json.dumps(t), flush=True)
 
 
 def _bound_ms(nbytes, flops, peak=F32_FLOPS):
@@ -396,13 +464,15 @@ def _replayed(fn):
 
 def kernels_vs_plain():
     """The four loss kernels against their plain versions: the forwards in
-    every mode, the backwards in every mode and for every non-empty subset
-    of the cotangents they can compute, at the main shape, at the wide
-    vocabulary in f32 and bf16, and at 20 clients on 100 classes; at the
-    main shape and the wide one a second backward call and a CUDA-graph
-    replay must give the eager call's bits. Times per call and on the device
-    alone, the backwards in the mode the main path calls them in most (the
-    generator's: g_client and g_student, g_client)."""
+    every mode at every shape, the backwards in every mode and for every
+    non-empty subset of the cotangents they can compute, at the main shape,
+    at the wide vocabulary in f32 and bf16, and at 20 clients on 100
+    classes. A second forward call and a CUDA-graph replay give the eager
+    call's bits at every shape; a second backward call and a replay at the
+    main shape and the wide one in f32. Times per call and on the device
+    alone: the forwards at every shape, the backwards at the main and wide
+    shapes in the mode the main path calls them in most (the generator's:
+    g_client and g_student, g_client)."""
     import torch
 
     from repro_torch.kernels.ensemble_kl.kernel import ensemble_kl_bwd, ensemble_kl_fwd
@@ -410,22 +480,27 @@ def kernels_vs_plain():
     from repro_torch.kernels.ghm_ce.kernel import ghm_ce_bwd, ghm_ce_fwd
     from repro_torch.kernels.ghm_ce.ref import ghm_ce_bwd_ref, ghm_ce_fwd_ref
 
+    check_stream_lookup()
     dev = torch.device("cuda")
     errs = {n: 0.0 for n in LOSS_KERNELS}
     timing = {}
     subsets_kl = [(a, b, c) for a in (False, True) for b in (False, True) for c in (False, True) if a or b or c]
     subsets_ce = [(True, False), (False, True), (True, True)]
-    shapes = [(MAIN, torch.float32), (WIDE, torch.float32), (WIDE, torch.bfloat16), (CLIENTS20, torch.float32)]
-    for si, (shape, dtype) in enumerate(shapes):
-        k, b, v = shape["k"], shape["b"], shape["v"]
-        cl, st, w, labels, ct = _case(k, b, v, dtype, seed=si, device=dev)
-        tag = f"K={k} B={b} V={v} {str(dtype).replace('torch.', '')}"
+    # (shape, dtype, whether the backwards run there too)
+    shapes = [(MAIN, torch.float32, True), (WIDE, torch.float32, True), (WIDE, torch.bfloat16, True),
+              (CLIENTS20, torch.float32, True), (LM_ROW, torch.float32, False), (UNALIGNED, torch.float32, False)]
+    for si, (shape, dtype, bwd) in enumerate(shapes):
+        k, b, v, offset = shape["k"], shape["b"], shape["v"], shape.get("offset", 0)
+        cl, st, w, labels, ct = _case(k, b, v, dtype, seed=si, device=dev, offset=offset)
+        tag = f"K={k} B={b} V={v} {str(dtype).replace('torch.', '')}" + (f" offset {offset}" if offset else "")
         for temp in (1.0, 4.0):
             got = ensemble_kl_fwd(cl, st, w, temp)
             want = ensemble_kl_fwd_ref(cl, st, w, temp)
             for name_o, a, r in zip(("out", "lse_t", "lse_s"), got, want):
                 e = _err(f"ensemble_kl_fwd {tag} T={temp} {name_o}", a, r)
                 errs["ensemble_kl_fwd"] = max(errs["ensemble_kl_fwd"], e)
+            if not bwd:
+                continue
             out, lse_t, lse_s = want
             want = ensemble_kl_bwd_ref(cl, st, w, ct, out, lse_t, lse_s, temp)
             for needs in subsets_kl:
@@ -437,11 +512,14 @@ def kernels_vs_plain():
                         e = _err(f"ensemble_kl_bwd {tag} T={temp} needs={needs} {name_o}", a, r)
                         errs["ensemble_kl_bwd"] = max(errs["ensemble_kl_bwd"], e)
         for weighted in (True, False):
-            got = ghm_ce_fwd(cl, labels, w, weighted)
             want = ghm_ce_fwd_ref(cl, labels, w, weighted)
-            for name_o, a, r in zip(("out", "lse", "ly"), got, want):
-                e = _err(f"ghm_ce_fwd {tag} weighted={weighted} {name_o}", a, r)
-                errs["ghm_ce_fwd"] = max(errs["ghm_ce_fwd"], e)
+            for lab in (labels, labels.int()):
+                got = ghm_ce_fwd(cl, lab, w, weighted)
+                for name_o, a, r in zip(("out", "lse", "ly"), got, want):
+                    e = _err(f"ghm_ce_fwd {tag} weighted={weighted} {lab.dtype} labels {name_o}", a, r)
+                    errs["ghm_ce_fwd"] = max(errs["ghm_ce_fwd"], e)
+            if not bwd:
+                continue
             _, lse, ly = want
             for stop in ((True, False) if weighted else (False,)):
                 want = ghm_ce_bwd_ref(cl, labels, w, ct, lse, ly, weighted, stop)
@@ -456,20 +534,21 @@ def kernels_vs_plain():
         torch.cuda.synchronize()
         print(f"kernels agree with plain versions at {tag}", flush=True)
 
+        # a second call and a graph replay give the eager call's bits: the
+        # forwards everywhere (split rows at the wide shapes), the backwards
+        # with every cotangent (g_w across blocks at the wide shape)
         out, lse_t, lse_s = ensemble_kl_fwd_ref(cl, st, w, 4.0)
         _, lse, ly = ghm_ce_fwd_ref(cl, labels, w, True)
-        if shape is not CLIENTS20 and dtype == torch.float32:
-            # every cotangent (g_w across blocks at the wide shape): a second
-            # call and a graph replay give the eager call's bits
-            kl_all = lambda: ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0)
-            ce_all = lambda: ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, False)
-            for name, fn in (("ensemble_kl_bwd", kl_all), ("ghm_ce_bwd", ce_all)):
-                first = fn()
-                _same_bits(f"{name} {tag}, a second call", first, fn())
-                _same_bits(f"{name} {tag}, a CUDA-graph replay", *_replayed(fn))
-            print(f"loss backward kernels at {tag}: a second call and a graph replay give the same bits", flush=True)
-        if shape is CLIENTS20:
-            continue
+        same = {"ensemble_kl_fwd": lambda: ensemble_kl_fwd(cl, st, w, 4.0),
+                "ghm_ce_fwd": lambda: ghm_ce_fwd(cl, labels, w, True)}
+        if bwd and shape is not CLIENTS20 and dtype == torch.float32:
+            same["ensemble_kl_bwd"] = lambda: ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0)
+            same["ghm_ce_bwd"] = lambda: ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, False)
+        for name, fn in same.items():
+            first = fn()
+            _same_bits(f"{name} {tag}, a second call", first, fn())
+            _same_bits(f"{name} {tag}, a CUDA-graph replay", *_replayed(fn))
+        print(f"{', '.join(same)} at {tag}: a second call and a graph replay give the same bits", flush=True)
 
         # times: ensemble_kl at T=4, ghm_ce weighted with the difficulty held
         # constant; the backwards in the generator's mode
@@ -490,10 +569,10 @@ def kernels_vs_plain():
             ),
         }
         if shape is MAIN:
-            loss_bwd_host_split(cl, st, w, labels, ct, out, lse_t, lse_s, lse, ly)
+            loss_host_split(cl, st, w, labels, ct, out, lse_t, lse_s, lse, ly)
         for name, (kern, plain, needs) in calls.items():
-            if shape is not MAIN and needs is None:
-                continue  # the forwards at the main shape only, as before
+            if needs is not None and (not bwd or shape is CLIENTS20):
+                continue  # the backwards at the main and the wide shapes
             nbytes, flops = _work(name, k, b, v, cl.element_size(), needs)
             bound, bound_by = _bound_ms(nbytes, flops)
             timing[(name, tag)] = {

@@ -10,11 +10,14 @@ redesigned, Co-Boosting, LM training and serving.
 this script lies in. Each turn runs in a fresh process on one tree, which
 builds that tree's kernels into its own ``build/`` and then measures:
 
-* the loss backward kernels (``ensemble_kl_bwd`` and ``ghm_ce_bwd``) in the
-  generator's mode (g_client and g_student; g_client), per wrapper call and
-  on the device alone, at the Co-Boosting shape (K=5, B=128, V=10, f32) and,
-  on the device, at a wide vocabulary (K=5, B=37, V=32003, f32 and bf16); a
-  tree whose wrappers take no ``needs`` computes every cotangent;
+* the four loss kernels, the forwards (``ensemble_kl_fwd`` at T=4,
+  ``ghm_ce_fwd`` weighted) and the backwards (``ensemble_kl_bwd`` and
+  ``ghm_ce_bwd``) in the generator's mode (g_client and g_student;
+  g_client), per wrapper call and on the device alone, at the Co-Boosting
+  shape (K=5, B=128, V=10, f32) and at a wide vocabulary (K=5, B=37,
+  V=32003, f32), on the device also in bf16 there, and the forwards on the
+  device at 20 clients on 100 classes (K=20, B=256, V=100, f32); a tree
+  whose backward wrappers take no ``needs`` computes every cotangent;
 * in bf16 at the LM paths' shapes, the dq pass (``flash_attention_bwd_dq``) at the LM training shape (8 ×
   256 tokens, 9 heads over 3 kv heads, hd 64, causal) and paged decode
   (``flash_decode``) at the serving decode shape (8 slots at position 160,
@@ -75,7 +78,8 @@ def one_turn(tree: Path, parts, serve_runs: int, epochs: int) -> dict:
 
     disable_tf32()
     t0 = time.perf_counter()
-    loss_sources = [m.BWD_SOURCE for m in (kl_kernel, ce_kernel) if hasattr(m, "BWD_SOURCE")]  # none on older trees
+    # each tree's loss kernels that are CUDA C++ (older trees: fewer or none)
+    loss_sources = [getattr(m, n) for m in (kl_kernel, ce_kernel) for n in ("FWD_SOURCE", "BWD_SOURCE") if hasattr(m, n)]
     build_cuda_libraries([SOURCE, BWD_SOURCE, SM90_SOURCE, FD_SOURCE, *loss_sources])
     res = {"tree": str(tree), "build_s": time.perf_counter() - t0}
     dev = torch.device("cuda")
@@ -101,15 +105,15 @@ def one_turn(tree: Path, parts, serve_runs: int, epochs: int) -> dict:
 
 
 def time_losses(cs, dev) -> dict:
-    """``ensemble_kl_bwd`` and ``ghm_ce_bwd`` in the generator's mode, per
+    """The loss forwards, and the backwards in the generator's mode, per
     call and on the device alone."""
     import inspect
 
     import torch
 
-    from repro_torch.kernels.ensemble_kl.kernel import ensemble_kl_bwd
+    from repro_torch.kernels.ensemble_kl.kernel import ensemble_kl_bwd, ensemble_kl_fwd
     from repro_torch.kernels.ensemble_kl.ref import ensemble_kl_fwd_ref
-    from repro_torch.kernels.ghm_ce.kernel import ghm_ce_bwd
+    from repro_torch.kernels.ghm_ce.kernel import ghm_ce_bwd, ghm_ce_fwd
     from repro_torch.kernels.ghm_ce.ref import ghm_ce_fwd_ref
 
     # older trees compute every cotangent and take no flags
@@ -117,12 +121,16 @@ def time_losses(cs, dev) -> dict:
     ce_kw = {"needs": (True, False)} if "needs" in inspect.signature(ghm_ce_bwd).parameters else {}
     res = {}
     for tag, shape, dtype, per_call in (("main", cs.MAIN, torch.float32, True), ("wide", cs.WIDE, torch.float32, True),
-                                        ("wide_bf16", cs.WIDE, torch.bfloat16, False)):
+                                        ("wide_bf16", cs.WIDE, torch.bfloat16, False),
+                                        ("c20", cs.CLIENTS20, torch.float32, False)):
         cl, st, w, labels, ct = cs._case(shape["k"], shape["b"], shape["v"], dtype, seed=0, device=dev)
         out, lse_t, lse_s = ensemble_kl_fwd_ref(cl, st, w, 4.0)
         _, lse, ly = ghm_ce_fwd_ref(cl, labels, w, True)
-        calls = {"ensemble_kl_bwd": lambda: ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0, **kl_kw),
-                 "ghm_ce_bwd": lambda: ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, True, **ce_kw)}
+        calls = {"ensemble_kl_fwd": lambda: ensemble_kl_fwd(cl, st, w, 4.0),
+                 "ghm_ce_fwd": lambda: ghm_ce_fwd(cl, labels, w, True)}
+        if tag != "c20":
+            calls["ensemble_kl_bwd"] = lambda: ensemble_kl_bwd(cl, st, w, ct, out, lse_t, lse_s, 4.0, **kl_kw)
+            calls["ghm_ce_bwd"] = lambda: ghm_ce_bwd(cl, labels, w, ct, lse, ly, True, True, **ce_kw)
         for name, fn in calls.items():
             res[f"{name}_{tag}"] = {"ms": cs._time_ms(fn) if per_call else None, "device_ms": cs._graph_ms(fn)}
     print(f"losses: {json.dumps(res)}", flush=True)
@@ -174,7 +182,7 @@ def time_ofl(epochs: int) -> dict:
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    # the loss kernels by name: Triton bodies and the CUDA C++ backwards (older trees: Triton bodies only)
+    # the loss kernels by name (older trees: also the bodies ``_fwd_body``, ``_bwd_body``, ``_gw_reduce_body``)
     loss = [e for e in events if any(n in e.key for n in ("ensemble_kl", "ghm_ce", "_fwd_body", "_bwd_body",
                                                             "_gw_reduce_body"))]
     res.update(loss_kernels={"device_ms": sum(e.self_device_time_total for e in loss) / 1e3,
@@ -254,10 +262,11 @@ def main() -> None:
     print(smi)
     for t in turns:
         cols = [f"{t['turn']} {t['name']:6s}"]
-        for n in ("ensemble_kl_bwd", "ghm_ce_bwd"):
+        for n in ("ensemble_kl_fwd", "ensemble_kl_bwd", "ghm_ce_fwd", "ghm_ce_bwd"):
             if f"{n}_main" in t:
+                c20 = f", K=20 {t[n + '_c20']['device_ms']:.4f}" if f"{n}_c20" in t else ""
                 cols.append(f"{n} {t[n + '_main']['ms']:.4f} ms (device {t[n + '_main']['device_ms']:.4f}; wide "
-                            f"f32 {t[n + '_wide']['device_ms']:.4f}, bf16 {t[n + '_wide_bf16']['device_ms']:.4f})")
+                            f"f32 {t[n + '_wide']['device_ms']:.4f}, bf16 {t[n + '_wide_bf16']['device_ms']:.4f}{c20})")
         if "ofl" in t:
             cols.append(f"ofl {t['ofl']['s_per_epoch']:.4f} s/epoch, idle {t['ofl']['idle_share']:.3f}, loss "
                         f"kernels {t['ofl']['loss_kernels']['device_ms']:.2f} device ms")

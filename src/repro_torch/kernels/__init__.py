@@ -1,11 +1,11 @@
 """Hand-written Hopper kernels for the port's hot path.
 
 * :mod:`repro_torch.kernels.ensemble_kl` — fused weighted-ensemble + KL
-  (Eq. 4 / Eq. 7), forward (Triton) and backward (CUDA C++, only the wanted
-  cotangents)
+  (Eq. 4 / Eq. 7), forward and backward (CUDA C++; the backward computes
+  only the wanted cotangents)
 * :mod:`repro_torch.kernels.ghm_ce`      — fused GHM-difficulty CE
-  (Eq. 5–6, Eq. 11), forward (Triton) and backward (CUDA C++, only the
-  wanted cotangents)
+  (Eq. 5–6, Eq. 11), forward and backward (CUDA C++; the backward computes
+  only the wanted cotangents)
 * :mod:`repro_torch.kernels.flash_attention` — blocked causal / SWA /
   softcap attention with GQA, forward and backward (dq and dk/dv passes;
   CUDA C++, train/prefill; the forward and the dk/dv pass on the tensor
@@ -13,9 +13,8 @@
 * :mod:`repro_torch.kernels.flash_decode` — paged Sq=1 decode attention
   (CUDA C++, inference-only)
 
-The loss forwards are Triton; the loss backwards and the attention kernels
-are CUDA C++ sources (``*.cu``) built with ``nvcc`` at first use
-(:mod:`repro_torch.kernels.build`).
+Every kernel is a CUDA C++ source (``*.cu``) built with ``nvcc`` at first
+use (:mod:`repro_torch.kernels.build`).
 Each subpackage: ``kernel.py`` (the kernels' wrappers),
 ``ops.py`` (the differentiable ``torch.autograd.Function``), ``ref.py``
 (the plain PyTorch versions). :mod:`repro_torch.kernels.dispatch` maps the

@@ -1,30 +1,25 @@
-"""Building the hand kernels: where the compiled kernels are cached, and
-the launch counters.
+"""Building the hand kernels: where the compiled kernels are cached, the
+launch counters, and the loss kernels' launch geometry and scratch.
 
-Triton kernels (the loss forwards): Triton is imported only inside
-:func:`triton_modules`, which the kernel wrappers call the first time they
-launch, so every module of the package imports on a machine without
-Triton. They compile on first use into ``build/triton`` at the root of the
-checkout (listed in ``.gitignore``); ``TRITON_CACHE_DIR`` /
-``TRITON_HOME``, when set, take precedence.
-
-CUDA C++ kernels: each ``.cu`` source beside its wrapper exports plain
-``extern "C"`` launchers. :func:`cuda_library` compiles it with ``nvcc``
-for ``sm_90a`` into ``build/cuda/<name>-<hash of source and flags>.so`` at
-first use and loads it with ``ctypes``; nothing includes PyTorch's headers,
-so a build takes seconds. A file lock serialises concurrent builds
-(``pytest -n``). A missing ``nvcc`` or a failed build raises.
+Each ``.cu`` source beside its wrapper exports plain ``extern "C"``
+launchers. :func:`cuda_library` compiles it with ``nvcc`` for ``sm_90a``
+into ``build/cuda/<name>-<hash of source and flags>.so`` at the root of the
+checkout (listed in ``.gitignore``) at first use and loads it with
+``ctypes``; nothing includes PyTorch's headers, so a build takes seconds. A
+file lock serialises concurrent builds (``pytest -n``). A missing ``nvcc``
+or a failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -60,16 +55,6 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
-def triton_modules():
-    """``(triton, triton.language)``, with the kernel cache in the checkout."""
-    os.environ.setdefault("TRITON_HOME", str(BUILD_DIR))
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    return triton, tl
-
-
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Every tensor on one CUDA device and contiguous."""
     dev = tensors[0].device
@@ -89,29 +74,6 @@ def check_rows(name: str, b: int, *rows: torch.Tensor) -> None:
 
 def next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
-
-
-def row_blocks(b: int, v: int) -> tuple[int, int]:
-    """``(BLOCK_B, BLOCK_V)`` for a (B, V) row reduction: ``BLOCK_V`` a power
-    of two ≥ 16 that covers V up to 1024 (V=10 is one masked chunk), and
-    enough rows per program to make a tile of about 4096 elements."""
-    block_v = max(16, min(next_pow2(v), 1024))
-    block_b = max(1, min(next_pow2(b), 4096 // block_v))
-    return block_b, block_v
-
-
-_JITTED = {}
-
-
-def jit(body):
-    """The Triton kernel of a kernel body defined at the top of a module of
-    this package. The body's module gets ``tl`` bound at its first build, so
-    the body's source needs no Triton at import time."""
-    if body not in _JITTED:
-        triton, tl = triton_modules()
-        body.__globals__["tl"] = tl
-        _JITTED[body] = triton.jit(body)
-    return _JITTED[body]
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +135,10 @@ def check_launch(name: str, err: int) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s device, the value
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives (also inside a
+    CUDA-graph capture), without building a ``Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -206,26 +171,80 @@ def loss_bwd_geometry(n: int, itemsize: int, aligned: bool) -> tuple[int, int, i
     return blocks, vec, blocks if blocks > 1 else 0
 
 
-_GW_SCRATCH: Dict[torch.device, tuple] = {}
-_GW_OUTGROWN: list = []
+# ---------------------------------------------------------------------------
+# the loss forward kernels (ensemble_kl_fwd.cu, ghm_ce_fwd.cu)
+
+#: Threads of a block of the loss forward kernels and the blocks each SM
+#: keeps resident at once (their ``__launch_bounds__``); the widest row a
+#: group of at most 32 lanes owns; the fewest columns a split of a row takes.
+LOSS_FWD_THREADS = 256
+LOSS_FWD_BLOCKS_PER_SM = 3
+LOSS_FWD_LANE_MAX_V = 1024
+LOSS_FWD_SPLIT_MIN = 1024
 
 
-def gw_scratch(device: torch.device, floats: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(partials, ticket)`` on ``device`` for a launch whose ``g_w`` spans
-    blocks: at least ``floats`` f32 partials, and the integer ticket the last
-    block takes, zeroed once (every launch leaves it at 0). One pair per
-    device, shared by both loss backward kernels, which run on one stream.
-    The partials grow only outside a CUDA-graph capture, and an outgrown
-    buffer stays alive, since a captured graph may still point at it."""
-    cur = _GW_SCRATCH.get(device)
+class LossFwdGeometry(NamedTuple):
+    lanes: int  # threads that own a row together: a power of two up to 32, or the whole block
+    rows: int  # rows a block takes at once
+    splits: int  # contiguous column ranges a row is cut into, one block each
+    span: int  # columns of a split, a multiple of vec
+    blocks: int
+    vec: int  # elements a thread moves per access
+
+
+@functools.cache
+def loss_fwd_geometry(b: int, v: int, itemsize: int, aligned: bool) -> LossFwdGeometry:
+    """The launch of a loss forward over a (B, V) logit plane, from the
+    shapes alone; ``itemsize`` is the widest logit dtype's.
+
+    ``vec``: 16 bytes' worth of elements per access when ``aligned`` (the
+    logit tensors start 16-byte aligned) and V is a multiple of it, so every
+    plane and row starts aligned; else 1. Rows of at most
+    ``LOSS_FWD_LANE_MAX_V`` columns are owned by a group of ``lanes`` lanes
+    of one warp, a power of two that covers the row's accesses up to 32 (two
+    rows of 16 lanes a warp at V=10), ``THREADS / lanes`` rows a block, at
+    most as many blocks as the card keeps resident, which loop over the
+    rest. Wider rows are owned by a block each; when B such blocks cannot
+    put two on every SM, each row is cut into ``splits`` contiguous ranges
+    of ``span`` columns, at least ``LOSS_FWD_SPLIT_MIN`` each and at most as
+    many blocks in all as are resident at once, none empty."""
+    vec = 16 // itemsize
+    if not aligned or v % vec:
+        vec = 1
+    cap = SMS * LOSS_FWD_BLOCKS_PER_SM
+    if v <= LOSS_FWD_LANE_MAX_V:
+        lanes = min(32, next_pow2(-(-v // vec)))
+        rows = LOSS_FWD_THREADS // lanes
+        return LossFwdGeometry(lanes, rows, 1, v, min(-(-b // rows), cap), vec)
+    splits = max(1, min(cap // b, v // LOSS_FWD_SPLIT_MIN)) if b < 2 * SMS else 1
+    units = -(-v // vec)
+    per_split = -(-units // splits)
+    splits = -(-units // per_split)
+    return LossFwdGeometry(LOSS_FWD_THREADS, 1, splits, per_split * vec, min(b * splits, cap), vec)
+
+
+_SCRATCH: Dict[torch.device, tuple] = {}
+_OUTGROWN: list = []
+
+
+def loss_scratch(device: torch.device, floats: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(partials, ticket)`` on ``device`` for a loss kernel launch that
+    combines across blocks (a backward's ``g_w``, a forward's split rows):
+    at least ``floats`` f32 partials, and the integer ticket the last block
+    takes, zeroed once (every launch leaves it at 0). One pair per device,
+    shared by the four loss kernels, which run on one stream. The partials
+    grow only outside a CUDA-graph capture, and an outgrown buffer stays
+    alive, since a captured graph may still point at it."""
+    cur = _SCRATCH.get(device)
     if cur is None or cur[0].numel() < floats:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                "the g_w scratch cannot grow during a CUDA-graph capture: make the same call once before capturing"
+                "the loss kernels' scratch cannot grow during a CUDA-graph capture: make the same call once "
+                "before capturing"
             )
         if cur is not None:
-            _GW_OUTGROWN.append(cur[0])
+            _OUTGROWN.append(cur[0])
         ticket = cur[1] if cur is not None else torch.zeros(1, dtype=torch.int32, device=device)
         cur = (torch.empty(max(floats, 4096), dtype=torch.float32, device=device), ticket)
-        _GW_SCRATCH[device] = cur
+        _SCRATCH[device] = cur
     return cur

@@ -49,7 +49,7 @@
 //   fixed order, writes g_w and puts the ticket back to 0. A second call
 //   gives the same bits.
 // * The scratch and the ticket belong to the wrapper, one pair per device,
-//   shared by both loss backward kernels (kernels/build.py gw_scratch); the
+//   shared by the four loss kernels (kernels/build.py loss_scratch); the
 //   ticket is zeroed once and every launch leaves it at 0, so a CUDA graph
 //   may capture and replay the call. Two calls running at once on two
 //   streams would share the ticket and the partials and corrupt each other's

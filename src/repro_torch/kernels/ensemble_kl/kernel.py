@@ -1,6 +1,6 @@
-"""Fused weighted-ensemble + temperature-KL kernels for Hopper: the forward
-in Triton, the backward in CUDA C++ (``ensemble_kl_bwd.cu`` beside this
-file), and their wrappers.
+"""Fused weighted-ensemble + temperature-KL kernels for Hopper, both in CUDA
+C++ (``ensemble_kl_fwd.cu`` and ``ensemble_kl_bwd.cu`` beside this file),
+and their wrappers.
 
 Replaces the Pallas TPU kernels ``repro/kernels/ensemble_kl/kernel.py``
 ``ensemble_kl_pallas`` (forward, ``_kernel``) and ``ensemble_kl_bwd_pallas``
@@ -23,18 +23,21 @@ for a handful of flops, far below the ~20 flop/byte the card needs before
 arithmetic would matter. At the main path's K=5, B=128, V=10 the forward
 reads about 31 KB, about 9 ns at 3.35 TB/s, so the launch itself dominates.
 
-What the design does about it: in the forward, one program per block of
-rows walks V in ``BLOCK_V`` chunks (the TPU's vocab-minor grid becomes this
-loop) and keeps the online statistics in registers, masking the B and V
-tails instead of padding them to the TPU's (8, 128) tiles. The backward is
-one launch of an elementwise grid over the (B, V) plane that computes only
-the wanted cotangents and combines ``g_w`` across blocks in the same launch,
-in a fixed order with no float atomics; ``ensemble_kl_bwd.cu`` says how. Both
-compute in f32 and store in the input dtypes.
+What the design does about it: each is one launch whose grid follows
+from the shapes alone. In the forward, threads own rows (a group of lanes
+of one warp for narrow rows, a block, or a few blocks over column ranges,
+for wide ones), keep the online statistics in registers and merge them in
+a fixed order, masking the B and V tails instead of padding them to the
+TPU's (8, 128) tiles; ``ensemble_kl_fwd.cu`` says how. The backward is an
+elementwise grid over the (B, V) plane that computes only the wanted
+cotangents and combines ``g_w`` across blocks in the same launch;
+``ensemble_kl_bwd.cu`` says how. Neither uses float atomics. Both compute
+in f32 and store in the input dtypes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -46,67 +49,16 @@ from repro_torch.kernels.build import (
     check_launch,
     check_rows,
     cuda_library,
-    gw_scratch,
-    jit,
     loss_bwd_geometry,
-    row_blocks,
+    loss_fwd_geometry,
+    loss_scratch,
     stream_ptr,
 )
 from repro_torch.kernels.ensemble_kl.ref import ensemble_kl_bwd_ref, ensemble_kl_fwd_ref
 
+FWD_SOURCE = Path(__file__).with_name("ensemble_kl_fwd.cu")
 BWD_SOURCE = Path(__file__).with_name("ensemble_kl_bwd.cu")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-# triton.language; build.jit binds it before the first build, so this module
-# imports where Triton is not installed
-tl = None
-
-
-def _fwd_body(
-    w_ptr, cl_ptr, st_ptr, out_ptr, lset_ptr, lses_ptr, K, B, V, stride_k,
-    T: tl.constexpr, BLOCK_B: tl.constexpr, BLOCK_V: tl.constexpr,
-):
-    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-    rmask = rows < B
-    rbase = rows.to(tl.int64) * V
-    mt = tl.full([BLOCK_B], -1e30, tl.float32)
-    dt = tl.zeros([BLOCK_B], tl.float32)
-    nt = tl.zeros([BLOCK_B], tl.float32)
-    ms = tl.full([BLOCK_B], -1e30, tl.float32)
-    ds = tl.zeros([BLOCK_B], tl.float32)
-    for v0 in range(0, V, BLOCK_V):
-        cols = v0 + tl.arange(0, BLOCK_V)
-        cmask = cols < V
-        mask = rmask[:, None] & cmask[None, :]
-        offs = rbase[:, None] + cols[None, :]
-        t = tl.zeros([BLOCK_B, BLOCK_V], tl.float32)
-        for k in range(K):
-            wk = tl.load(w_ptr + k)
-            c = tl.load(cl_ptr + k.to(tl.int64) * stride_k + offs, mask=mask, other=0.0)
-            t += wk * c.to(tl.float32)
-        t = t / T
-        s = tl.load(st_ptr + offs, mask=mask, other=0.0).to(tl.float32) / T
-        t = tl.where(cmask[None, :], t, -1e30)
-        s_l = tl.where(cmask[None, :], s, -1e30)
-        diff = tl.where(cmask[None, :], t - s, 0.0)
-        # online teacher statistics
-        mt_new = tl.maximum(mt, tl.max(t, axis=1))
-        corr = tl.exp(mt - mt_new)
-        p = tl.exp(t - mt_new[:, None])
-        dt = dt * corr + tl.sum(p, axis=1)
-        nt = nt * corr + tl.sum(p * diff, axis=1)
-        mt = mt_new
-        # online student logsumexp
-        ms_new = tl.maximum(ms, tl.max(s_l, axis=1))
-        ds = ds * tl.exp(ms - ms_new) + tl.sum(tl.exp(s_l - ms_new[:, None]), axis=1)
-        ms = ms_new
-    lse_t = tl.log(dt) + mt
-    lse_s = tl.log(ds) + ms
-    kl = nt / dt - lse_t + lse_s
-    tl.store(out_ptr + rows, kl * (T * T), mask=rmask)
-    tl.store(lset_ptr + rows, lse_t, mask=rmask)
-    tl.store(lses_ptr + rows, lse_s, mask=rmask)
 
 
 def _check_inputs(name, client_logits, student_logits, w):
@@ -123,22 +75,39 @@ def _check_inputs(name, client_logits, student_logits, w):
             raise ValueError(f"{name}: logits dtype {x.dtype} not in {FLOAT_DTYPES}")
 
 
+@functools.cache
+def _fwd_lib():
+    """The forward's launcher in the built library, with its C signature."""
+    fn = cuda_library(FWD_SOURCE).ensemble_kl_fwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 6 + [i] * 3 + [ctypes.c_float] + [i] * 7 + [p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def ensemble_kl_fwd(client_logits, student_logits, w, temperature: float = 1.0):
-    """``(out, lse_t, lse_s)``, each (B,) f32. Launches the Triton kernel
-    for CUDA tensors; computes the plain version for CPU tensors."""
+    """``(out, lse_t, lse_s)``, each (B,) f32 (the rows of one (3, B)
+    tensor). Launches the CUDA kernel, once, for CUDA tensors; computes the
+    plain version for CPU tensors."""
     if client_logits.device.type == "cpu":
         return ensemble_kl_fwd_ref(client_logits, student_logits, w, temperature)
     _check_inputs("ensemble_kl_fwd", client_logits, student_logits, w)
     k, b, v = client_logits.shape
-    out, lse_t, lse_s = (torch.empty(b, dtype=torch.float32, device=w.device) for _ in range(3))
-    block_b, block_v = row_blocks(b, v)
-    grid = (-(-b // block_b),)
-    jit(_fwd_body)[grid](
-        w, client_logits, student_logits, out, lse_t, lse_s, k, b, v, b * v,
-        T=float(temperature), BLOCK_B=block_b, BLOCK_V=block_v, num_warps=4,
+    res = torch.empty((3, b), dtype=torch.float32, device=w.device)
+    cl_p, st_p = client_logits.data_ptr(), student_logits.data_ptr()
+    itemsize = max(client_logits.element_size(), student_logits.element_size())
+    geo = loss_fwd_geometry(b, v, itemsize, (cl_p | st_p) % 16 == 0)
+    part = ticket = None
+    if geo.splits > 1:
+        part, ticket = (t.data_ptr() for t in loss_scratch(w.device, 5 * b * geo.splits))
+    err = _fwd_lib()(
+        cl_p, st_p, w.data_ptr(), res.data_ptr(), part, ticket, k, b, v, float(temperature),
+        DTYPE_CODES[client_logits.dtype], DTYPE_CODES[student_logits.dtype], geo.vec, geo.lanes, geo.splits,
+        geo.span, geo.blocks, stream_ptr(w),
     )
+    check_launch("ensemble_kl_fwd", err)
     LAUNCHES["ensemble_kl_fwd"] += 1
-    return out, lse_t, lse_s
+    return res[0], res[1], res[2]
 
 
 def _check_bwd(client_logits, student_logits, w, g, out, lse_t, lse_s):
@@ -147,13 +116,13 @@ def _check_bwd(client_logits, student_logits, w, g, out, lse_t, lse_s):
     check_rows("ensemble_kl_bwd", client_logits.shape[1], g, out, lse_t, lse_s)
 
 
+@functools.cache
 def _bwd_lib():
     """The backward's launcher in the built library, with its C signature."""
     fn = cuda_library(BWD_SOURCE).ensemble_kl_bwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 3 + [ctypes.c_float] + [i] * 4 + [p]
-        fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 12 + [i] * 3 + [ctypes.c_float] + [i] * 4 + [p]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -175,7 +144,7 @@ def ensemble_kl_bwd(
     itemsize = max(client_logits.element_size(), student_logits.element_size())
     aligned = client_logits.data_ptr() % 16 == 0 and student_logits.data_ptr() % 16 == 0
     blocks, vec, rows = loss_bwd_geometry(b * v, itemsize, aligned)
-    part, ticket = gw_scratch(w.device, k * rows) if want_w and rows else (None, None)
+    part, ticket = loss_scratch(w.device, k * rows) if want_w and rows else (None, None)
     ptr = lambda t: t.data_ptr() if t is not None else None
     err = _bwd_lib()(
         client_logits.data_ptr(), student_logits.data_ptr(), w.data_ptr(), g.data_ptr(), out.data_ptr(),

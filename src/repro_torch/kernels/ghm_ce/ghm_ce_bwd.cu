@@ -33,7 +33,7 @@
 // g_w in the same launch: per-thread and per-warp sums in a fixed order,
 // then either written by a one-block grid or combined by the last block to
 // take the integer ticket, with no float atomics. The scratch and the ticket are the wrapper's (kernels/build.py
-// gw_scratch), shared with the ensemble-KL backward; every launch leaves the
+// loss_scratch), shared by the four loss kernels; every launch leaves the
 // ticket at 0, so a CUDA graph may capture the call, and two calls running
 // at once on two streams are not supported (they would share the ticket).
 #include <cuda_runtime.h>

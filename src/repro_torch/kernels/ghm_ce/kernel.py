@@ -1,6 +1,6 @@
-"""Fused GHM-difficulty-weighted cross-entropy kernels for Hopper: the
-forward in Triton, the backward in CUDA C++ (``ghm_ce_bwd.cu`` beside this
-file), and their wrappers.
+"""Fused GHM-difficulty-weighted cross-entropy kernels for Hopper, both in
+CUDA C++ (``ghm_ce_fwd.cu`` and ``ghm_ce_bwd.cu`` beside this file), and
+their wrappers.
 
 Replaces the Pallas TPU kernels ``repro/kernels/ghm_ce/kernel.py``
 ``ghm_ce_pallas`` (forward, ``_kernel``) and ``ghm_ce_bwd_pallas``
@@ -23,18 +23,21 @@ and a row reduction per element, no matrix product. At K=5, B=128, V=10 the
 forward reads about 26 KB, under 10 ns at 3.35 TB/s, so the launch
 dominates.
 
-What the design does about it: the forward runs one program per block of
-rows, looping over V in ``BLOCK_V`` chunks with the statistics in
-registers, masking the B and V tails; the mode (``weighted``) is a
-compile-time flag. The backward is one launch of an elementwise grid over
-the (B, V) plane that computes only the wanted cotangents and combines
-``g_w`` across blocks in the same launch, in a fixed order with no float
-atomics (the TPU kernel's revisited accumulator block relies on in-order
-grids, which a GPU does not have); ``ghm_ce_bwd.cu`` says how.
+What the design does about it: each is one launch whose grid follows from
+the shapes alone. The forward owns rows as ``ensemble_kl``'s does (a group
+of lanes of one warp, a block, or a few blocks over column ranges), with
+the statistics in registers, merged in a fixed order, and the label logit
+picked up by the one lane that holds it; ``ghm_ce_fwd.cu`` says how. The
+backward is an elementwise grid over the (B, V) plane that computes only
+the wanted cotangents and combines ``g_w`` across blocks in the same
+launch, in a fixed order with no float atomics (the TPU kernel's revisited
+accumulator block relies on in-order grids, which a GPU does not have);
+``ghm_ce_bwd.cu`` says how.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -46,58 +49,17 @@ from repro_torch.kernels.build import (
     check_launch,
     check_rows,
     cuda_library,
-    gw_scratch,
-    jit,
     loss_bwd_geometry,
-    row_blocks,
+    loss_fwd_geometry,
+    loss_scratch,
     stream_ptr,
 )
 from repro_torch.kernels.ghm_ce.ref import ghm_ce_bwd_ref, ghm_ce_fwd_ref
 
+FWD_SOURCE = Path(__file__).with_name("ghm_ce_fwd.cu")
 BWD_SOURCE = Path(__file__).with_name("ghm_ce_bwd.cu")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LABEL_CODES = {torch.int32: 0, torch.int64: 1}
-
-
-# triton.language; build.jit binds it before the first build, so this module
-# imports where Triton is not installed
-tl = None
-
-
-def _fwd_body(
-    w_ptr, cl_ptr, lab_ptr, out_ptr, lse_ptr, ly_ptr, K, B, V, stride_k,
-    WEIGHTED: tl.constexpr, BLOCK_B: tl.constexpr, BLOCK_V: tl.constexpr,
-):
-    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-    rmask = rows < B
-    rbase = rows.to(tl.int64) * V
-    lab = tl.load(lab_ptr + rows, mask=rmask, other=0)
-    m = tl.full([BLOCK_B], -1e30, tl.float32)
-    d = tl.zeros([BLOCK_B], tl.float32)
-    ly = tl.zeros([BLOCK_B], tl.float32)
-    for v0 in range(0, V, BLOCK_V):
-        cols = v0 + tl.arange(0, BLOCK_V)
-        cmask = cols < V
-        mask = rmask[:, None] & cmask[None, :]
-        offs = rbase[:, None] + cols[None, :]
-        t = tl.zeros([BLOCK_B, BLOCK_V], tl.float32)
-        for k in range(K):
-            wk = tl.load(w_ptr + k)
-            c = tl.load(cl_ptr + k.to(tl.int64) * stride_k + offs, mask=mask, other=0.0)
-            t += wk * c.to(tl.float32)
-        t = tl.where(cmask[None, :], t, -1e30)
-        m_new = tl.maximum(m, tl.max(t, axis=1))
-        d = d * tl.exp(m - m_new) + tl.sum(tl.exp(t - m_new[:, None]), axis=1)
-        m = m_new
-        hit = cols[None, :] == lab[:, None]
-        ly += tl.sum(tl.where(hit, t, 0.0), axis=1)
-    lse = tl.log(d) + m
-    nll = lse - ly
-    if WEIGHTED:
-        nll = (1.0 - tl.exp(ly - lse)) * nll
-    tl.store(out_ptr + rows, nll, mask=rmask)
-    tl.store(lse_ptr + rows, lse, mask=rmask)
-    tl.store(ly_ptr + rows, ly, mask=rmask)
 
 
 def _check_inputs(name, client_logits, labels, w):
@@ -115,21 +77,38 @@ def _check_inputs(name, client_logits, labels, w):
         raise ValueError(f"{name}: logits dtype {client_logits.dtype} not in {FLOAT_DTYPES}")
 
 
+@functools.cache
+def _fwd_lib():
+    """The forward's launcher in the built library, with its C signature."""
+    fn = cuda_library(FWD_SOURCE).ghm_ce_fwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 6 + [i] * 11 + [p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def ghm_ce_fwd(client_logits, labels, w, weighted: bool = True):
-    """``(out, lse, ly)``, each (B,) f32. Launches the Triton kernel for CUDA
-    tensors; computes the plain version for CPU tensors."""
+    """``(out, lse, ly)``, each (B,) f32 (the rows of one (3, B) tensor).
+    Launches the CUDA kernel, once, for CUDA tensors; computes the plain
+    version for CPU tensors."""
     if client_logits.device.type == "cpu":
         return ghm_ce_fwd_ref(client_logits, labels, w, weighted)
     _check_inputs("ghm_ce_fwd", client_logits, labels, w)
     k, b, v = client_logits.shape
-    out, lse, ly = (torch.empty(b, dtype=torch.float32, device=w.device) for _ in range(3))
-    block_b, block_v = row_blocks(b, v)
-    jit(_fwd_body)[(-(-b // block_b),)](
-        w, client_logits, labels, out, lse, ly, k, b, v, b * v,
-        WEIGHTED=bool(weighted), BLOCK_B=block_b, BLOCK_V=block_v, num_warps=4,
+    res = torch.empty((3, b), dtype=torch.float32, device=w.device)
+    cl_p = client_logits.data_ptr()
+    geo = loss_fwd_geometry(b, v, client_logits.element_size(), cl_p % 16 == 0)
+    part = ticket = None
+    if geo.splits > 1:
+        part, ticket = (t.data_ptr() for t in loss_scratch(w.device, 3 * b * geo.splits))
+    err = _fwd_lib()(
+        cl_p, labels.data_ptr(), w.data_ptr(), res.data_ptr(), part, ticket, k, b, v, int(bool(weighted)),
+        DTYPE_CODES[client_logits.dtype], LABEL_CODES[labels.dtype], geo.vec, geo.lanes, geo.splits, geo.span,
+        geo.blocks, stream_ptr(w),
     )
+    check_launch("ghm_ce_fwd", err)
     LAUNCHES["ghm_ce_fwd"] += 1
-    return out, lse, ly
+    return res[0], res[1], res[2]
 
 
 def _check_bwd(client_logits, labels, w, g, lse, ly):
@@ -138,13 +117,13 @@ def _check_bwd(client_logits, labels, w, g, lse, ly):
     check_rows("ghm_ce_bwd", client_logits.shape[1], g, lse, ly)
 
 
+@functools.cache
 def _bwd_lib():
     """The backward's launcher in the built library, with its C signature."""
     fn = cuda_library(BWD_SOURCE).ghm_ce_bwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 8 + [p]
-        fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 10 + [i] * 8 + [p]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -164,7 +143,7 @@ def ghm_ce_bwd(
     g_cl = torch.empty_like(client_logits) if want_cl else None
     g_w = torch.empty(k, dtype=torch.float32, device=w.device) if want_w else None
     blocks, vec, rows = loss_bwd_geometry(b * v, client_logits.element_size(), client_logits.data_ptr() % 16 == 0)
-    part, ticket = gw_scratch(w.device, k * rows) if want_w and rows else (None, None)
+    part, ticket = loss_scratch(w.device, k * rows) if want_w and rows else (None, None)
     ptr = lambda t: t.data_ptr() if t is not None else None
     mode = 0 if not weighted else (1 if stop_difficulty_grad else 2)  # the coefficient's three forms
     err = _bwd_lib()(

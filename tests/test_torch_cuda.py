@@ -1,5 +1,5 @@
-"""The port's kernels on the GPU (the loss kernels: Triton forwards and CUDA
-C++ backwards that compute only the wanted cotangents; the CUDA C++
+"""The port's kernels on the GPU (the loss kernels: CUDA C++ forwards, and
+backwards that compute only the wanted cotangents; the CUDA C++
 attention kernels, forward and both backward passes: the tensor-core
 kernels for bf16, the CUDA-core kernels for f32; split-KV paged decode),
 against their plain PyTorch versions on the same inputs, a second call
@@ -49,7 +49,7 @@ DTYPES = [torch.float32, torch.bfloat16]
 @pytest.fixture
 def device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the Triton and CUDA C++ kernels run only on the card")
+        pytest.skip("needs a CUDA device: the CUDA C++ kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -103,6 +103,53 @@ def test_ghm_ce_kernels_match_plain(device, k, b, v, dtype, weighted, stop):
     for a, r in zip(got, ref):
         assert a.dtype == r.dtype
         _close(a, r)
+
+
+# (K, B, V) beyond SHAPES for the forwards: one row of an LM vocabulary
+# (split across the card), V=1, one block owning each of many rows, more
+# rows than resident blocks in both the block and the lane-group layouts
+FWD_SHAPES = [(5, 1, 151936), (2, 1, 1), (3, 7, 1), (4, 300, 2048), (2, 600, 1500), (2, 20000, 10)]
+
+
+def _fwd_match(cl, st, w, labels):
+    for temperature in (1.0, 4.0):
+        for got, ref in zip(ensemble_kl_fwd(cl, st, w, temperature), ensemble_kl_fwd_ref(cl, st, w, temperature)):
+            _close(got, ref)
+    for weighted in (True, False):
+        for lab in (labels, labels.int()):
+            for got, ref in zip(ghm_ce_fwd(cl, lab, w, weighted), ghm_ce_fwd_ref(cl, labels, w, weighted)):
+                _close(got, ref)
+
+
+@pytest.mark.parametrize("k,b,v", FWD_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_loss_fwd_more_shapes_match_plain(device, k, b, v, dtype):
+    """Both forwards, in every mode and with int32 and int64 labels, one
+    launch each."""
+    cl, st, w, labels, _ = _inputs(k, b, v, dtype, device, seed=3)
+    reset_launch_counts()
+    _fwd_match(cl, st, w, labels)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["ensemble_kl_fwd"] == 2 and counts["ghm_ce_fwd"] == 4
+
+
+@pytest.mark.parametrize("k,b,v", [(5, 128, 16), (5, 37, 32000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_loss_fwd_unaligned_planes_match_plain(device, k, b, v, dtype):
+    """Logits that start one element off a 16-byte boundary, at a V whose
+    rows would otherwise take 16-byte accesses: the single-element path, in
+    the lane-group layout and in split rows."""
+    from repro_torch.kernels.build import loss_fwd_geometry
+
+    g = torch.Generator().manual_seed(4)
+    cl = (torch.randn(k * b * v + 1, generator=g) * 2).to(dtype).to(device)[1:].view(k, b, v)
+    st = (torch.randn(b * v + 1, generator=g) * 2).to(dtype).to(device)[1:].view(b, v)
+    assert loss_fwd_geometry(b, v, cl.element_size(), True).vec > 1
+    assert loss_fwd_geometry(b, v, cl.element_size(), cl.data_ptr() % 16 == 0).vec == 1
+    w = torch.softmax(torch.randn(k, generator=g), 0).to(device)
+    labels = torch.randint(0, v, (b,), generator=g).to(device)
+    _fwd_match(cl, st, w, labels)
 
 
 def test_ops_launch_kernels_and_match_ref_autograd(device):
@@ -237,11 +284,17 @@ MANY_BLOCKS = [(5, 37, 32003), (20, 64, 8192)]
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_loss_bwd_second_call_same_bits(device, k, b, v, dtype):
     """No float atomics: at a many-block grid, a second call gives the same
-    bits, g_w included."""
-    from repro_torch.kernels.build import loss_bwd_geometry
+    bits, g_w included, and so does a second call of each forward, whose
+    rows are split across blocks there."""
+    from repro_torch.kernels.build import loss_bwd_geometry, loss_fwd_geometry
 
     assert loss_bwd_geometry(b * v, 4, True)[0] > 100
+    assert loss_fwd_geometry(b, v, 4, True).splits > 1
     args = _kl_case(k, b, v, dtype, device)
+    cl, st, w, labels = args[0], args[1], args[2], _inputs(k, b, v, dtype, device)[3]
+    for fn in (lambda: ensemble_kl_fwd(cl, st, w, 4.0), lambda: ghm_ce_fwd(cl, labels, w, True)):
+        first = fn()
+        assert all(torch.equal(x, y) for x, y in zip(first, fn()))
     first = ensemble_kl_bwd(*args)
     assert all(torch.equal(x, y) for x, y in zip(first, ensemble_kl_bwd(*args)))
     ce = _ce_case(k, b, v, dtype, device, True)
@@ -251,35 +304,50 @@ def test_loss_bwd_second_call_same_bits(device, k, b, v, dtype):
 
 def test_loss_bwd_ticket_left_at_zero(device):
     """A many-block call, then a one-block call, then the many-block call
-    again: all right, so each launch left the g_w ticket at 0."""
+    again, the forwards' split rows between them: all right, so each
+    launch left the shared ticket at 0, and it reads 0 at the end."""
+    from repro_torch.kernels.build import loss_scratch
+
     wide = _ce_case(5, 37, 32003, torch.float32, device)
     main = _ce_case(5, 128, 10, torch.float32, device)
     kl = _kl_case(5, 37, 32003, torch.float32, device)
+    labels = wide[1]
     for args in (wide, main, wide, main, wide):
         got = ghm_ce_bwd(*args, False, False, needs=(False, True))[1]
         _close(got, ghm_ce_bwd_ref(*args, False, False)[1])
         got = ensemble_kl_bwd(*kl, needs=(False, False, True))[2]
         _close(got, ensemble_kl_bwd_ref(*kl)[2])
+        for a, r in zip(ensemble_kl_fwd(*kl[:3], 4.0), ensemble_kl_fwd_ref(*kl[:3], 4.0)):
+            _close(a, r)
+        for a, r in zip(ghm_ce_fwd(kl[0], labels, kl[2], True), ghm_ce_fwd_ref(kl[0], labels, kl[2], True)):
+            _close(a, r)
+    torch.cuda.synchronize()
+    assert int(loss_scratch(device, 0)[1].item()) == 0
 
 
-@pytest.mark.parametrize("k,b,v", [(5, 128, 10), (5, 37, 32003)])
+@pytest.mark.parametrize("k,b,v", [(5, 128, 10), (5, 37, 32003), (5, 1, 151936)])
 def test_loss_bwd_cuda_graph_replay_equals_eager(device, k, b, v):
-    """A captured call, replayed, gives the eager call's bits: the g_w
-    scratch exists before the capture and the ticket is back at 0 after
-    every launch."""
+    """A captured call of each loss kernel, replayed, gives the eager
+    call's bits: the scratch exists before the capture and the ticket is
+    back at 0 after every launch (the forwards split their rows at the
+    last two shapes)."""
     kl = _kl_case(k, b, v, torch.float32, device)
     ce = _ce_case(k, b, v, torch.float32, device, True)
-    eager = (*ensemble_kl_bwd(*kl), *ghm_ce_bwd(*ce, True, True))
+
+    def calls():
+        return (*ensemble_kl_fwd(*kl[:3], 4.0), *ensemble_kl_bwd(*kl), *ghm_ce_fwd(*ce[:3], True),
+                *ghm_ce_bwd(*ce, True, True))
+
+    eager = calls()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
-            ensemble_kl_bwd(*kl)
-            ghm_ce_bwd(*ce, True, True)
+            calls()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = (*ensemble_kl_bwd(*kl), *ghm_ce_bwd(*ce, True, True))
+        captured = calls()
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()

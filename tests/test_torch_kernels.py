@@ -343,15 +343,76 @@ def test_plain_versions_on_cpu_launch_nothing():
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("b,v", [(1, 1), (5, 10), (128, 10), (37, 32003), (3, 1024), (7, 1025)])
-def test_row_blocks_are_powers_of_two_covering_small_v(b, v):
-    from repro_torch.kernels.build import row_blocks
+def _fwd_coverage(b, v, geo):
+    """How often the loss forward kernels' walk visits each element of the
+    (B, V) plane: the blocks' loop over (row group, split) items, each
+    lane's steps of ``U`` accesses a group width apart (two single elements,
+    or one 16-byte access), as the ``.cu`` sources walk."""
+    from repro_torch.kernels.build import LOSS_FWD_THREADS
 
-    block_b, block_v = row_blocks(b, v)
-    assert block_v >= 16 and block_v & (block_v - 1) == 0 and block_v <= 1024
-    assert block_b >= 1 and block_b & (block_b - 1) == 0 and block_b * block_v <= 4096
-    if v <= 1024:
-        assert block_v >= v  # one masked chunk covers the row
+    lanes, rows, splits, span, blocks, vec = geo
+    u_steps = 2 if vec == 1 else 1
+    items = -(-b // rows) * splits
+    seen = np.zeros(items, np.int64)
+    for bx in range(blocks):
+        seen[bx::blocks] += 1
+    assert (seen == 1).all()  # every item taken by exactly one block
+    count = np.zeros(b * v, np.int64)
+    j = np.arange(lanes)[:, None]
+    for item in range(items):
+        c0 = item % splits * span
+        c1 = min(v, c0 + span)
+        steps = np.arange(0, max(c1 - c0, 0), lanes * vec * u_steps)[None, :]
+        c = c0 + j * vec + steps  # (lanes, steps): each lane's loop
+        for g in range(LOSS_FWD_THREADS // lanes):
+            row = item // splits * rows + g
+            if row >= b:
+                continue
+            for u in range(u_steps):
+                cc = c + u * lanes * vec
+                cc = cc[(c < c1) & (cc < c1)]
+                np.add.at(count, (row * v + cc[:, None] + np.arange(vec)[None, :]).ravel(), 1)
+    return count
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,v", [(1, 1), (5, 10), (128, 10), (256, 100), (37, 32003), (1, 151936), (3, 1024), (7, 1025)]
+)
+def test_loss_fwd_geometry(b, v, itemsize):
+    """The loss forward kernels' launch: every row and column visited once
+    across lanes and splits, at most the card's resident blocks, rows of a
+    group of lanes filling whole warps (one block holds 16 rows of 16 lanes
+    at the main path's B=128, V=10), 16-byte accesses only where the plane
+    allows them, and a row split across blocks only where B rows alone
+    cannot put two blocks on every SM."""
+    from repro_torch.kernels.build import (
+        LOSS_FWD_BLOCKS_PER_SM,
+        LOSS_FWD_SPLIT_MIN,
+        LOSS_FWD_THREADS,
+        SMS,
+        loss_fwd_geometry,
+    )
+
+    for aligned in (True, False):
+        geo = loss_fwd_geometry(b, v, itemsize, aligned)
+        lanes, rows, splits, span, blocks, vec = geo
+        assert vec in (1, 16 // itemsize)
+        assert (vec > 1) == (aligned and v % (16 // itemsize) == 0)
+        assert (_fwd_coverage(b, v, geo) == 1).all()
+        assert 1 <= blocks <= SMS * LOSS_FWD_BLOCKS_PER_SM
+        assert rows * lanes == LOSS_FWD_THREADS and lanes & (lanes - 1) == 0
+        assert lanes <= 32 or lanes == LOSS_FWD_THREADS
+        if lanes < LOSS_FWD_THREADS:  # the lane groups fill their warps
+            assert 32 % lanes == 0 and lanes * vec < 2 * v
+        assert span % vec == 0 and (splits - 1) * span < v <= splits * span  # no empty split
+        if splits > 1:
+            assert b < 2 * SMS and lanes == LOSS_FWD_THREADS and span >= LOSS_FWD_SPLIT_MIN - vec
+            assert b * splits <= SMS * LOSS_FWD_BLOCKS_PER_SM
+        if (b, v) == (128, 10):
+            assert (lanes, rows, splits) == (16, 16, 1)
+        if v > 1024 and b < 2 * SMS and v >= 2 * LOSS_FWD_SPLIT_MIN:  # wide rows cover the card
+            assert splits > 1 and blocks >= SMS
 
 
 def test_wrapper_checks_reject_cpu_tensors():
