@@ -64,7 +64,9 @@ result line):
    loss, the distillation loss and the EE loss through the kernels (backend
    "cuda") agree with plain autograd (backend "ref") at the tolerance above;
    one epoch per backend runs to finite losses, and its parameter gaps are
-   printed. Then the reduced smollm-135m in f32: the gradients of one
+   printed; so does one epoch of each distilling Table 1 baseline (DENSE,
+   F-DAFL, F-ADI, FedDF), whose server-parameter gaps must be finite.
+   Then the reduced smollm-135m in f32: the gradients of one
    ``lm_loss`` through the attention kernels agree with plain autograd; the
    run must have gone through the CUDA-core kernels only.
 4. Training path: ``repro_torch.launch.ofl`` at the paper's image width
@@ -72,6 +74,20 @@ result line):
    gen_iters 30) for a few epochs, with the launch counters reset just
    before and read just after; every loss kernel must have launched, the
    losses must be finite and ``server_acc`` / ``ensemble_acc`` present.
+4b. Baselines path: the paper's Table 1 baselines through
+   ``repro_torch.launch.ofl.run_method`` on one market built once with
+   phase 4's settings: DENSE, F-DAFL, F-ADI and FedDF (3 epochs each), then
+   FedAvg and FedENS, then Co-Boosting on the same market. The launch
+   counters are reset before each method and read after: the distilling
+   baselines must launch the ``ensemble_kl`` forward and backward exactly
+   once per distillation step (1+2+3 on the 4-slot ring, 39 batches × 3
+   epochs for FedDF) and ``ghm_ce`` never, FedAvg and FedENS nothing. Every
+   server parameter evaluated must be finite, ``server_acc`` and
+   ``ensemble_acc`` present (FedENS: ``ensemble_acc`` only), DENSE's and
+   F-DAFL's losses finite. One line per method: wall seconds, seconds per
+   epoch after the first (evaluation after every epoch, its time taken
+   out), accuracies and launches; then the accuracies side by side, with
+   phase 4's Co-Boosting numbers.
 5. Serving path: smollm-135m at full width (30 layers, d_model 576,
    random weights from a seed). First an f32 check: 4 requests × 16 tokens
    through the paged engine give the same greedy tokens as the static
@@ -168,6 +184,15 @@ SOURCES = {
     "flash_decode": "src/repro_torch/kernels/flash_decode/flash_decode.cu",
 }
 ROUTES = {n: "cuda" for n in REPLACES}
+
+# the Co-Boosting training path (phase 4) and the baselines on its market (phase 4b):
+# the paper's image width, time-bound knobs cut
+OFL_ARGV = [
+    "--clients", "5", "--classes", "10", "--image", "32", "--batch", "128", "--gen-iters", "30",
+    "--epochs", "3", "--local-epochs", "2", "--per-class", "500", "--server-arch", "cnn5", "--device", "cuda",
+]
+# the paper's Table 1 baselines that distill (each sweep through ensemble_kl #1 and #2)
+DISTILLING = ("dense", "f_dafl", "f_adi", "feddf")
 
 # serving: smollm-135m at full width
 SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
@@ -966,6 +991,50 @@ def small_input_agreement():
 
     print("small epoch gaps, cuda vs ref: " + json.dumps(gaps(runs[0], runs[1])), flush=True)
     print("small epoch gaps, ref vs ref:  " + json.dumps(gaps(runs[2], runs[1])), flush=True)
+    small_baselines_agreement(clients, server, gen0, server_apply, gen_apply, cfg, classes, shape)
+
+
+def small_baselines_agreement(clients, server, gen0, cnn5_apply, gen_apply, cfg, classes, shape):
+    """One epoch of each distilling baseline at phase 3's small size, with
+    the kernels (backend "cuda") and with plain autograd (backend "ref")
+    from the same parameters and draws: the largest server-parameter gap is
+    printed and must be finite, beside the gap between two plain runs (the
+    convolutions' own run-to-run spread, which Adam's first steps amplify in
+    the synthesis phase; ``tests/test_torch_cuda.py`` holds cuDNN to its
+    deterministic algorithms and bounds the kernels' gap). Clients and
+    server are cnn5, applied by ``cnn5_apply``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.baselines import run_adi_baseline, run_feddf, run_generator_baseline
+    from repro_torch.utils.prng import Draws
+    from repro_torch.utils.trees import flatten_dict
+
+    dev = torch.device("cuda")
+    applies = [cnn5_apply] * len(clients)
+    g = torch.Generator(device=dev).manual_seed(4)
+    val_x = torch.rand((3 * cfg.batch_size, *shape), generator=g, device=dev) * 2 - 1
+    gaps, spread = {}, {}
+    for method in DISTILLING:
+        servers = []
+        for backend in ("cuda", "ref", "ref"):
+            c = dataclasses.replace(cfg, backend=backend, epochs=1)
+            draws = Draws(3, dev)
+            if method == "f_adi":
+                st = run_adi_baseline(applies, clients, cnn5_apply, server, shape, c, classes, draws)
+            elif method == "feddf":
+                st = run_feddf(applies, clients, cnn5_apply, server, val_x, c, draws)
+            else:
+                st = run_generator_baseline(method, applies, clients, cnn5_apply, server, gen_apply, gen0, c,
+                                            classes, draws)
+            servers.append(flatten_dict(st.server_params))
+        gap = lambda a, b: max(float((a[p] - b[p]).abs().max()) for p in b if torch.is_tensor(b[p]))
+        gaps[method], spread[method] = gap(servers[0], servers[1]), gap(servers[2], servers[1])
+        if not math.isfinite(gaps[method]):
+            fail(f"small {method} epoch: non-finite server parameters")
+    print("small baseline epochs, server-parameter gaps, cuda vs ref: " + json.dumps(gaps), flush=True)
+    print("small baseline epochs, server-parameter gaps, ref vs ref:  " + json.dumps(spread), flush=True)
 
 
 def _lm_grads(cfg, params, batch):
@@ -1021,14 +1090,9 @@ def main_path():
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import ofl
 
-    argv = [
-        "--method", "coboosting", "--clients", "5", "--classes", "10", "--image", "32",
-        "--batch", "128", "--gen-iters", "30", "--epochs", "3", "--local-epochs", "2",
-        "--per-class", "500", "--server-arch", "cnn5", "--device", "cuda",
-    ]
     reset_launch_counts()
     t0 = time.perf_counter()
-    result = ofl.main(argv)
+    result = ofl.main(["--method", "coboosting", *OFL_ARGV])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: launch_counts()[n] for n in LOSS_KERNELS}
@@ -1039,7 +1103,117 @@ def main_path():
     for key in ("server_acc", "ensemble_acc", "gen_loss", "distill_loss"):
         if key not in result or not math.isfinite(result[key]):
             fail(f"main path result lacks a finite {key}: {result}")
-    return counts
+    return counts, result
+
+
+# ---------------------------------------------------------------------------
+# phase 4b
+
+
+def _expected_kl_launches(method, run):
+    """One ``ensemble_kl`` forward and one backward per distillation step:
+    one step per filled ring slot for the synthetic-data methods, one per
+    whole batch of the training images for FedDF, none without training."""
+    cfg = run.cfg
+    if method == "feddf":
+        return (len(run.train_x) // cfg.batch_size) * cfg.epochs
+    if method in DISTILLING:
+        return sum(min(e + 1, cfg.buffer_batches) for e in range(cfg.epochs))
+    return 0
+
+
+def baselines_path(coboost):
+    """The paper's Table 1 baselines through ``run_method`` on one market,
+    built once with phase 4's settings; each method's launches counted from
+    0, its wall time and its seconds per epoch after the first (evaluation
+    after every epoch, its time taken out), its accuracies and losses. Then
+    Co-Boosting on the same market, and phase 4's numbers beside them."""
+    import time
+
+    import torch
+
+    from repro_torch.fed import market
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import ofl
+    from repro_torch.utils.device import disable_tf32
+    from repro_torch.utils.trees import tree_leaves
+
+    dev = torch.device("cuda")
+    disable_tf32()
+    args = ofl.parse_args(OFL_ARGV)
+    t0 = time.perf_counter()
+    run = ofl.prepare_run(args, dev)
+    torch.cuda.synchronize()
+    print(f"baselines: market of {args.clients} {run.archs or 'cnn5'} clients on {len(run.train_x)} images "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the runners evaluate through ofl.market_eval_fn: wrap it to stamp each
+    # evaluation (after a synchronize) and to check the server it is handed
+    evals = []
+
+    def timed_eval_fn(*a, **kw):
+        fn = market.market_eval_fn(*a, **kw)
+
+        def timed(server_params, w):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(server_params, w)
+            finite = server_params is None or all(bool(torch.isfinite(t).all()) for t in tree_leaves(server_params))
+            evals.append((start, time.perf_counter(), finite))
+            return out
+
+        return timed
+
+    ofl.market_eval_fn = timed_eval_fn
+    table = {}
+    try:
+        for method in DISTILLING + ("fedavg", "fedens", "coboosting"):
+            evals.clear()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = ofl.run_method(
+                method, run.cfg, args.classes, run.image_shape, run.applies, run.params, run.sizes,
+                run.train_x, run.test_x, run.test_y, args.server_arch, args.seed, eval_every=1, device=dev,
+                archs=run.archs,
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {n: launch_counts()[n] for n in LOSS_KERNELS}
+            per_epoch = None
+            if len(evals) > 1:
+                between = evals[-1][0] - evals[0][1] - sum(e - s for s, e, _ in evals[1:-1])
+                per_epoch = between / (len(evals) - 1)
+            row = {"wall_s": wall, "s_per_epoch_after_first": per_epoch, "launches": counts,
+                   **{k: v for k, v in result.items() if isinstance(v, (int, float))}}
+            table[method] = row
+            print(f"baseline {method}: {json.dumps(row)}", flush=True)
+            if not evals or not all(f for _, _, f in evals):
+                fail(f"{method}: a server parameter is not finite (or nothing was evaluated)")
+            if method == "coboosting":
+                if min(counts.values()) == 0:
+                    fail(f"coboosting on the baselines' market never launched a loss kernel: {counts}")
+            else:
+                kl = _expected_kl_launches(method, run)
+                want = {"ensemble_kl_fwd": kl, "ensemble_kl_bwd": kl, "ghm_ce_fwd": 0, "ghm_ce_bwd": 0}
+                if counts != want:
+                    fail(f"{method}: loss-kernel launches {counts}, want {want} (one ensemble_kl pair a step)")
+            if "ensemble_acc" not in result:
+                fail(f"{method}: no ensemble_acc in {result}")
+            if method == "fedens":
+                if "server_acc" in result:
+                    fail(f"fedens trains no server but reported server_acc: {result}")
+            elif "server_acc" not in result:
+                fail(f"{method}: no server_acc in {result}")
+            if method in ("dense", "f_dafl", "coboosting"):
+                for key in ("gen_loss", "distill_loss"):
+                    if key not in result or not math.isfinite(result[key]):
+                        fail(f"{method}: result lacks a finite {key}: {result}")
+    finally:
+        ofl.market_eval_fn = market.market_eval_fn
+    print("Table 1 on one market (server_acc, ensemble_acc): " + json.dumps(
+        {m: [r.get("server_acc"), r["ensemble_acc"]] for m, r in table.items()}), flush=True)
+    print(f"Co-Boosting, phase 4 (same settings and seed): server_acc {coboost['server_acc']}, "
+          f"ensemble_acc {coboost['ensemble_acc']}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1245,7 +1419,8 @@ def main() -> None:
     timing.update(bwd_timing)
     small_input_agreement()
     lm_small_input_agreement()
-    counts = main_path()
+    counts, coboost = main_path()
+    baselines_path(coboost)
     serving_parity_f32()
     serving = serving_path()
     counts.update(serving)

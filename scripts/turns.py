@@ -3,7 +3,8 @@
 redesigned, Co-Boosting, LM training and serving.
 
     python3 scripts/turns.py PARENT_DIR [--order parent,change,change,parent]
-                             [--parts losses,kernels,ofl,train,serve] [--serve-runs N] [--epochs N] [--out DIR]
+                             [--parts losses,kernels,ofl,baselines,train,serve] [--serve-runs N] [--epochs N]
+                             [--out DIR]
 
 ``PARENT_DIR`` is an unpacked checkout of the commit to compare with
 (``git archive <commit> | tar -x -C PARENT_DIR``); "change" is the checkout
@@ -30,6 +31,9 @@ builds that tree's kernels into its own ``build/`` and then measures:
   epochs timed (s/epoch, host clock after a synchronise), then as many
   under ``torch.profiler``: the device's busy share and the kernels by
   device time;
+* the distilling Table 1 baselines (DENSE, F-DAFL, F-ADI, FedDF; trees
+  that have ``repro_torch.core.baselines``) on the same market, each like
+  Co-Boosting: one epoch to warm up, ``--epochs`` timed, as many profiled;
 * ``repro_torch.launch.train`` at full width (batch 8, seq 256, 30 steps,
   AdamW): tok/s after the first step, s/step, the loss;
 * ``repro_torch.launch.serve`` at full width (16 requests, prompt 128, 64
@@ -87,6 +91,8 @@ def one_turn(tree: Path, parts, serve_runs: int, epochs: int) -> dict:
         res.update(time_losses(cs, dev))
     if "ofl" in parts:
         res["ofl"] = time_ofl(epochs)
+    if "baselines" in parts:
+        res["baselines"] = time_baselines(epochs)
     if "kernels" in parts:
         res.update(time_kernels(cs, dev))
     if "train" in parts:
@@ -137,6 +143,77 @@ def time_losses(cs, dev) -> dict:
     return res
 
 
+def _profiled(run, epochs: int) -> dict:
+    """``run(epochs)`` under ``torch.profiler`` (device activity only): the
+    wall time, the device's busy share, the loss kernels and the kernels by
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = run(epochs)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    # the loss kernels by name (older trees: also the bodies ``_fwd_body``, ``_bwd_body``, ``_gw_reduce_body``)
+    loss = [e for e in events if any(n in e.key for n in ("ensemble_kl", "ghm_ce", "_fwd_body", "_bwd_body",
+                                                            "_gw_reduce_body"))]
+    return {"loss_kernels": {"device_ms": sum(e.self_device_time_total for e in loss) / 1e3,
+                             "calls": sum(e.count for e in loss)},
+            "profiled_wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "top_kernels": [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3, "calls": e.count}
+                            for e in top]}
+
+
+def time_baselines(epochs: int) -> dict:
+    """The distilling Table 1 baselines on ``time_ofl``'s market, each from
+    a fresh server (and generator): one epoch to warm up, then ``epochs``
+    timed (s/epoch, host clock after a synchronise), then as many under
+    ``torch.profiler``."""
+    import dataclasses
+    from functools import partial
+
+    import torch
+
+    from repro_torch.core.baselines import run_adi_baseline, run_feddf, run_generator_baseline
+    from repro_torch.core.coboosting import default_image_setup
+    from repro_torch.launch import ofl
+    from repro_torch.models.cnn import cnn_apply, init_cnn
+    from repro_torch.utils.prng import Draws
+
+    args = ofl.parse_args(OFL_ARGV)
+    dev = torch.device("cuda")
+    mk = ofl.prepare_run(args, dev)
+    server_apply = partial(cnn_apply, args.server_arch)
+    init = torch.Generator(device=dev)
+    res = {}
+    for method in ("dense", "f_dafl", "f_adi", "feddf"):
+
+        def run(n):
+            c = dataclasses.replace(mk.cfg, epochs=n)
+            init.manual_seed(args.seed + 77)
+            server = init_cnn(init, args.server_arch, args.classes, mk.image_shape)
+            init.manual_seed(args.seed + 5)
+            gen_apply, gen = default_image_setup(init, c, args.classes, mk.image_shape)
+            draws = Draws(args.seed, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if method == "feddf":
+                run_feddf(mk.applies, mk.params, server_apply, server, mk.train_x, c, draws)
+            elif method == "f_adi":
+                run_adi_baseline(mk.applies, mk.params, server_apply, server, mk.image_shape, c, args.classes, draws)
+            else:
+                run_generator_baseline(method, mk.applies, mk.params, server_apply, server, gen_apply, gen, c,
+                                       args.classes, draws)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        run(1)
+        res[method] = {"epochs": epochs, "s_per_epoch": run(epochs) / epochs, **_profiled(run, epochs)}
+        print(f"{method}: {json.dumps(res[method])}", flush=True)
+    return res
+
+
 def time_ofl(epochs: int) -> dict:
     """Co-Boosting at the paper's image width: s/epoch, then the same number
     of epochs under ``torch.profiler`` (device activity only)."""
@@ -144,7 +221,6 @@ def time_ofl(epochs: int) -> dict:
     from functools import partial
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.config.train import OFLConfig
     from repro_torch.core.coboosting import default_image_setup, run_coboosting
@@ -176,19 +252,7 @@ def time_ofl(epochs: int) -> dict:
         return time.perf_counter() - t0
 
     run(1)  # builds the kernels
-    res = {"epochs": epochs, "s_per_epoch": run(epochs) / epochs}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = run(epochs)
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    # the loss kernels by name (older trees: also the bodies ``_fwd_body``, ``_bwd_body``, ``_gw_reduce_body``)
-    loss = [e for e in events if any(n in e.key for n in ("ensemble_kl", "ghm_ce", "_fwd_body", "_bwd_body",
-                                                            "_gw_reduce_body"))]
-    res.update(loss_kernels={"device_ms": sum(e.self_device_time_total for e in loss) / 1e3,
-                             "calls": sum(e.count for e in loss)})
-    res.update(profiled_wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall, top_kernels=[
-        {"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3, "calls": e.count} for e in top])
+    res = {"epochs": epochs, "s_per_epoch": run(epochs) / epochs, **_profiled(run, epochs)}
     print(f"ofl: {json.dumps(res)}", flush=True)
     return res
 
@@ -225,7 +289,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", nargs="?", help="unpacked checkout of the commit to compare with")
     ap.add_argument("--order", default="parent,change,change,parent")
-    ap.add_argument("--parts", default="losses,kernels,ofl,train,serve")
+    ap.add_argument("--parts", default="losses,kernels,ofl,train,serve", help="any of losses,kernels,ofl,baselines,"
+                    "train,serve")
     ap.add_argument("--serve-runs", type=int, default=1)
     ap.add_argument("--epochs", type=int, default=3, help="Co-Boosting epochs timed, and as many profiled")
     ap.add_argument("--out", default=str(HERE / "build" / "turns"), help="directory for each turn's log")
@@ -270,6 +335,9 @@ def main() -> None:
         if "ofl" in t:
             cols.append(f"ofl {t['ofl']['s_per_epoch']:.4f} s/epoch, idle {t['ofl']['idle_share']:.3f}, loss "
                         f"kernels {t['ofl']['loss_kernels']['device_ms']:.2f} device ms")
+        for m, b in t.get("baselines", {}).items():
+            cols.append(f"{m} {b['s_per_epoch']:.4f} s/epoch, idle {b['idle_share']:.3f}, loss kernels "
+                        f"{b['loss_kernels']['device_ms']:.2f} device ms")
         if "dq" in t:
             cols.append(f"dq {t['dq']['ms']:.4f} ms (device {t['dq']['device_ms']:.4f}; SDPA bwd "
                         f"{t['dq']['sdpa_bwd_ms']:.4f}, device {t['dq']['sdpa_bwd_device_ms']:.4f})")

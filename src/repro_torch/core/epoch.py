@@ -1,9 +1,11 @@
-"""One Algorithm-1 epoch of Co-Boosting (the port of ``repro.core.epoch``).
+"""One OFL epoch of each method (the port of ``repro.core.epoch``).
 
-The epoch runs the reference's fused program step for step, eagerly:
-generator phase → buffer append → EE step → distillation sweep over the
-replay ring. Losses stay on the device; the host reads them only at eval
-boundaries.
+The Co-Boosting epoch runs the reference's fused program step for step,
+eagerly: generator phase → buffer append → EE step → distillation sweep
+over the replay ring. With another generator objective and neither EE nor
+DHS it is the DENSE / F-DAFL epoch; the F-ADI epoch optimizes a pixel batch
+in place of a generator, and the FedDF epoch distills on real batches.
+Losses stay on the device; the host reads them only at eval boundaries.
 
 Contract with the reference (held by the CPU parity tests):
 
@@ -21,17 +23,21 @@ scans all slots and masks the empty ones; the draws of the masked slots
 come after the valid ones there, so the two agree.
 
 The Eq. 4 / Eq. 6–8 / Eq. 11–12 losses route through the fused kernels
-(:mod:`repro_torch.kernels`) according to ``cfg.backend``, for both passes.
+(:mod:`repro_torch.kernels`) according to ``cfg.backend``, for both passes:
+every distillation sweep (Co-Boosting and all four distilling baselines)
+runs Eq. 4 through ``ensemble_kl``. The baselines' synthesis objectives
+are plain PyTorch, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config.train import OFLConfig
 from repro_torch.core.buffer import ReplayBuffer, buffer_append, buffer_get
+from repro_torch.core.ensemble import ensemble_logits
 from repro_torch.core.hard_samples import diversify
 from repro_torch.core.hardness import generator_loss
 from repro_torch.core.weight_search import update_weights
@@ -102,8 +108,16 @@ def make_coboost_epoch(
     cfg: OFLConfig,
     num_clients: int,
     num_classes: int,
+    gen_objective: Optional[Callable] = None,
+    use_ee: Optional[bool] = None,
+    distill_dhs: Optional[bool] = None,
 ):
-    """One Algorithm-1 epoch. Returns ``(epoch_step, gen_opt, srv_opt)``;
+    """One Algorithm-1 epoch. With ``gen_objective`` set (a
+    ``f(ens, y, x) -> loss``, computed in plain PyTorch) and ``use_ee=False``
+    this is also the DENSE / F-DAFL epoch: the contrast the paper draws is
+    which generator objective runs and whether the ensemble weights move.
+    ``use_ee`` and ``distill_dhs`` default to ``cfg.use_ee`` and
+    ``cfg.use_dhs``. Returns ``(epoch_step, gen_opt, srv_opt)``;
     ``epoch_step`` maps
 
         (server_params, srv_opt_state, gen_params, gen_opt_state, w, buf,
@@ -115,10 +129,14 @@ def make_coboost_epoch(
     scalars."""
     gen_opt = adam(constant_schedule(cfg.gen_lr))
     srv_opt = sgdm(constant_schedule(cfg.server_lr), momentum=0.9)
+    use_ee = cfg.use_ee if use_ee is None else use_ee
+    distill_dhs = cfg.use_dhs if distill_dhs is None else distill_dhs
     mu = cfg.mu / num_clients
 
     def gen_loss(x, y, client_params, w, server_params):
         la = logits_all_fn(client_params, x)
+        if gen_objective is not None:
+            return gen_objective(ensemble_logits(la, w), y, x)
         s_logits = server_apply(server_params, x) if cfg.use_adv else None
         return generator_loss(
             la, w, s_logits, y,
@@ -129,7 +147,7 @@ def make_coboost_epoch(
     def gen_loss_fn(gp, z, y, client_params, w, server_params):
         return gen_loss(gen_apply(gp, z, y), y, client_params, w, server_params)
 
-    sweep = make_distill_sweep(logits_all_fn, server_apply, srv_opt, cfg, num_classes, cfg.use_dhs)
+    sweep = make_distill_sweep(logits_all_fn, server_apply, srv_opt, cfg, num_classes, distill_dhs)
 
     def epoch_step(
         server_params, srv_opt_state, gen_params, gen_opt_state, w, buf,
@@ -148,7 +166,7 @@ def make_coboost_epoch(
         buf = buffer_append(buf, x_new, y)
 
         # 2-3. EE on the (diversified) fresh hard batch (lines 11-14)
-        if cfg.use_ee:
+        if use_ee:
             xe = x_new
             if cfg.use_dhs:
                 u = draws.direction((x_new.shape[0], num_classes))
@@ -167,3 +185,67 @@ def make_coboost_epoch(
         )
 
     return epoch_step, gen_opt, srv_opt
+
+
+def make_adi_epoch(
+    logits_all_fn: Callable,
+    server_apply: Callable,
+    image_shape: Tuple[int, int, int],
+    cfg: OFLConfig,
+    num_classes: int,
+    inv_loss: Callable,
+):
+    """The F-ADI epoch: ``cfg.gen_iters`` Adam steps (rate 0.05, a fresh
+    state every epoch, the step index from 0) on a pixel batch that starts
+    from half the drawn unit noise, a clip to [-1, 1], then the same append
+    and distillation sweep as Co-Boosting, without DHS. ``inv_loss(x, y,
+    client_params)`` is the synthesis objective. Returns ``(epoch_step,
+    srv_opt)``; ``epoch_step`` maps
+
+        (server_params, srv_opt_state, w, buf, draws, srv_step0, slot_order,
+         n_valid, client_params)
+        -> (server_params, srv_opt_state, buf, srv_steps, dmean)"""
+    synth_opt = adam(constant_schedule(0.05))
+    srv_opt = sgdm(constant_schedule(cfg.server_lr), momentum=0.9)
+    sweep = make_distill_sweep(logits_all_fn, server_apply, srv_opt, cfg, num_classes, use_dhs=False)
+
+    def epoch_step(server_params, srv_opt_state, w, buf, draws, srv_step0, slot_order, n_valid, client_params):
+        y, noise = draws.inversion(cfg.batch_size, image_shape, num_classes)
+        x = noise * 0.5
+        st = synth_opt.init(x)
+        for i in range(cfg.gen_iters):
+            _, g = value_and_grad(inv_loss, x, y, client_params)
+            updates, st = synth_opt.update(g, st, x, i)
+            x = apply_updates(x, updates)
+        buf = buffer_append(buf, torch.clamp(x, -1.0, 1.0), y)
+        server_params, srv_opt_state, srv_steps, dmean = sweep(
+            server_params, srv_opt_state, buf, draws, w, client_params, slot_order, n_valid, srv_step0
+        )
+        return server_params, srv_opt_state, buf, srv_steps, dmean
+
+    return epoch_step, srv_opt
+
+
+def make_feddf_epoch(logits_all_fn: Callable, server_apply: Callable, cfg: OFLConfig):
+    """The FedDF epoch: one server step on Eq. 4 per real batch, in the
+    host's ``order``, over ``val_batches`` stacked on the device (no ring,
+    no mask). Returns ``(epoch_step, srv_opt)``; ``epoch_step`` maps
+
+        (server_params, srv_opt_state, srv_step0, order, val_batches, w,
+         client_params)
+        -> (server_params, srv_opt_state, srv_steps, mean loss)"""
+    srv_opt = sgdm(constant_schedule(cfg.server_lr), momentum=0.9)
+    loss_fn = make_kd_loss(logits_all_fn, server_apply, cfg.kd_temperature, cfg.backend)
+
+    def epoch_step(server_params, srv_opt_state, srv_step0, order, val_batches, w, client_params):
+        sp, st, step = server_params, srv_opt_state, int(srv_step0)
+        lsum = torch.zeros((), dtype=torch.float32, device=w.device)
+        for bi in order:
+            loss, grads = value_and_grad(loss_fn, sp, val_batches[int(bi)], client_params, w)
+            updates, st = srv_opt.update(grads, st, sp, step)
+            sp = apply_updates(sp, updates)
+            lsum = lsum + loss
+            step += 1
+        return sp, st, step, lsum / max(len(order), 1)
+
+    return epoch_step, srv_opt

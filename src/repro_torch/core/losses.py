@@ -1,5 +1,6 @@
-"""Cross entropy for client training (Eq. 1) and the temperature KL of
-distillation (Eq. 4), the port of ``repro.core.losses``."""
+"""Cross entropy for client training (Eq. 1), the temperature KL of
+distillation (Eq. 4) and the predictive entropy of the F-DAFL baseline, the
+port of ``repro.core.losses``."""
 from __future__ import annotations
 
 import torch
@@ -27,3 +28,9 @@ def kl_per_sample(teacher_logits: torch.Tensor, student_logits: torch.Tensor, te
 
 def kl_loss(teacher_logits: torch.Tensor, student_logits: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
     return torch.mean(kl_per_sample(teacher_logits, student_logits, temperature))
+
+
+def entropy(logits: torch.Tensor) -> torch.Tensor:
+    """Mean predictive entropy (the F-DAFL baseline's information loss)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.mean(torch.sum(torch.exp(lp) * lp, dim=-1))

@@ -74,7 +74,9 @@ def market_eval_fn(
     test_y: np.ndarray,
     batch_size: int = 512,
 ) -> Callable:
-    """Builds eval_fn(server_params, w) -> {server_acc, ensemble_acc}."""
+    """Builds eval_fn(server_params, w) -> {server_acc, ensemble_acc}.
+    ``server_params=None`` skips the server forward and returns only
+    ``ensemble_acc`` (FedENS trains no server)."""
     logits_all_fn = make_logits_all(list(client_applies))
 
     @torch.no_grad()
@@ -84,9 +86,13 @@ def market_eval_fn(
             xb = torch.as_tensor(test_x[i : i + batch_size], device=w.device)
             yb = test_y[i : i + batch_size]
             ep = torch.argmax(ensemble_logits(logits_all_fn(client_params, xb), w), dim=-1)
-            sp = torch.argmax(server_apply(server_params, xb), dim=-1)
             ens_ok += int((ep.cpu().numpy() == yb).sum())
-            srv_ok += int((sp.cpu().numpy() == yb).sum())
-        return {"ensemble_acc": ens_ok / len(test_x), "server_acc": srv_ok / len(test_x)}
+            if server_params is not None:
+                sp = torch.argmax(server_apply(server_params, xb), dim=-1)
+                srv_ok += int((sp.cpu().numpy() == yb).sum())
+        out = {"ensemble_acc": ens_ok / len(test_x)}
+        if server_params is not None:
+            out["server_acc"] = srv_ok / len(test_x)
+        return out
 
     return eval_fn

@@ -5,21 +5,26 @@ the GPU.
         --clients 5 --alpha 0.1 --epochs 40
 
 Builds the model market (synthetic images, Dirichlet/C_cls/lognormal
-partition, SGD-m local training), then runs Co-Boosting and reports server
+partition, SGD-m local training), then runs the chosen server-side method
+(Co-Boosting or one of the paper's Table 1 baselines) and reports server
 and ensemble test accuracy. Runs on ``cuda`` unless ``--device cpu`` is
 given; TF32 is off, so the card computes in full f32 like the reference.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from functools import partial
-from typing import Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config.train import OFLConfig
+from repro_torch.core.baselines import fedavg, run_adi_baseline, run_feddf, run_generator_baseline
 from repro_torch.core.coboosting import default_image_setup, run_coboosting
+from repro_torch.core.ensemble import uniform_weights
 from repro_torch.data.synthetic import make_synth_images
 from repro_torch.fed.market import build_market, market_eval_fn
 from repro_torch.kernels.dispatch import KERNEL_BACKENDS
@@ -30,7 +35,71 @@ from repro_torch.utils.prng import Draws
 
 log = get_logger("ofl")
 
-METHODS = ("coboosting",)
+METHODS = ("coboosting", "dense", "f_dafl", "f_adi", "feddf", "fedavg", "fedens")
+
+
+def run_method(
+    method: str,
+    cfg: OFLConfig,
+    num_classes: int,
+    image_shape: Tuple[int, int, int],
+    applies: List[Callable],
+    params: List[Any],
+    sizes: Sequence[int],
+    train_x: np.ndarray,
+    test_x: np.ndarray,
+    test_y: np.ndarray,
+    server_arch: str,
+    seed: int,
+    eval_every: int = 50,
+    device="cuda",
+    archs: Optional[Sequence[str]] = None,
+) -> Dict[str, Any]:
+    """Dispatch one OFL method on ``device``; returns {'server_acc':…,
+    'ensemble_acc':…} (and the method's losses and last epoch), except
+    ``fedens``, which trains no server and returns ``ensemble_acc`` only.
+    FedAvg and FedENS evaluate without training; FedDF distills on
+    ``train_x``. ``archs`` (one per client) names the clients in FedAvg's
+    error on a mixed market."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
+    device = torch.device(device)
+    server_apply = partial(cnn_apply, server_arch)
+    init_gen = torch.Generator(device=device)
+    init_gen.manual_seed(seed + 77)
+    server_params = init_cnn(init_gen, server_arch, num_classes, image_shape)
+    eval_fn = market_eval_fn(applies, params, server_apply, test_x, test_y)
+    w = uniform_weights(len(params), device)
+    draws = Draws(seed, device)
+
+    if method == "fedavg":
+        return eval_fn(fedavg(params, sizes, archs), w)
+    if method == "fedens":
+        # no server is trained here: evaluating the fresh random init would
+        # record a meaningless server_acc next to the real ensemble number
+        return eval_fn(None, w)
+    if method == "feddf":
+        st = run_feddf(applies, params, server_apply, server_params, train_x, cfg, draws, eval_fn, eval_every)
+        return st.history[-1]
+    if method == "f_adi":
+        st = run_adi_baseline(
+            applies, params, server_apply, server_params, image_shape, cfg, num_classes, draws, eval_fn, eval_every,
+        )
+        return st.history[-1]
+    init_gen.manual_seed(seed + 5)
+    gen_apply, gen_params = default_image_setup(init_gen, cfg, num_classes, image_shape)
+    if method in ("dense", "f_dafl"):
+        st = run_generator_baseline(
+            method, applies, params, server_apply, server_params, gen_apply, gen_params,
+            cfg, num_classes, draws, eval_fn, eval_every,
+        )
+        return st.history[-1]
+    # coboosting (+ ablations via component flags on cfg)
+    st = run_coboosting(
+        applies, params, server_apply, server_params, gen_apply, gen_params,
+        cfg, num_classes, draws, eval_fn, eval_every,
+    )
+    return st.history[-1]
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -65,11 +134,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    args = parse_args(argv)
-    device = get_device(args.device)
-    disable_tf32()
+@dataclasses.dataclass
+class Run:
+    """A method's inputs: the configuration, the data and the client market."""
 
+    cfg: OFLConfig
+    image_shape: Tuple[int, int, int]
+    train_x: np.ndarray
+    test_x: np.ndarray
+    test_y: np.ndarray
+    applies: List[Callable]
+    params: List[Any]
+    sizes: List[int]
+    archs: Optional[List[str]]
+
+
+def prepare_run(args: argparse.Namespace, device) -> Run:
+    """The configuration (latent 32, 4 ring slots), the synthetic data and
+    the trained client market from the parsed flags."""
     shape = (args.image, args.image, 3)
     cfg = OFLConfig(
         num_clients=args.clients,
@@ -93,20 +175,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     x, y = make_synth_images(args.seed, args.classes, args.per_class, shape)
     test_x, test_y = make_synth_images(args.seed + 1, args.classes, max(40, args.per_class // 4), shape)
     archs = args.client_archs.split(",") if args.client_archs else None
-    applies, params, _, _ = build_market(args.seed, x, y, cfg, args.classes, archs, device=device)
+    applies, params, sizes, _ = build_market(args.seed, x, y, cfg, args.classes, archs, device=device)
+    return Run(cfg, shape, x, test_x, test_y, applies, params, sizes, archs)
 
-    server_apply = partial(cnn_apply, args.server_arch)
-    init_gen = torch.Generator(device=device)
-    init_gen.manual_seed(args.seed + 77)
-    server_params = init_cnn(init_gen, args.server_arch, args.classes, shape)
-    init_gen.manual_seed(args.seed + 5)
-    gen_apply, gen_params = default_image_setup(init_gen, cfg, args.classes, shape)
-    eval_fn = market_eval_fn(applies, params, server_apply, test_x, test_y)
-    st = run_coboosting(
-        applies, params, server_apply, server_params, gen_apply, gen_params,
-        cfg, args.classes, Draws(args.seed, device), eval_fn, eval_every=max(args.epochs // 3, 1),
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = parse_args(argv)
+    device = get_device(args.device)
+    disable_tf32()
+    run = prepare_run(args, device)
+    result = run_method(
+        args.method, run.cfg, args.classes, run.image_shape, run.applies, run.params, run.sizes,
+        run.train_x, run.test_x, run.test_y, args.server_arch, args.seed, eval_every=max(args.epochs // 3, 1),
+        device=device, archs=run.archs,
     )
-    result = {k: v for k, v in st.history[-1].items() if isinstance(v, (int, float))}
+    result = {k: v for k, v in result.items() if isinstance(v, (int, float))}
     log.info("[%s] %s", args.method, result)
     if args.out:
         with open(args.out, "w") as f:

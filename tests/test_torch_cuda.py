@@ -3,7 +3,8 @@ backwards that compute only the wanted cotangents; the CUDA C++
 attention kernels, forward and both backward passes: the tensor-core
 kernels for bf16, the CUDA-core kernels for f32; split-KV paged decode),
 against their plain PyTorch versions on the same inputs, a second call
-bitwise equal, and one full-width training step. These tests need a CUDA device (marker
+bitwise equal, one full-width training step, and one small epoch of each
+distilling Table 1 baseline. These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -543,6 +544,68 @@ def test_full_width_training_step_on_card(device):
     assert math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 1.0
     wq = params["layers"][0]["attn"]["wq"]
     assert torch.isfinite(wq).all() and not torch.equal(wq, before)
+
+
+@pytest.mark.parametrize("method", ["dense", "f_dafl", "f_adi", "feddf"])
+def test_baseline_epoch_kernels_match_plain_and_launch_once_a_step(device, method):
+    """One epoch of a distilling baseline at a small size (3 cnn5 clients,
+    16×16×3, 4 classes, batch 16, 2 ring slots; FedDF on 3 real batches)
+    through the kernels (backend "cuda") stays within 1e-5 of plain
+    autograd (backend "ref") on the server parameters, from the same
+    parameters and draws; ``ensemble_kl`` launches its forward and its
+    backward once per distillation step, ``ghm_ce`` never. cuDNN is held to
+    its deterministic algorithms, so that only the loss kernels differ."""
+    import dataclasses
+    from functools import partial
+
+    from repro_torch.config.train import OFLConfig
+    from repro_torch.core.baselines import run_adi_baseline, run_feddf, run_generator_baseline
+    from repro_torch.models.cnn import cnn_apply, init_cnn
+    from repro_torch.models.generator import image_generator, init_image_generator
+    from repro_torch.utils.prng import Draws
+    from repro_torch.utils.trees import flatten_dict
+
+    classes, shape, k, batch = 4, (16, 16, 3), 3, 16
+    g = torch.Generator(device=device).manual_seed(0)
+    clients = [init_cnn(g, "cnn5", classes, shape) for _ in range(k)]
+    server = init_cnn(g, "cnn5", classes, shape)
+    gen0 = init_image_generator(g, 8, classes, shape)
+    val_x = torch.rand((3 * batch, *shape), generator=g, device=device) * 2 - 1
+    apply = partial(cnn_apply, "cnn5")
+    cfg = OFLConfig(num_clients=k, epochs=1, gen_iters=3, batch_size=batch, latent_dim=8, buffer_batches=2)
+    steps = 3 if method == "feddf" else 1
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        servers = {}
+        for backend in ("cuda", "ref"):
+            c = dataclasses.replace(cfg, backend=backend)
+            draws = Draws(1, device)
+            reset_launch_counts()
+            if method == "f_adi":
+                st = run_adi_baseline([apply] * k, clients, apply, server, shape, c, classes, draws)
+            elif method == "feddf":
+                st = run_feddf([apply] * k, clients, apply, server, val_x, c, draws)
+            else:
+                st = run_generator_baseline(
+                    method, [apply] * k, clients, apply, server, lambda p, z, y: image_generator(p, z, y, shape),
+                    gen0, c, classes, draws,
+                )
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            want = steps if backend == "cuda" else 0
+            assert (counts["ensemble_kl_fwd"], counts["ensemble_kl_bwd"]) == (want, want), counts
+            assert counts["ghm_ce_fwd"] == counts["ghm_ce_bwd"] == 0, counts
+            servers[backend] = flatten_dict(st.server_params)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for p, want in servers["ref"].items():
+        if torch.is_tensor(want):
+            got = servers["cuda"][p]
+            assert torch.isfinite(got).all(), p
+            assert float((got - want).abs().max()) <= 1e-5, (p, float((got - want).abs().max()))
+        else:
+            assert servers["cuda"][p] == want
 
 
 def _decode_inputs(b, h, kh, hd, ps, w, window, dtype, device, seed=0, pos=None, max_pos=None):

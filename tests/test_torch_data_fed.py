@@ -105,6 +105,27 @@ def test_market_eval_matches_jax():
     assert got == want
 
 
+def test_market_eval_without_server_matches_jax_and_skips_it():
+    """``server_params=None`` (FedENS) returns ``ensemble_acc`` only, as
+    the reference does, and never calls the server."""
+    x, y = make_synth_images(3, 4, 12, SHAPE)
+    jp = [jax_init_cnn(jax.random.key(k), "cnn5", 4, SHAPE) for k in range(2)]
+    w = np.asarray([0.4, 0.6], np.float32)
+    want = jax_market_eval_fn(
+        [partial(jax_cnn_apply, "cnn5")] * 2, jp, partial(jax_cnn_apply, "cnn5"), x, y,
+        batch_size=20, impl="looped",
+    )(None, jnp.asarray(w))
+
+    def server_apply(params, xb):
+        raise AssertionError("the server was called")
+
+    conv = lambda p: params_from_jax("cnn5", jax.tree_util.tree_map(np.asarray, p))
+    got = market_eval_fn(
+        [partial(cnn_apply, "cnn5")] * 2, [conv(p) for p in jp], server_apply, x, y, batch_size=20
+    )(None, torch.from_numpy(w))
+    assert got == want and set(got) == {"ensemble_acc"}
+
+
 def test_build_market_on_cpu():
     x, y = make_synth_images(0, 4, 20, SHAPE)
     cfg = OFLConfig(num_clients=2, local_epochs=1, local_batch_size=16)

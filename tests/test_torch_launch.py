@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import json
+import math
 import os
 import pkgutil
 import subprocess
@@ -15,6 +16,7 @@ import torch
 
 import repro_torch
 from repro_torch.config.train import OFLConfig
+from repro_torch.launch.ofl import METHODS
 from repro_torch.utils.device import get_device
 
 pytestmark = pytest.mark.tier1
@@ -28,11 +30,12 @@ def _env():
     return env
 
 
-def test_cli_tiny_cpu_run(tmp_path):
+@pytest.mark.parametrize("method", METHODS)
+def test_cli_tiny_cpu_run(tmp_path, method):
     out = tmp_path / "ofl.json"
     proc = subprocess.run(
         [
-            sys.executable, "-m", "repro_torch.launch.ofl", "--method", "coboosting", "--device", "cpu",
+            sys.executable, "-m", "repro_torch.launch.ofl", "--method", method, "--device", "cpu",
             "--clients", "2", "--classes", "3", "--image", "8", "--per-class", "12", "--epochs", "2",
             "--gen-iters", "2", "--batch", "8", "--local-epochs", "1", "--out", str(out),
         ],
@@ -40,10 +43,22 @@ def test_cli_tiny_cpu_run(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     last = [l for l in proc.stderr.splitlines() if l.strip()][-1]
-    assert "[coboosting]" in last and "server_acc" in last and "ensemble_acc" in last
+    assert f"[{method}]" in last and "ensemble_acc" in last
     result = json.loads(out.read_text())
-    assert result["method"] == "coboosting"
-    assert 0.0 <= result["server_acc"] <= 1.0 and 0.0 <= result["ensemble_acc"] <= 1.0
+    assert result["method"] == method
+    assert 0.0 <= result["ensemble_acc"] <= 1.0
+    if method == "fedens":  # no server is trained: the ensemble alone is reported
+        assert "server_acc" not in result and "server_acc" not in last
+    else:
+        assert 0.0 <= result["server_acc"] <= 1.0 and "server_acc" in last
+    if method in ("coboosting", "dense", "f_dafl"):
+        assert all(math.isfinite(result[k]) for k in ("gen_loss", "distill_loss"))
+
+
+def test_cli_offers_the_reference_methods():
+    from repro.launch.ofl import METHODS as REFERENCE_METHODS
+
+    assert METHODS == REFERENCE_METHODS
 
 
 def test_package_imports_neither_jax_nor_repro():

@@ -3,7 +3,8 @@ qualitative targets as the JAX package's ``tests/test_ofl_integration.py``
 (the port's client inits come from ``torch.Generator``, so the numbers
 differ, not the claims): Co-Boosting lifts the server above its random init
 and above chance, and EE moves the ensembling weights off the uniform point
-while keeping them on the simplex."""
+while keeping them on the simplex; FedAvg on non-IID shards falls below the
+logit ensemble (Table 1's ordering)."""
 from __future__ import annotations
 
 from functools import partial
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.config.train import OFLConfig
+from repro_torch.core.baselines import fedavg
 from repro_torch.core.coboosting import default_image_setup, run_coboosting
 from repro_torch.core.ensemble import uniform_weights
 from repro_torch.data.synthetic import make_synth_images
@@ -26,7 +28,8 @@ CLASSES = 5
 SHAPE = (16, 16, 3)
 
 
-def test_coboosting_end_to_end_on_cpu():
+@pytest.fixture(scope="module")
+def market():
     x, y = make_synth_images(0, CLASSES, 100, SHAPE)
     tx, ty = make_synth_images(1, CLASSES, 30, SHAPE)
     cfg = OFLConfig(
@@ -34,7 +37,12 @@ def test_coboosting_end_to_end_on_cpu():
         epochs=14, gen_iters=5, batch_size=32, latent_dim=16, buffer_batches=2,
         server_lr=0.05,
     )
-    applies, params, _, _ = build_market(0, x, y, cfg, CLASSES, archs=["mlp"] * 3, device="cpu")
+    applies, params, sizes, _ = build_market(0, x, y, cfg, CLASSES, archs=["mlp"] * 3, device="cpu")
+    return cfg, applies, params, sizes, (tx, ty)
+
+
+def test_coboosting_end_to_end_on_cpu(market):
+    cfg, applies, params, _, (tx, ty) = market
     for ap, p in zip(applies, params):
         assert evaluate_cnn(ap, p, tx, ty) > 1.5 / CLASSES  # each client learned its shard
 
@@ -54,3 +62,12 @@ def test_coboosting_end_to_end_on_cpu():
     w = st.weights
     assert abs(float(w.sum()) - 1) < 1e-4
     assert not torch.allclose(w, torch.full_like(w, 1 / 3), atol=1e-3)
+
+
+def test_fedavg_below_ensemble_on_noniid(market):
+    cfg, applies, params, sizes, (tx, ty) = market
+    avg = fedavg(params, sizes)
+    acc_avg = evaluate_cnn(partial(cnn_apply, "mlp"), avg, tx, ty)
+    ens = market_eval_fn(applies, params, partial(cnn_apply, "mlp"), tx, ty)(avg, uniform_weights(3))["ensemble_acc"]
+    # the logit ensemble beats naive parameter averaging under non-IID
+    assert ens > acc_avg, (ens, acc_avg)
