@@ -101,6 +101,25 @@ result line):
    come back with its 64 tokens, and tok/s and p50/p95 latency are printed.
    The run is then repeated under ``torch.profiler`` (device activity
    only) for the device's busy and idle share.
+5b. Telemetry (``repro_torch.obs``): phase 4's Co-Boosting run, then
+   phase 5's serving run, each through its launcher with
+   ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
+   temporary directory, the launch counters reset just before each and
+   read just after. Fatal: the artifacts must pass
+   ``repro_torch.obs.validate`` (``--train`` for Co-Boosting); the
+   ``ofl.*`` counters must match the settings (3 epochs, 90 generator
+   steps, 3 EE steps, 1+2+3 distillation steps on the 4-slot ring); the
+   launch counts must equal phase 4's and phase 5's; ``host_syncs`` must
+   equal ``decode_chunks`` and phase 5's counts, with 16 observations in
+   each request histogram; and the three Algorithm 1 phases
+   (``ofl.gen.boost``, ``ofl.ee.weight_search``, ``ofl.kd``) must cover at
+   least 90 % of the device time launched inside the ``ofl.epoch`` spans,
+   each kernel attributed by launch correlation
+   (``repro_torch.obs.phases``); their device ms an epoch are printed.
+   Printed, not fatal: s/epoch (the ``ofl.epoch`` spans after the first)
+   with telemetry on, unprofiled against profiled (the profiler's cost),
+   and serving tok/s with telemetry off and on (metrics and spans, no
+   profiler) in turns off, on, on, off, twice, with each side's median.
 6. LM training path: one step of smollm-135m at full width, whose
    gradients through the kernels are held against plain autograd: in f32
    through the CUDA-core kernels (the largest gap relative to each leaf's
@@ -129,6 +148,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -196,6 +216,17 @@ DISTILLING = ("dense", "f_dafl", "f_adi", "feddf")
 
 # serving: smollm-135m at full width
 SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
+SERVE_ARGV = [
+    "--arch", "smollm-135m", "--engine", "continuous", "--kv-layout", "paged",
+    "--requests", str(SERVE["requests"]), "--prompt-len", str(SERVE["prompt"]), "--gen", str(SERVE["gen"]),
+    "--max-slots", str(SERVE["slots"]), "--page-size", str(SERVE["page"]), "--device", "cuda",
+]
+# the smallest share of the device time launched inside the ofl.epoch spans
+# that the three Algorithm 1 phase ranges must cover (phase 5b)
+PHASE_COVERAGE = 0.9
+# phase 5b's serving runs with telemetry off and on (metrics and spans), in
+# turns: host-bound tok/s spreads between runs, so each side runs four times
+SERVE_TURNS = ("off", "on", "on", "off", "off", "on", "on", "off")
 # LM training: smollm-135m at full width
 TRAIN = dict(batch=8, seq=256, steps=30, layers=30)
 
@@ -1270,14 +1301,9 @@ def serving_path():
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
 
-    argv = [
-        "--arch", "smollm-135m", "--engine", "continuous", "--kv-layout", "paged",
-        "--requests", str(SERVE["requests"]), "--prompt-len", str(SERVE["prompt"]), "--gen", str(SERVE["gen"]),
-        "--max-slots", str(SERVE["slots"]), "--page-size", str(SERVE["page"]), "--device", "cuda",
-    ]
     reset_launch_counts()
     t0 = time.perf_counter()
-    result = serve.main(argv)
+    result = serve.main(SERVE_ARGV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: launch_counts()[n] for n in ATTN_KERNELS}
@@ -1294,10 +1320,134 @@ def serving_path():
         fail("serving path: token id out of the vocabulary")
     # the same run again under torch.profiler (device activity only): the
     # device's busy and idle share; its times are not the ones above
-    prof = serve.main(argv + ["--profile"])
+    prof = serve.main(SERVE_ARGV + ["--profile"])
     busy, pwall = prof["device_busy_s"], prof["wall_s"]
     print(f"serving path profiled: device busy {busy:.3f} s of {pwall:.3f} s wall, idle share {1 - busy / pwall:.3f}", flush=True)
-    return counts
+    return counts, result["stats"]
+
+
+# ---------------------------------------------------------------------------
+# phase 5b
+
+
+def _telemetry_flags(tmp, stem, profile=True):
+    flags = ["--metrics-out", f"{tmp}/{stem}.jsonl", "--trace-out", f"{tmp}/{stem}.json"]
+    return flags + (["--profile-dir", f"{tmp}/{stem}_prof"] if profile else [])
+
+
+def _epoch_seconds(trace_path):
+    """The ``ofl.epoch`` spans' host seconds, in epoch order."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["args"]["epoch"], e["dur"]) for e in events if e["name"] == "ofl.epoch")
+    return [dur / 1e6 for _, dur in spans]
+
+
+def _ofl_telemetry(tmp, coboost_counts):
+    """Co-Boosting through ``launch.ofl`` with the telemetry flags: first
+    metrics and spans alone (for the unprofiled s/epoch), then with the
+    profiler too, each run's launches counted from 0."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import ofl
+    from repro_torch.obs.phases import OFL_OUTER, OFL_PHASES, device_split
+    from repro_torch.obs.tracer import PROFILE_TRACE
+    from repro_torch.obs.validate import REQUIRED_OFL_KEYS, validate_metrics, validate_trace
+
+    seconds = {}
+    for stem, profile in (("ofl_unprofiled", False), ("ofl", True)):
+        reset_launch_counts()
+        ofl.main(["--method", "coboosting", *OFL_ARGV, *_telemetry_flags(tmp, stem, profile)])
+        counts = {n: launch_counts()[n] for n in LOSS_KERNELS}
+        if counts != coboost_counts:
+            fail(f"telemetry ({stem}): loss kernel launches {counts} != phase 4's {coboost_counts}")
+        records = validate_metrics(f"{tmp}/{stem}.jsonl", REQUIRED_OFL_KEYS)
+        validate_trace(f"{tmp}/{stem}.json")
+        seconds[stem] = _epoch_seconds(f"{tmp}/{stem}.json")
+    epochs = int(OFL_ARGV[OFL_ARGV.index("--epochs") + 1])
+    gen_iters = int(OFL_ARGV[OFL_ARGV.index("--gen-iters") + 1])
+    ring = 4  # launch.ofl's buffer_batches
+    want = {
+        "ofl.epoch.count": epochs, "ofl.epoch.dispatches": epochs, "ofl.gen.steps": epochs * gen_iters,
+        "ofl.ee.steps": epochs, "ofl.kd.steps": sum(min(e + 1, ring) for e in range(epochs)),
+    }
+    got = {r["name"]: r["value"] for r in records if r["type"] == "counter"}
+    hist = {r["name"]: r["count"] for r in records if r["type"] == "histogram"}
+    if got != want or hist != {"ofl.epoch.step_s": epochs}:
+        fail(f"telemetry: ofl counters {got} and histograms {hist}, expected {want} and {epochs} epoch times")
+    print(f"telemetry, Co-Boosting: counters {json.dumps(got)}; launches as phase 4 {json.dumps(coboost_counts)}",
+          flush=True)
+    unprof, prof = seconds["ofl_unprofiled"][1:], seconds["ofl"][1:]
+    print(f"telemetry, Co-Boosting s/epoch after the first (ofl.epoch spans): unprofiled "
+          f"{json.dumps(seconds['ofl_unprofiled'])} mean {sum(unprof) / len(unprof):.4f}, profiled "
+          f"{json.dumps(seconds['ofl'])} mean {sum(prof) / len(prof):.4f}, ratio "
+          f"{sum(prof) / sum(unprof):.3f}", flush=True)
+
+    t0 = time.perf_counter()
+    split = device_split(f"{tmp}/ofl_prof/{PROFILE_TRACE}")
+    outer = split["outer"]
+    if outer["count"] != epochs or outer["device_ms"] <= 0:
+        fail(f"telemetry: the profile holds {outer['count']} {OFL_OUTER} ranges with {outer['device_ms']} device ms")
+    per_epoch = {n: r["device_ms"] / epochs for n, r in split["ranges"].items()}
+    covered = sum(r["device_ms"] for r in split["ranges"].values()) / outer["device_ms"]
+    print(f"per-phase device ms an epoch (launches attributed by correlation; {split['device_ms']:.3f} device ms in "
+          f"the whole profile, {outer['device_ms'] / epochs:.3f} an epoch inside {OFL_OUTER}): "
+          + json.dumps({n: {"device_ms": per_epoch[n], "share": split["ranges"][n]["device_ms"] / outer["device_ms"],
+                            "launches": split["ranges"][n]["launches"]} for n in OFL_PHASES})
+          + f"; phases cover {covered:.4f}; unattributed {json.dumps(split['unattributed'])} "
+          f"(read in {time.perf_counter() - t0:.1f} s)", flush=True)
+    for name in OFL_PHASES:
+        top = [[k[:70], round(ms / epochs, 3), n] for k, ms, n in split["ranges"][name]["top"]]
+        print(f"  {name}, largest kernels, device ms an epoch: {json.dumps(top)}", flush=True)
+    if covered < PHASE_COVERAGE:
+        fail(f"telemetry: the three phases cover {covered:.4f} of the epoch's device time, below {PHASE_COVERAGE}")
+
+
+def _serving_telemetry(tmp, serve_counts, serve_stats):
+    """Serving through ``launch.serve``: tok/s with telemetry off and on (no
+    profiler) in turns, then the run with all three flags, its launches
+    counted from 0."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.obs.names import REQUEST_HISTOGRAMS
+    from repro_torch.obs.validate import validate_metrics, validate_trace
+
+    tok_s = {"off": [], "on": []}
+    for turn, side in enumerate(SERVE_TURNS):
+        flags = _telemetry_flags(tmp, f"serve_turn{turn}", profile=False) if side == "on" else []
+        tok_s[side].append(serve.main(SERVE_ARGV + flags)["tok_per_s"])
+    med = {side: sorted(v)[len(v) // 2 - 1: len(v) // 2 + 1] for side, v in tok_s.items()}
+    print(f"telemetry, serving tok/s in turns {','.join(SERVE_TURNS)}: off {json.dumps(tok_s['off'])}, "
+          f"on {json.dumps(tok_s['on'])}; medians off {sum(med['off']) / 2:.1f}, on {sum(med['on']) / 2:.1f}",
+          flush=True)
+
+    reset_launch_counts()
+    result = serve.main(SERVE_ARGV + _telemetry_flags(tmp, "serve"))
+    counts = {n: launch_counts()[n] for n in ATTN_KERNELS}
+    if counts != serve_counts:
+        fail(f"telemetry, serving: attention launches {counts} != phase 5's {serve_counts}")
+    records = validate_metrics(f"{tmp}/serve.jsonl")
+    validate_trace(f"{tmp}/serve.json")
+    st = result["stats"]
+    if st["host_syncs"] != st["decode_chunks"] or (st["host_syncs"], st["decode_chunks"]) != (
+        serve_stats["host_syncs"], serve_stats["decode_chunks"]
+    ):
+        fail(f"telemetry, serving: host_syncs {st['host_syncs']}, decode_chunks {st['decode_chunks']}; "
+             f"phase 5: {serve_stats['host_syncs']}, {serve_stats['decode_chunks']}")
+    value = {r["name"]: r.get("value", r.get("count")) for r in records}
+    if (value["serve.decode.host_syncs"], value["serve.decode.chunks"]) != (st["host_syncs"], st["decode_chunks"]):
+        fail(f"telemetry, serving: the metrics file disagrees with the engine's stats {dict(st)}")
+    for name in REQUEST_HISTOGRAMS:
+        if value.get(name) != SERVE["requests"]:
+            fail(f"telemetry, serving: {name} has {value.get(name)} observations, expected {SERVE['requests']}")
+    print(f"telemetry, serving: host_syncs {st['host_syncs']} == decode_chunks {st['decode_chunks']} (phase 5 "
+          f"the same); {SERVE['requests']} observations in each request histogram; launches as phase 5 "
+          f"{json.dumps(counts)}; profiled run {result['tok_per_s']:.1f} tok/s", flush=True)
+
+
+def telemetry_path(coboost_counts, serve_counts, serve_stats):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        _ofl_telemetry(tmp, coboost_counts)
+        _serving_telemetry(tmp, serve_counts, serve_stats)
 
 
 # ---------------------------------------------------------------------------
@@ -1422,7 +1572,8 @@ def main() -> None:
     counts, coboost = main_path()
     baselines_path(coboost)
     serving_parity_f32()
-    serving = serving_path()
+    serving, serve_stats = serving_path()
+    telemetry_path({n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
     counts.update(lm_training_path())
     print(f"flash_attention_fwd launches: serving path {serving['flash_attention_fwd']} (tensor cores "

@@ -13,7 +13,9 @@ Each global epoch:
 
 Component toggles (``use_ghs`` / ``use_dhs`` / ``use_ee`` / ``use_adv``)
 reproduce the Table 7 ablation. The epoch is :mod:`repro_torch.core.epoch`'s
-``make_coboost_epoch`` (the reference's fused epoch).
+``make_coboost_epoch`` (the reference's fused epoch). Each epoch records
+what the reference's fused driver records (:mod:`repro_torch.obs`): the
+``ofl.epoch`` span, ``ofl.epoch.step_s`` and the ``ofl.*`` step counters.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.config.train import OFLConfig
 from repro_torch.core.buffer import ReplayBuffer, buffer_init
 from repro_torch.core.ensemble import make_logits_all, uniform_weights
@@ -87,13 +90,28 @@ def run_coboosting(
     t0, t_eval = time.perf_counter(), 0.0
     for epoch in range(cfg.epochs):
         slot_order, n_valid = distill_schedule(epoch, cfg.buffer_batches)
-        (
-            state.server_params, srv_opt_state, state.gen_params, gen_opt_state,
-            state.weights, buf, srv_steps, gloss, dmean,
-        ) = epoch_step(
-            state.server_params, srv_opt_state, state.gen_params, gen_opt_state,
-            state.weights, buf, draws, srv_steps, slot_order, n_valid, client_params,
-        )
+        # the span and the timer bracket the host's enqueueing of the eager epoch
+        # and add no device sync (the span's args are host values): step_s
+        # is the device's epoch time only where the host waits on the device
+        t_step = time.perf_counter()
+        with obs.span("ofl.epoch", epoch=epoch, driver="fused"):
+            (
+                state.server_params, srv_opt_state, state.gen_params, gen_opt_state,
+                state.weights, buf, srv_steps, gloss, dmean,
+            ) = epoch_step(
+                state.server_params, srv_opt_state, state.gen_params, gen_opt_state,
+                state.weights, buf, draws, srv_steps, slot_order, n_valid, client_params,
+            )
+        obs.observe("ofl.epoch.step_s", time.perf_counter() - t_step, driver="fused")
+        obs.inc("ofl.epoch.count")
+        # one a call of the epoch function, as the reference's fused driver
+        # counts its one dispatch an epoch (the port's epoch launches its
+        # kernels eagerly, so this is not a count of launches)
+        obs.inc("ofl.epoch.dispatches")
+        obs.inc("ofl.gen.steps", cfg.gen_iters)
+        if cfg.use_ee:
+            obs.inc("ofl.ee.steps")
+        obs.inc("ofl.kd.steps", n_valid)
         if eval_fn is not None and ((epoch + 1) % eval_every == 0 or epoch == cfg.epochs - 1):
             # reading the losses waits for the device, so ``elapsed`` is the
             # wall time of the epochs run so far, evaluation excluded

@@ -34,6 +34,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.config.train import OFLConfig
 from repro_torch.core.buffer import ReplayBuffer, buffer_append, buffer_get
@@ -153,32 +154,39 @@ def make_coboost_epoch(
         server_params, srv_opt_state, gen_params, gen_opt_state, w, buf,
         draws, srv_step0, slot_order, n_valid, client_params,
     ):
+        # record_function names each Algorithm-1 phase (the reference's
+        # jax.named_scope): a --profile-dir trace attributes the kernels
+        # launched inside to the phase (repro_torch.obs.phases); without a
+        # profiler a range costs a few microseconds.
         # 1. generator phase (Algorithm 1 lines 5-9): T_G Adam steps on Eq. 8,
         # the step index restarting at 0 every epoch as in the reference
-        z, y = draws.zy(cfg.batch_size, cfg.latent_dim, num_classes)
-        for i in range(cfg.gen_iters):
-            _, grads = value_and_grad(gen_loss_fn, gen_params, z, y, client_params, w, server_params)
-            updates, gen_opt_state = gen_opt.update(grads, gen_opt_state, gen_params, i)
-            gen_params = apply_updates(gen_params, updates)
-        with torch.no_grad():
-            x_new = gen_apply(gen_params, z, y)
-            gloss = gen_loss(x_new, y, client_params, w, server_params)
-        buf = buffer_append(buf, x_new, y)
+        with record_function("ofl.gen.boost"):
+            z, y = draws.zy(cfg.batch_size, cfg.latent_dim, num_classes)
+            for i in range(cfg.gen_iters):
+                _, grads = value_and_grad(gen_loss_fn, gen_params, z, y, client_params, w, server_params)
+                updates, gen_opt_state = gen_opt.update(grads, gen_opt_state, gen_params, i)
+                gen_params = apply_updates(gen_params, updates)
+            with torch.no_grad():
+                x_new = gen_apply(gen_params, z, y)
+                gloss = gen_loss(x_new, y, client_params, w, server_params)
+            buf = buffer_append(buf, x_new, y)
 
         # 2-3. EE on the (diversified) fresh hard batch (lines 11-14)
         if use_ee:
-            xe = x_new
-            if cfg.use_dhs:
-                u = draws.direction((x_new.shape[0], num_classes))
-                xe = diversify(logits_all_fn, client_params, w, x_new, u, cfg.epsilon)
-            with torch.no_grad():
-                la = logits_all_fn(client_params, xe)
-            w = update_weights(w, la, y, mu, backend=cfg.backend)
+            with record_function("ofl.ee.weight_search"):
+                xe = x_new
+                if cfg.use_dhs:
+                    u = draws.direction((x_new.shape[0], num_classes))
+                    xe = diversify(logits_all_fn, client_params, w, x_new, u, cfg.epsilon)
+                with torch.no_grad():
+                    la = logits_all_fn(client_params, xe)
+                w = update_weights(w, la, y, mu, backend=cfg.backend)
 
         # 4. server distillation over the replay ring (lines 16-18)
-        server_params, srv_opt_state, srv_steps, dmean = sweep(
-            server_params, srv_opt_state, buf, draws, w, client_params, slot_order, n_valid, srv_step0
-        )
+        with record_function("ofl.kd"):
+            server_params, srv_opt_state, srv_steps, dmean = sweep(
+                server_params, srv_opt_state, buf, draws, w, client_params, slot_order, n_valid, srv_step0
+            )
         return (
             server_params, srv_opt_state, gen_params, gen_opt_state, w, buf,
             srv_steps, gloss, dmean,

@@ -9,6 +9,8 @@ partition, SGD-m local training), then runs the chosen server-side method
 (Co-Boosting or one of the paper's Table 1 baselines) and reports server
 and ensemble test accuracy. Runs on ``cuda`` unless ``--device cpu`` is
 given; TF32 is off, so the card computes in full f32 like the reference.
+``--metrics-out``, ``--trace-out`` and ``--profile-dir`` export the run's
+telemetry (:mod:`repro_torch.obs`), as the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.config.train import OFLConfig
 from repro_torch.core.baselines import fedavg, run_adi_baseline, run_feddf, run_generator_baseline
 from repro_torch.core.coboosting import default_image_setup, run_coboosting
@@ -131,6 +134,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None)
+    # telemetry (repro_torch.obs) — off by default, zero-cost when off
+    p.add_argument("--metrics-out", default=None, metavar="PATH.jsonl",
+                   help="dump the ofl.* metrics registry (epoch/phase "
+                        "counters + step-time histograms) as JSONL plus a "
+                        ".prom Prometheus-text sibling at exit")
+    p.add_argument("--trace-out", default=None, metavar="PATH.json",
+                   help="record host-side phase spans and dump Chrome "
+                        "trace-event JSON (Perfetto-loadable) at exit")
+    p.add_argument("--profile-dir", default=None,
+                   help="also run a torch.profiler trace into this directory "
+                        "(the epoch's record_function phases show up in the "
+                        "device timeline; python -m repro_torch.obs.phases "
+                        "splits its device time by phase)")
     return p.parse_args(argv)
 
 
@@ -183,6 +199,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     device = get_device(args.device)
     disable_tf32()
+    obs.configure(
+        metrics=bool(args.metrics_out),
+        trace=bool(args.trace_out),
+        profile_dir=args.profile_dir,
+        device=device,
+    )
     run = prepare_run(args, device)
     result = run_method(
         args.method, run.cfg, args.classes, run.image_shape, run.applies, run.params, run.sizes,
@@ -194,6 +216,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"method": args.method, **result}, f, indent=1)
+    if args.profile_dir:
+        log.info("profile -> %s", obs.stop_torch_profile(obs.tracer()))
+    if args.metrics_out:
+        obs.registry().dump(args.metrics_out)
+        log.info("metrics snapshot -> %s (+ .prom)", args.metrics_out)
+    if args.trace_out:
+        obs.tracer().dump(args.trace_out)
+        log.info("trace -> %s (%d events)", args.trace_out, len(obs.tracer()))
     return result
 
 

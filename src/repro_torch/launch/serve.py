@@ -19,6 +19,13 @@ config's bf16 activations with f32 params; ``--reduced`` runs the reduced
 variant in f32, as the JAX launcher does. Runs on ``cuda`` unless
 ``--device cpu`` is given. Arguments are checked, and the engine and KV
 pool configuration built on the host, before anything touches the device.
+
+Telemetry (:mod:`repro_torch.obs`), off by default: ``--metrics-out``
+routes the engine's and the router's stats into the shared registry and
+dumps it at exit (JSONL plus a ``.prom`` sibling), ``--trace-out`` dumps the
+host spans as Chrome trace-event JSON, ``--profile-dir`` writes a
+``torch.profiler`` trace with every span as a ``record_function`` range.
+``python -m repro_torch.obs.validate`` checks the first two.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.config.model import reduced_variant
 from repro_torch.config.registry import get_arch
 from repro_torch.data.synthetic import make_token_stream
@@ -76,7 +84,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="trace the timed run with torch.profiler and log the device's busy share and the "
                         "kernels by device time (the tracing slows the run down)")
+    # telemetry (repro_torch.obs) — off by default, zero-cost when off
+    p.add_argument("--metrics-out", default=None, metavar="PATH.jsonl",
+                   help="dump the metrics registry as JSONL (plus a .prom "
+                        "Prometheus-text sibling) at exit; also routes every "
+                        "replica's stats into one shared registry with "
+                        "replica labels")
+    p.add_argument("--trace-out", default=None, metavar="PATH.json",
+                   help="record host-side spans (route/admit/prefill/handoff/"
+                        "decode-chunk/...) and dump Chrome trace-event JSON "
+                        "(Perfetto-loadable) at exit")
+    p.add_argument("--profile-dir", default=None,
+                   help="also run a torch.profiler trace into this directory, "
+                        "bridging every span to a record_function range so host "
+                        "and device timelines line up")
     return p
+
+
+def _finalize_telemetry(args, engines=()) -> None:
+    """Publish end-of-run KV pool gauges and dump the artifacts the flags
+    asked for (:mod:`repro_torch.obs.validate` checks them)."""
+    for eng in engines:
+        eng.publish_gauges()
+    if args.profile_dir:
+        log.info("profile -> %s", obs.stop_torch_profile(obs.tracer()))
+    if args.metrics_out:
+        obs.registry().dump(args.metrics_out)
+        log.info("metrics snapshot -> %s (+ .prom)", args.metrics_out)
+    if args.trace_out:
+        obs.tracer().dump(args.trace_out)
+        log.info("trace -> %s (%d events)", args.trace_out, len(obs.tracer()))
 
 
 def continuous_engine_config(args) -> EngineConfig:
@@ -101,6 +138,8 @@ def validate_args(args, cfg) -> None:
     """Fail fast, with a clear message, before any device allocation."""
     if args.prompt_len < 1 or args.gen < 1:
         raise SystemExit(f"--prompt-len ({args.prompt_len}) and --gen ({args.gen}) must be >= 1")
+    if args.profile and args.profile_dir:
+        raise SystemExit("--profile and --profile-dir each run torch.profiler, and one process runs one: pick one")
     if args.engine == "static":
         if args.batch < 1:
             raise SystemExit(f"--batch must be >= 1, got {args.batch}")
@@ -133,6 +172,7 @@ def run_static(args, cfg, params, device) -> dict:
     toks = args.batch * args.gen
     log.info("static: %d tokens in %.3fs (%.1f tok/s)", toks, dt, toks / max(dt, 1e-9))
     log.info("sample continuation (seq 0): %s", out[0, :16].tolist())
+    _finalize_telemetry(args)
     return {"tokens": float(toks), "wall_s": dt, "tok_per_s": toks / max(dt, 1e-9), "sample": out[0].tolist()}
 
 
@@ -143,7 +183,11 @@ def run_continuous(args, cfg, params) -> dict:
         Request(rid=i, tokens=data["tokens"][i, : args.prompt_len].astype(np.int32), max_new_tokens=args.gen, arrival=i * dt)
         for i in range(args.requests)
     ]
-    engine = ServeEngine(cfg, params, continuous_engine_config(args))
+    # with --metrics-out the engine's stats land in the process-global
+    # registry under its replica label; without it the engine keeps its
+    # private always-on registry
+    registry = obs.registry() if args.metrics_out else None
+    engine = ServeEngine(cfg, params, continuous_engine_config(args), registry=registry)
     sched = ContinuousScheduler(engine)
     # every admission size and the decode chunk run once before timing
     engine.warmup(requests[0].tokens, min(2, args.gen))
@@ -173,6 +217,7 @@ def run_continuous(args, cfg, params) -> dict:
             engine.pool.n_pages, engine.pool.page_size, engine.layout, engine.stats["page_appends"],
         )
     log.info("sample continuation (rid 0): %s", completions[0].tokens[:16].tolist())
+    _finalize_telemetry(args, [engine])
     return {**s, "wall_s": wall, "device_busy_s": busy, "stats": dict(engine.stats), "completions": completions}
 
 
@@ -185,6 +230,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     validate_args(args, cfg)  # before any device work
     device = get_device(args.device)
     disable_tf32()
+    obs.configure(
+        metrics=bool(args.metrics_out),
+        trace=bool(args.trace_out),
+        profile_dir=args.profile_dir,
+        device=device,
+    )
     # weights in the activation dtype once, not at every step
     params = cast_weights(init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed)), cfg)
     if args.engine == "static":

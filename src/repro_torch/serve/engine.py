@@ -40,9 +40,16 @@ idle or evicted slot's page-table row at the pool's never-allocated scratch
 page before the next chunk, because its old pages may already belong to
 another slot.
 
-``stats`` is a plain dict under the reference's keys; it counts dispatches
-and host syncs (one per decode chunk). Disaggregated fleets, the prefix
-cache and speculative decoding are not ported yet and raise.
+Telemetry (:mod:`repro_torch.obs`): ``stats`` is a
+:class:`~repro_torch.obs.StatsView` over a metrics registry (the
+``serve.*`` names of :data:`repro_torch.obs.SERVE_ENGINE_METRICS`,
+labelled with the replica id); it counts dispatches and host syncs (one per
+decode chunk). A bare engine gets a private registry; a launcher passes the
+shared one. Host-side spans (``serve.prefill``, ``serve.handoff``,
+``serve.adopt``, ``serve.decode_chunk``, ``serve.sync``) bracket the hot
+path's actions and never force a device sync. Disaggregated fleets, the
+prefix cache and speculative decoding are not ported yet and raise; their
+counters stay 0.
 """
 from __future__ import annotations
 
@@ -52,17 +59,12 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.models.transformer import init_lm_state, lm_decode, lm_prefill
+from repro_torch.obs import KV_GAUGES, SERVE_ENGINE_METRICS, MetricsRegistry, StatsView
 from repro_torch.serve.kv_pool import KVPool
 
 KV_LAYOUTS = ("paged", "dense")
-
-#: The engine's counters (the reference's ``SERVE_ENGINE_METRICS`` keys).
-STAT_KEYS = (
-    "admitted", "prefill_dispatches", "prefill_tokens", "handoffs", "decode_chunks", "host_syncs",
-    "evicted", "page_appends", "pages_allocated", "table_resets", "prefix_hits", "spliced_admissions",
-    "spliced_pages", "cow_copies", "spec_steps", "draft_proposed", "draft_accepted",
-)
 
 
 def sample_tokens(logits: torch.Tensor, gen: Optional[torch.Generator], temperature: float) -> torch.Tensor:
@@ -172,8 +174,14 @@ def bucket_len(cfg, ecfg: EngineConfig, prompt_len: int) -> int:
     return lb
 
 
-def _fresh_stats() -> Dict[str, int]:
-    return {k: 0 for k in STAT_KEYS}
+def _fresh_stats(registry: Optional[MetricsRegistry] = None, replica: int = 0) -> StatsView:
+    """One engine's stats: a dict-shaped view over the ``serve.*`` names of
+    :data:`SERVE_ENGINE_METRICS`, labelled with the replica id. Without a
+    registry the engine gets a private, always-on one: its stats must count
+    whether or not the run exports telemetry."""
+    if registry is None:
+        registry = MetricsRegistry()
+    return registry.view(SERVE_ENGINE_METRICS, replica=replica)
 
 
 def _device_of(params) -> torch.device:
@@ -185,14 +193,16 @@ class PrefillWorker:
     :class:`KVHandoff`s, with its own sampling generator and (paged layout)
     a staging pool bounding in-flight handoff pages."""
 
-    def __init__(self, cfg, params, ecfg: EngineConfig, *, stats: Optional[Dict[str, int]] = None):
+    def __init__(self, cfg, params, ecfg: EngineConfig, *, stats: Optional[StatsView] = None,
+                 registry: Optional[MetricsRegistry] = None, replica: int = 0):
         self.cfg = cfg
         self.ecfg = ecfg
         self.params = params
         self.device = _device_of(params)
         self.layout = ecfg.kv_layout
+        self.replica = replica
         self.staging: Optional[KVPool] = KVPool(cfg, ecfg) if self.layout == "paged" else None
-        self.stats = stats if stats is not None else _fresh_stats()
+        self.stats = stats if stats is not None else _fresh_stats(registry, replica)
         self.reset()
 
     def reset(self) -> None:
@@ -244,9 +254,10 @@ class PrefillWorker:
             # adopted pages can be in flight; adopt() donates them back
             n_alloc = self.staging.required_pages(lb)
             staging_id, _ = self.staging.stage(n * n_alloc)
-        sealed, toks0 = self._prefill(
-            torch.as_tensor(padded, device=self.device), torch.as_tensor(lens, device=self.device)
-        )
+        with obs.span("serve.prefill", replica=self.replica, n=n, bucket=lb):
+            sealed, toks0 = self._prefill(
+                torch.as_tensor(padded, device=self.device), torch.as_tensor(lens, device=self.device)
+            )
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_tokens"] += n * lb
         return KVHandoff(
@@ -265,14 +276,16 @@ class DecodeWorker:
     """Decode half of the serving pair: owns the slots, the KV pool and the
     chunked decode loop; ingests sealed prefills through ``adopt``."""
 
-    def __init__(self, cfg, params, ecfg: EngineConfig, *, stats: Optional[Dict[str, int]] = None):
+    def __init__(self, cfg, params, ecfg: EngineConfig, *, stats: Optional[StatsView] = None,
+                 registry: Optional[MetricsRegistry] = None, replica: int = 0):
         self.cfg = cfg
         self.ecfg = ecfg
         self.params = params
         self.device = _device_of(params)
         self.layout = ecfg.kv_layout
+        self.replica = replica
         self.pool: Optional[KVPool] = KVPool(cfg, ecfg) if self.layout == "paged" else None
-        self.stats = stats if stats is not None else _fresh_stats()
+        self.stats = stats if stats is not None else _fresh_stats(registry, replica)
         self.reset()
 
     # -- device programs ----------------------------------------------------
@@ -441,6 +454,13 @@ class DecodeWorker:
                     f"{self.pool.n_pages} are free (page_size={self.pool.page_size}). "
                     "Adopt fewer requests, raise --pool-pages, or lower --max-slots."
                 )
+        sealed, toks0 = handoff.sealed, handoff.first_tok
+        if toks0.device != self.device:
+            # cross-device transport: the burst was sealed by a prefill worker
+            # on another device (the reference's cross-mesh replicate)
+            with obs.span("serve.handoff", replica=self.replica, n=n):
+                sealed = {k: v.to(self.device) for k, v in sealed.items()}
+                toks0 = toks0.to(self.device)
         gslots = [self.free_slots.pop() for _ in range(n)]
         width = self.pool.pages_per_slot if self.pool is not None else 1
         table_rows = np.zeros((n, width), np.int32)
@@ -456,15 +476,16 @@ class DecodeWorker:
                 self._stale_slots.discard(slot)  # row fully rewritten
         self.stats["pages_allocated"] += n * max(handoff.n_alloc, 0)
         dev = self.device
-        self._adopt(
-            handoff.sealed,
-            handoff.first_tok,
-            torch.as_tensor(gslots, dtype=torch.long, device=dev),
-            torch.as_tensor(handoff.true_lens, device=dev),
-            torch.as_tensor(handoff.budgets, device=dev),
-            torch.as_tensor(table_rows, device=dev),
-            torch.as_tensor(page_ids, device=dev),
-        )
+        with obs.span("serve.adopt", replica=self.replica, n=n):
+            self._adopt(
+                sealed,
+                toks0,
+                torch.as_tensor(gslots, dtype=torch.long, device=dev),
+                torch.as_tensor(handoff.true_lens, device=dev),
+                torch.as_tensor(handoff.budgets, device=dev),
+                torch.as_tensor(table_rows, device=dev),
+                torch.as_tensor(page_ids, device=dev),
+            )
         handoff.source.release(handoff)
         self.stats["admitted"] += n
         self.stats["handoffs"] += 1
@@ -525,11 +546,13 @@ class DecodeWorker:
         self._stale_slots.clear()
 
     def decode_chunk(self) -> None:
-        """Up to ``decode_chunk`` batched decode steps with no host sync."""
-        if self.pool is not None:
-            self._ensure_chunk_pages()
-        steps = min(self.ecfg.decode_chunk, max(self._left.values(), default=0))
-        self._chunk(steps)
+        """Up to ``decode_chunk`` batched decode steps with no host sync. The
+        span brackets the steps' enqueueing only."""
+        with obs.span("serve.decode_chunk", replica=self.replica):
+            if self.pool is not None:
+                self._ensure_chunk_pages()
+            steps = min(self.ecfg.decode_chunk, max(self._left.values(), default=0))
+            self._chunk(steps)
         for slot in self._left:
             self._left[slot] = max(self._left[slot] - steps, 0)
         self.stats["decode_chunks"] += 1
@@ -538,7 +561,8 @@ class DecodeWorker:
         """The once-per-chunk host sync: ``(active, n_out)`` as numpy, in one
         device-to-host transfer. Reconciles the host's position estimates
         and remaining budgets to the truth."""
-        both = torch.stack([self._state.active.to(torch.int32), self._state.n_out]).cpu().numpy()
+        with obs.span("serve.sync", replica=self.replica):
+            both = torch.stack([self._state.active.to(torch.int32), self._state.n_out]).cpu().numpy()
         active, n_out = both[0].astype(bool), both[1]
         self.stats["host_syncs"] += 1
         for slot in self._left:
@@ -547,6 +571,16 @@ class DecodeWorker:
             for slot, (true_len, _) in self._meta.items():
                 self._pos_est[slot] = true_len + int(n_out[slot]) - 1
         return active, n_out
+
+    def publish_gauges(self) -> None:
+        """Push the pool occupancy gauges into the stats registry, at
+        snapshot/dump time (occupancy is a point-in-time value)."""
+        if self.pool is None:
+            return
+        reg, labels = self.stats.registry, self.stats.labels
+        reg.set_gauge(KV_GAUGES["free_pages"], self.pool.free_pages, **labels)
+        reg.set_gauge(KV_GAUGES["pages_in_use"], self.pool.pages_in_use, **labels)
+        reg.set_gauge(KV_GAUGES["capacity_pages"], self.pool.n_pages, **labels)
 
     def fetch(self, slot: int, n_out: int) -> np.ndarray:
         """Copy a finished slot's tokens to the host and free the slot
@@ -570,15 +604,16 @@ class ServeEngine:
     behind the engine API that :class:`repro_torch.serve.scheduler.FleetRouter`
     (and ``ContinuousScheduler``) drives from the request queue."""
 
-    def __init__(self, cfg, params, ecfg: EngineConfig, *, replica: int = 0):
+    def __init__(self, cfg, params, ecfg: EngineConfig, *, registry: Optional[MetricsRegistry] = None,
+                 replica: int = 0):
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
         self.layout = ecfg.kv_layout
         self.replica = replica
-        self.stats: Dict[str, int] = _fresh_stats()
-        self.prefill = PrefillWorker(cfg, params, ecfg, stats=self.stats)
-        self.decode = DecodeWorker(cfg, params, ecfg, stats=self.stats)
+        self.stats: StatsView = _fresh_stats(registry, replica)
+        self.prefill = PrefillWorker(cfg, params, ecfg, stats=self.stats, replica=replica)
+        self.decode = DecodeWorker(cfg, params, ecfg, stats=self.stats, replica=replica)
 
     # -- delegation (the device state lives on the workers) -----------------
 
@@ -597,7 +632,7 @@ class ServeEngine:
     def reset(self) -> None:
         """(Re)build both workers' device state and zero the stats (so a
         warm-up run never contaminates timed counters)."""
-        for k in self.stats:
+        for k in list(self.stats):
             self.stats[k] = 0
         self.prefill.reset()
         self.decode.reset()
@@ -688,3 +723,7 @@ class ServeEngine:
 
     def fetch(self, slot: int, n_out: int) -> np.ndarray:
         return self.decode.fetch(slot, n_out)
+
+    def publish_gauges(self) -> None:
+        """Push the pool occupancy gauges into the stats registry."""
+        self.decode.publish_gauges()

@@ -19,24 +19,29 @@ A :class:`FleetRouter` over N engine replicas (each a
 
 ``ContinuousScheduler`` is the N=1 router. Completions record
 ``arrival``, ``admitted``, ``first_token`` and ``finished`` separately, so
-queue wait and TTFT can be read apart from decode time. The router's
-counters are a plain dict; the reference's
-telemetry spans and histograms (``repro.obs``) are not ported yet.
+queue wait and TTFT can be read apart from decode time.
+
+Telemetry (:mod:`repro_torch.obs`): the router's stats are a
+:class:`~repro_torch.obs.StatsView` over the ``serve.router.*`` names
+(:data:`repro_torch.obs.ROUTER_METRICS`), in the engines' registry, so
+router and engine series land in one snapshot; ``affinity_hits`` stays 0
+until the prefix cache is ported. Each completion observes
+``serve.request.{latency,queue_wait,ttft}_s`` under its replica label;
+routing is an ``obs.instant("serve.route")`` and each admission burst a
+``serve.admit`` span.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+from repro_torch.obs import ROUTER_METRICS, MetricsRegistry, StatsView
 from repro_torch.serve.engine import ServeEngine
-
-#: The router's counters (the reference's ``ROUTER_METRICS`` keys, less the
-#: prefix-affinity count).
-ROUTER_KEYS = ("routed", "requeued")
 
 
 @dataclasses.dataclass
@@ -122,12 +127,18 @@ class FleetRouter:
     """Least-loaded admission + eviction loop over N engine replicas;
     returns one Completion per request (tagged with its replica)."""
 
-    def __init__(self, engines: Sequence[ServeEngine], clock=None):
+    def __init__(self, engines: Sequence[ServeEngine], clock=None, registry: Optional[MetricsRegistry] = None):
         if not engines:
             raise ValueError("FleetRouter needs at least one engine replica")
         self.engines: List[ServeEngine] = list(engines)
         self.clock = clock
-        self.stats: Dict[str, int] = {k: 0 for k in ROUTER_KEYS}
+        if registry is None:
+            # the replicas' registry, so router and engine series land in one
+            # snapshot; engines whose stats are no view give the router its own
+            st = self.engines[0].stats
+            registry = st.registry if isinstance(st, StatsView) else MetricsRegistry()
+        self.registry = registry
+        self.stats: StatsView = registry.view(ROUTER_METRICS)
 
     # -- routing policy -----------------------------------------------------
 
@@ -167,7 +178,9 @@ class FleetRouter:
                 "--pool-pages or shrink the prompt/budget."
             )
         self.stats["routed"] += 1
-        return min(feasible, key=lambda i: self._load(i, queues))
+        best = min(feasible, key=lambda i: self._load(i, queues))
+        obs.instant("serve.route", rid=req.rid, replica=best, prefix_hits=0)
+        return best
 
     # -- the serving loop ---------------------------------------------------
 
@@ -175,7 +188,7 @@ class FleetRouter:
         clock = self.clock or MonotonicClock()
         for eng in self.engines:
             eng.reset()
-        for k in self.stats:
+        for k in list(self.stats):
             self.stats[k] = 0
         pending = deque(sorted(requests, key=lambda r: r.arrival))
         queues: List[deque] = [deque() for _ in self.engines]
@@ -189,9 +202,10 @@ class FleetRouter:
             # token, so the gap between the two stamps is prefill service —
             # part of TTFT but not of queue wait.
             t_admit = clock.now()
-            slots = self.engines[i].admit_many(
-                [(r.tokens, r.max_new_tokens) for r in burst]
-            )
+            with obs.span("serve.admit", replica=i, n=len(burst)):
+                slots = self.engines[i].admit_many(
+                    [(r.tokens, r.max_new_tokens) for r in burst]
+                )
             t_first = clock.now()
             for slot, req in zip(slots, burst):
                 resident[i][slot] = (req, t_admit, t_first)
@@ -257,6 +271,9 @@ class FleetRouter:
                             replica=i,
                             first_token=t_first,
                         )
+                        self.registry.observe("serve.request.latency_s", comp.latency, replica=i)
+                        self.registry.observe("serve.request.queue_wait_s", comp.queue_wait, replica=i)
+                        self.registry.observe("serve.request.ttft_s", comp.ttft, replica=i)
                         done.append(comp)
             elif pending and not any(queues):
                 clock.sleep(pending[0].arrival - now)

@@ -2,7 +2,7 @@
 
 The ``repro_torch`` root level comes from the ``REPRO_LOG_LEVEL`` environment
 variable (``DEBUG``/``INFO``/``WARNING``/... or a numeric level; default
-``INFO``).
+``INFO``); :func:`set_level` changes it at runtime.
 """
 from __future__ import annotations
 
@@ -21,6 +21,17 @@ def _level_from_env(default: int = logging.INFO) -> int:
         return int(raw)
     level = logging.getLevelName(raw.upper())
     return level if isinstance(level, int) else default
+
+
+def set_level(level) -> None:
+    """Set the ``repro_torch`` root logger level: a logging constant, a
+    numeric value, or a name like ``"debug"``."""
+    if isinstance(level, str):
+        resolved = logging.getLevelName(level.upper())
+        if not isinstance(resolved, int):
+            raise ValueError(f"unknown log level {level!r}")
+        level = resolved
+    logging.getLogger("repro_torch").setLevel(level)
 
 
 def get_logger(name: str) -> logging.Logger:

@@ -4,7 +4,8 @@ attention kernels, forward and both backward passes: the tensor-core
 kernels for bf16, the CUDA-core kernels for f32; split-KV paged decode),
 against their plain PyTorch versions on the same inputs, a second call
 bitwise equal, one full-width training step, and one small epoch of each
-distilling Table 1 baseline. These tests need a CUDA device (marker
+distilling Table 1 baseline, and a paged decode run that telemetry adds
+no device sync to. These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -700,6 +701,56 @@ def test_engine_on_card_launches_kernels_and_layouts_agree(device):
     for c, p in zip(comps, prompts):
         want = static_generate(params, cfg, {"tokens": torch.as_tensor(p[None], device=device)}, 8, max_seq=32)
         np.testing.assert_array_equal(c.tokens, want[0].cpu().numpy())
+
+
+def test_telemetry_adds_no_sync_to_paged_decode(device):
+    """Under ``torch.cuda.set_sync_debug_mode("warn")``, a paged decode run
+    with telemetry on (the shared registry and the span tracer) raises
+    exactly as many sync warnings as the same run with it off: the spans
+    and counters read no device value."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine
+
+    cfg = reduced_variant(get_arch("smollm-135m")).replace(dtype="float32", param_dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 24, 13, 17)]
+    ecfg = EngineConfig(max_slots=2, max_seq=32, max_new=8, decode_chunk=4, page_size=8)
+
+    def run(registry=None, debug=True):
+        eng = ServeEngine(cfg, params, ecfg, registry=registry)
+        reqs = [Request(rid=i, tokens=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn" if debug else "default")
+            try:
+                ContinuousScheduler(eng, clock=ManualClock()).run(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return eng, sum("synchroniz" in str(w.message) for w in caught)
+
+    run(debug=False)  # builds the kernels
+    try:
+        eng_off, syncs_off = run()
+        obs.configure(metrics=True, trace=True, device=device)
+        eng_on, syncs_on = run(registry=obs.registry())
+        stats_on = dict(eng_on.stats)  # read before the shared registry is reset
+        assert len(obs.tracer()) > 0
+    finally:
+        obs.configure(metrics=False, trace=False)
+        obs.tracer().clear()
+        obs.registry().reset()
+    assert syncs_off >= eng_off.stats["host_syncs"] > 0
+    assert syncs_on == syncs_off
+    assert stats_on == dict(eng_off.stats)
 
 
 def test_attention_wrappers_reject_bad_inputs(device):
