@@ -70,8 +70,8 @@ result line):
    ``lm_loss`` through the attention kernels agree with plain autograd; the
    run must have gone through the CUDA-core kernels only.
 4. Training path: ``repro_torch.launch.ofl`` at the paper's image width
-   (5×cnn5 clients, cnn5 server, 32×32×3, 10 classes, synthetic batch 128,
-   gen_iters 30) for a few epochs, with the launch counters reset just
+   (5×cnn5 clients through the default grouped client bank, cnn5 server,
+   32×32×3, 10 classes, synthetic batch 128, gen_iters 30) for a few epochs, with the launch counters reset just
    before and read just after; every loss kernel must have launched, the
    losses must be finite and ``server_acc`` / ``ensemble_acc`` present.
 4b. Baselines path: the paper's Table 1 baselines through
@@ -88,6 +88,35 @@ result line):
    epoch after the first (evaluation after every epoch, its time taken
    out), accuracies and launches; then the accuracies side by side, with
    phase 4's Co-Boosting numbers.
+4c. Grouped client bank (``repro_torch.core.client_bank``, the default
+   ensemble of phases 4, 4b and 5b). First Table 3's heterogeneous market
+   (``benchmarks/table3_hetero.py``): K=10 over cnn5, cnn2, miniresnet, mlp
+   and lenet5, random weights from a seed, 32×32×3, 10 classes, batch 128,
+   whole and family by family, whole groups and in chunks of 3 clients
+   (``--ensemble-scan-chunk 3``): the grouped (K, B, C) stack must stay
+   within 1e-4 of the looped one relative to the largest |logit|, and in
+   float64 (the same weights and images, cast) the grouped input gradient
+   within 1e-10 of the looped one relative to the largest |gradient|: the
+   engines compute the same gradient. Each engine's f32 input gradient is
+   printed against the float64 loop's, in the max and the L2 norm, not
+   gated: ReLU and max-pool make it jump where rounding moves a kink, so
+   the f32 loop itself is up to about 1 % from float64 in the max norm at
+   this width. The gaps and each engine's f32 ms for the stack and its
+   gradient are printed (line ``client bank, Table 3 market``). Then
+   Co-Boosting through ``launch.ofl.run_method`` at phase 4's settings,
+   K=5, with each engine
+   in turns looped, grouped, grouped, looped (evaluation after every
+   epoch), then once more each under ``torch.profiler``: every run must
+   launch #1–#4 exactly as phase 4 did, reach finite losses and report
+   ``server_acc`` and ``ensemble_acc``; printed: s/epoch after the first,
+   device ms and device launches an epoch inside ``ofl.epoch``
+   (``repro_torch.obs.phases``), its eight largest kernels and the peak
+   device memory (line
+   ``client bank, Co-Boosting K=5``). The same at K=20 cnn5 (Table 6's
+   largest n), looped on the per-client market and grouped on the
+   ``--grouped-market`` one, after both markets' build seconds (lines
+   ``client bank, K=20 cnn5 market`` and ``client bank, Co-Boosting K=20
+   cnn5``).
 5. Serving path: smollm-135m at full width (30 layers, d_model 576,
    random weights from a seed). First an f32 check: 4 requests × 16 tokens
    through the paged engine give the same greedy tokens as the static
@@ -213,6 +242,15 @@ OFL_ARGV = [
 ]
 # the paper's Table 1 baselines that distill (each sweep through ensemble_kl #1 and #2)
 DISTILLING = ("dense", "f_dafl", "f_adi", "feddf")
+# phase 4c: Table 3's heterogeneous market (benchmarks/table3_hetero.py:8,16), K=10 over the five
+# families, grouped against looped at these gaps relative to the largest value (the f32 stack; the
+# input gradient in float64), also in chunks of BANK_CHUNK clients; then Co-Boosting with each engine in turns, at K=5 (phase 4's
+# market) and at K=20 cnn5 (Table 6's largest n, benchmarks/table6_clients.py:13)
+HETERO_ARCHS = ("cnn5", "cnn2", "miniresnet", "mlp", "lenet5")
+BANK_TOL = 1e-4
+BANK_TOL_F64 = 1e-10
+BANK_CHUNK = 3
+BANK_TURNS = ("looped", "grouped", "grouped", "looped")
 
 # serving: smollm-135m at full width
 SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
@@ -1153,6 +1191,41 @@ def _expected_kl_launches(method, run):
     return 0
 
 
+def _timed_eval_fn(evals):
+    """A stand-in for ``market.market_eval_fn`` whose evaluations append
+    ``(start, end, server finite)`` to ``evals``, each after a synchronize:
+    with evaluation after every epoch, the time between them is the
+    epochs' own."""
+    import torch
+
+    from repro_torch.fed import market
+    from repro_torch.utils.trees import tree_leaves
+
+    def make(*a, **kw):
+        fn = market.market_eval_fn(*a, **kw)
+
+        def timed(server_params, w):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(server_params, w)
+            finite = server_params is None or all(bool(torch.isfinite(t).all()) for t in tree_leaves(server_params))
+            evals.append((start, time.perf_counter(), finite))
+            return out
+
+        return timed
+
+    return make
+
+
+def _per_epoch(evals):
+    """Seconds an epoch after the first: the span between the first
+    evaluation's end and the last one's start, evaluations taken out."""
+    if len(evals) < 2:
+        return None
+    between = evals[-1][0] - evals[0][1] - sum(e - s for s, e, _ in evals[1:-1])
+    return between / (len(evals) - 1)
+
+
 def baselines_path(coboost):
     """The paper's Table 1 baselines through ``run_method`` on one market,
     built once with phase 4's settings; each method's launches counted from
@@ -1167,7 +1240,6 @@ def baselines_path(coboost):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import ofl
     from repro_torch.utils.device import disable_tf32
-    from repro_torch.utils.trees import tree_leaves
 
     dev = torch.device("cuda")
     disable_tf32()
@@ -1181,21 +1253,7 @@ def baselines_path(coboost):
     # the runners evaluate through ofl.market_eval_fn: wrap it to stamp each
     # evaluation (after a synchronize) and to check the server it is handed
     evals = []
-
-    def timed_eval_fn(*a, **kw):
-        fn = market.market_eval_fn(*a, **kw)
-
-        def timed(server_params, w):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            out = fn(server_params, w)
-            finite = server_params is None or all(bool(torch.isfinite(t).all()) for t in tree_leaves(server_params))
-            evals.append((start, time.perf_counter(), finite))
-            return out
-
-        return timed
-
-    ofl.market_eval_fn = timed_eval_fn
+    ofl.market_eval_fn = _timed_eval_fn(evals)
     table = {}
     try:
         for method in DISTILLING + ("fedavg", "fedens", "coboosting"):
@@ -1210,11 +1268,7 @@ def baselines_path(coboost):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = {n: launch_counts()[n] for n in LOSS_KERNELS}
-            per_epoch = None
-            if len(evals) > 1:
-                between = evals[-1][0] - evals[0][1] - sum(e - s for s, e, _ in evals[1:-1])
-                per_epoch = between / (len(evals) - 1)
-            row = {"wall_s": wall, "s_per_epoch_after_first": per_epoch, "launches": counts,
+            row = {"wall_s": wall, "s_per_epoch_after_first": _per_epoch(evals), "launches": counts,
                    **{k: v for k, v in result.items() if isinstance(v, (int, float))}}
             table[method] = row
             print(f"baseline {method}: {json.dumps(row)}", flush=True)
@@ -1245,6 +1299,200 @@ def baselines_path(coboost):
         {m: [r.get("server_acc"), r["ensemble_acc"]] for m, r in table.items()}), flush=True)
     print(f"Co-Boosting, phase 4 (same settings and seed): server_acc {coboost['server_acc']}, "
           f"ensemble_acc {coboost['ensemble_acc']}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 4c
+
+
+def _stack_and_input_grad(fn, params, x, u):
+    """The (K, B, C) stack and the gradient of ``sum(u * stack)`` with
+    respect to the images, as DHS and the generator take it."""
+    import torch
+
+    xi = x.detach().requires_grad_()
+    la = fn(params, xi)
+    (g,) = torch.autograd.grad(torch.sum(la * u), xi)
+    return la.detach(), g
+
+
+def _rel(got, want, norm=float("inf")):
+    """``‖got − want‖ / ‖want‖`` in float64, in the max norm or another."""
+    import torch
+
+    norm_of = lambda t: torch.linalg.vector_norm(t.double().flatten(), norm)
+    return float(norm_of(got.double() - want.double()) / norm_of(want))
+
+
+def hetero_bank_check():
+    """Table 3's market at the paper's image width, whole and family by
+    family: each engine's stack and input gradient, in f32 and in float64;
+    each engine's f32 time for the stack and its gradient (CUDA events)."""
+    from functools import partial
+
+    import torch
+
+    from repro_torch.core.client_bank import ClientBank, make_ensemble
+    from repro_torch.models.cnn import cnn_apply, init_cnn
+    from repro_torch.utils.device import disable_tf32
+    from repro_torch.utils.trees import tree_map
+
+    dev = torch.device("cuda")
+    disable_tf32()
+    k, b, classes, shape = 10, 128, 10, (32, 32, 3)
+    archs = [HETERO_ARCHS[i % len(HETERO_ARCHS)] for i in range(k)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    applies = [partial(cnn_apply, a) for a in archs]
+    params = {"f32": [init_cnn(g, a, classes, shape) for a in archs]}
+    params["f64"] = [tree_map(torch.Tensor.double, p) for p in params["f32"]]
+    x = torch.rand((b, *shape), generator=g, device=dev) * 2 - 1
+    xs = {"f32": x, "f64": x.double()}
+    u = torch.rand((k, b, classes), generator=g, device=dev) * 2 - 1
+    engines = {"looped": dict(impl="looped"), "grouped": {}, f"grouped, chunks of {BANK_CHUNK}": dict(scan_chunk=BANK_CHUNK)}
+    grouped = [n for n in engines if n != "looped"]
+    gaps = {}
+    for fam in ("market",) + HETERO_ARCHS:
+        sel = [i for i, a in enumerate(archs) if fam in ("market", a)]
+        got = {
+            (name, prec): _stack_and_input_grad(
+                *make_ensemble([applies[i] for i in sel], [params[prec][i] for i in sel], **kw), xs[prec], u[sel]
+            )
+            for name, kw in engines.items() for prec in ("f32", "f64")
+        }
+        for key, (la, gx) in got.items():
+            if not (torch.isfinite(la).all() and torch.isfinite(gx).all()):
+                fail(f"client bank ({fam}, {key}): the stack or its input gradient is not finite")
+        exact = got["looped", "f64"]
+        gaps[fam] = {
+            "stack_f32": {n: _rel(got[n, "f32"][0], got["looped", "f32"][0]) for n in grouped},
+            "grad_f64": {n: _rel(got[n, "f64"][1], exact[1]) for n in grouped},
+            "grad_f32_to_f64_max": {n: _rel(got[n, "f32"][1], exact[1]) for n in engines},
+            "grad_f32_to_f64_l2": {n: _rel(got[n, "f32"][1], exact[1], 2) for n in engines},
+        }
+    ms = {}
+    for name, kw in engines.items():
+        fn, p = make_ensemble(applies, params["f32"], **kw)
+        for _ in range(3):
+            _stack_and_input_grad(fn, p, x, u)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            _stack_and_input_grad(fn, p, x, u)
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / 10
+    bank, _ = ClientBank.build(applies, params["f32"])
+    print(f"client bank, Table 3 market (K={k}: {','.join(archs)}; 32x32x3, {classes} classes, batch {b}; "
+          f"{bank.num_groups} groups {list(bank.counts)}), whole market and by family, gaps relative to the "
+          f"largest value: the f32 stack to looped's (limit {BANK_TOL}), the float64 input gradient to the "
+          f"float64 loop's (limit {BANK_TOL_F64}), and each engine's f32 input gradient to the float64 loop's, "
+          f"in the max and the L2 norm (not gated: ReLU and max-pool make it jump at rounding level) "
+          f"{json.dumps(gaps)}; f32 ms for the stack and its input gradient (CUDA events, 10 calls) "
+          f"{json.dumps(ms)}", flush=True)
+    for fam, gap in gaps.items():
+        for name in grouped:
+            if gap["stack_f32"][name] > BANK_TOL or gap["grad_f64"][name] > BANK_TOL_F64:
+                fail(f"client bank ({fam}, {name}): f32 stack gap {gap['stack_f32'][name]:.3g} (limit {BANK_TOL}), "
+                     f"float64 input gradient gap {gap['grad_f64'][name]:.3g} (limit {BANK_TOL_F64})")
+
+
+def _coboost_by_engine(label, runs, args, want_counts, tmp):
+    """Co-Boosting through ``launch.ofl.run_method`` with each engine in
+    BANK_TURNS' turns (``runs[impl]`` is the market it runs on; evaluation
+    after every epoch, for s/epoch after the first), then once more each
+    under ``torch.profiler`` for the device ms and launches an epoch inside
+    ``ofl.epoch`` (``repro_torch.obs.phases``), its largest kernels and the
+    peak device memory. The loss kernels must launch ``want_counts`` in
+    every run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.fed import market
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import ofl
+    from repro_torch.obs.phases import device_split
+
+    dev = torch.device("cuda")
+    evals = []
+    per_epoch = {"looped": [], "grouped": []}
+    device = {}
+    ofl.market_eval_fn = _timed_eval_fn(evals)
+    try:
+        for turn, impl in enumerate(BANK_TURNS + ("looped", "grouped")):
+            profile = turn >= len(BANK_TURNS)
+            run = runs[impl]
+            cfg = dataclasses.replace(run.cfg, ensemble_impl=impl)
+            evals.clear()
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            if profile:
+                obs.configure(profile_dir=f"{tmp}/{label}_{impl}", device=dev)
+            result = ofl.run_method(
+                "coboosting", cfg, args.classes, run.image_shape, run.applies, run.params, run.sizes,
+                run.train_x, run.test_x, run.test_y, args.server_arch, args.seed, eval_every=1, device=dev,
+                archs=run.archs,
+            )
+            torch.cuda.synchronize()
+            counts = {n: launch_counts()[n] for n in LOSS_KERNELS}
+            if counts != want_counts:
+                fail(f"client bank, {label} {impl}: loss-kernel launches {counts} != {want_counts}")
+            for key in ("server_acc", "ensemble_acc", "gen_loss", "distill_loss"):
+                if key not in result or not math.isfinite(result[key]):
+                    fail(f"client bank, {label} {impl}: result lacks a finite {key}: {result}")
+            if not all(f for _, _, f in evals):
+                fail(f"client bank, {label} {impl}: a server parameter is not finite")
+            if not profile:
+                per_epoch[impl].append(_per_epoch(evals))
+                continue
+            split = device_split(obs.stop_torch_profile(obs.tracer()), top=8)
+            obs.configure()
+            outer, epochs = split["outer"], split["outer"]["count"]
+            device[impl] = {
+                "device_ms_per_epoch": outer["device_ms"] / epochs,
+                "launches_per_epoch": outer["launches"] / epochs,
+                "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
+                "server_acc": result["server_acc"], "ensemble_acc": result["ensemble_acc"],
+                "largest_kernels_ms_and_launches_per_epoch": [[name[:64], ms / epochs, n / epochs]
+                                                               for name, ms, n in outer["top"]],
+            }
+    finally:
+        ofl.market_eval_fn = market.market_eval_fn
+    print(f"client bank, Co-Boosting {label}: s/epoch after the first, turns {','.join(BANK_TURNS)}: "
+          f"{json.dumps(per_epoch)}; profiled: {json.dumps(device)}; loss-kernel launches {json.dumps(want_counts)} "
+          f"in every run", flush=True)
+
+
+def bank_path(coboost_counts):
+    """Phase 4c: Table 3's market, then Co-Boosting by engine at K=5 and at
+    K=20 cnn5 (both markets' build seconds: per client, and grouped)."""
+    import torch
+
+    from repro_torch.launch import ofl
+    from repro_torch.utils.device import disable_tf32
+
+    t0 = time.perf_counter()
+    hetero_bank_check()
+    dev = torch.device("cuda")
+    disable_tf32()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bank_") as tmp:
+        args = ofl.parse_args(OFL_ARGV)
+        run = ofl.prepare_run(args, dev)
+        _coboost_by_engine("K=5", {"looped": run, "grouped": run}, args, coboost_counts, tmp)
+        runs, build_s = {}, {}
+        for impl, flags in (("looped", []), ("grouped", ["--grouped-market"])):
+            args = ofl.parse_args([*OFL_ARGV, "--clients", "20", *flags])  # the last --clients counts
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            runs[impl] = ofl.prepare_run(args, dev)
+            torch.cuda.synchronize()
+            build_s[impl] = time.perf_counter() - t1
+        print(f"client bank, K=20 cnn5 market ({len(runs['looped'].train_x)} images, {args.local_epochs} local "
+              f"epochs) built in seconds: per client {build_s['looped']:.3f}, grouped (--grouped-market) "
+              f"{build_s['grouped']:.3f}", flush=True)
+        _coboost_by_engine("K=20 cnn5", runs, args, coboost_counts, tmp)
+    print(f"client bank phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1571,6 +1819,7 @@ def main() -> None:
     lm_small_input_agreement()
     counts, coboost = main_path()
     baselines_path(coboost)
+    bank_path({n: counts[n] for n in LOSS_KERNELS})
     serving_parity_f32()
     serving, serve_stats = serving_path()
     telemetry_path({n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)

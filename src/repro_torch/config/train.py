@@ -6,6 +6,9 @@ from dataclasses import dataclass
 
 from repro_torch.kernels.dispatch import check_backend
 
+# the client ensemble engines (repro_torch.core.client_bank.make_ensemble)
+ENSEMBLE_IMPLS = ("grouped", "looped")
+
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -67,6 +70,15 @@ class OFLConfig:
     use_ee: bool = True  # ensemble enhancement (Eq. 12)
     use_adv: bool = True  # adversarial term (Eq. 7)
 
+    # client ensemble forward engine: "grouped" (ClientBank: clients grouped
+    # by arch, one vmapped forward per group, O(#groups) launches) or
+    # "looped" (one forward per client, kept as the parity baseline)
+    ensemble_impl: str = "grouped"
+    # >0: a group larger than this runs as a loop over vmapped chunks of
+    # this many clients (bounds live activations at many clients); 0 = one
+    # vmap per group
+    ensemble_scan_chunk: int = 0
+
     # loss-kernel backend (repro_torch.kernels.dispatch): auto | cuda | ref
     backend: str = "auto"
 
@@ -74,3 +86,7 @@ class OFLConfig:
 
     def __post_init__(self):
         check_backend(self.backend)
+        if self.ensemble_impl not in ENSEMBLE_IMPLS:
+            raise ValueError(f"unknown ensemble impl {self.ensemble_impl!r}; expected one of {ENSEMBLE_IMPLS}")
+        if self.ensemble_scan_chunk < 0:
+            raise ValueError(f"ensemble_scan_chunk must be >= 0, got {self.ensemble_scan_chunk}")

@@ -1,8 +1,9 @@
 """Carry parameters between the JAX package and the port.
 
-The CNN and generator weights of the Co-Boosting path (below), and the
-server LM's weights (:func:`lm_params_from_jax`, at the end), one model or
-K client models stacked on a leading axis
+The CNN and generator weights of the Co-Boosting path (below; a grouped
+client bank's stacked groups in one call, :func:`bank_params_from_jax`),
+and the server LM's weights (:func:`lm_params_from_jax`, at the end), one
+model or K client models stacked on a leading axis
 (:func:`lm_stacked_params_from_jax`).
 
 A JAX parameter tree travels as numpy arrays, either nested or flattened
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.cnn import CNN_ARCHS
-from repro_torch.utils.trees import flatten_dict, unflatten_dict
+from repro_torch.utils.trees import flatten_dict, tree_stack, unflatten_dict
 
 GENERATOR = "image_generator"
 EMBEDDING_GENERATOR = "embedding_generator"
@@ -80,6 +81,26 @@ def params_from_jax(arch: str, tree: Dict[str, Any], device="cpu", dtype=torch.f
             continue
         out[path] = torch.tensor(_to_port(path, a, path in keep), dtype=dtype, device=device)
     return unflatten_dict(out)
+
+
+def bank_params_from_jax(archs, bank_params, device="cpu", dtype=torch.float32) -> tuple:
+    """A JAX ``ClientBank``'s params (one stacked tree per group, the clients
+    on the leading axis, numpy arrays) → the port's bank params, the client
+    axis kept: :func:`params_from_jax` of each client's slice, restacked.
+    ``archs`` names each group's arch. A non-array leaf stays one value."""
+    if len(archs) != len(bank_params):
+        raise ValueError(f"{len(archs)} archs for {len(bank_params)} groups")
+    out = []
+    for arch, tree in zip(archs, bank_params):
+        flat = flatten_dict(tree)
+        arrays = {p: np.asarray(v) for p, v in flat.items() if not isinstance(v, (int, float, bool, str))}
+        n = {a.shape[0] for a in arrays.values()}
+        if len(n) != 1:
+            raise ValueError(f"{arch}: stacked leaves disagree on the client axis: {sorted(n)}")
+        rows = [params_from_jax(arch, unflatten_dict({**flat, **{p: a[i] for p, a in arrays.items()}}), device, dtype)
+                for i in range(n.pop())]
+        out.append(tree_stack(rows))
+    return tuple(out)
 
 
 def params_to_jax(arch: str, params: Dict[str, Any]) -> Dict[str, Any]:

@@ -1,6 +1,6 @@
 """The paper's contribution: Co-Boosting one-shot federated distillation.
 
-Eq. 2        -> :mod:`repro_torch.core.ensemble`
+Eq. 2        -> :mod:`repro_torch.core.ensemble`, :mod:`repro_torch.core.client_bank`
 Eq. 5-8      -> :mod:`repro_torch.core.hardness`
 Eq. 9-10     -> :mod:`repro_torch.core.hard_samples`
 Eq. 11-12    -> :mod:`repro_torch.core.weight_search`
@@ -20,6 +20,7 @@ from repro_torch.core.epoch import (
     make_kd_loss,
 )
 from repro_torch.core.ensemble import ensemble_logits, make_logits_all, uniform_weights
+from repro_torch.core.client_bank import ENSEMBLE_IMPLS, ClientBank, make_ensemble
 from repro_torch.core.hardness import adversarial_loss, generator_loss, ghs_loss
 from repro_torch.core.hard_samples import diversify
 from repro_torch.core.weight_search import normalize_weights, update_weights, weight_grad, weight_loss

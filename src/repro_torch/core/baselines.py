@@ -15,7 +15,9 @@
 All reuse the epochs of :mod:`repro_torch.core.epoch`; the only differences
 from Co-Boosting are the synthesis objective and the fixed uniform weights,
 which is exactly the contrast the paper draws (no co-boosting of data and
-ensemble). Every distillation sweep here (DENSE, F-DAFL, F-ADI, FedDF) runs
+ensemble). Each runner builds its ensemble with ``cfg.ensemble_impl``
+(:func:`repro_torch.core.client_bank.make_ensemble`); ``fedavg`` keeps the
+per-client list. Every distillation sweep here (DENSE, F-DAFL, F-ADI, FedDF) runs
 the Eq. 4 loss through the ``ensemble_kl`` op under ``cfg.backend``, its
 forward and backward kernels on the card. Each runner takes the draw seam
 (:mod:`repro_torch.utils.prng`) where the reference takes a key.
@@ -30,7 +32,8 @@ import torch
 from repro_torch.config.train import OFLConfig
 from repro_torch.core.buffer import buffer_init
 from repro_torch.core.coboosting import OFLState, init_synth_buffer
-from repro_torch.core.ensemble import ensemble_logits, make_logits_all, uniform_weights
+from repro_torch.core.client_bank import make_ensemble
+from repro_torch.core.ensemble import ensemble_logits, uniform_weights
 from repro_torch.core.epoch import distill_schedule, make_adi_epoch, make_coboost_epoch, make_feddf_epoch
 from repro_torch.core.losses import ce_loss, entropy
 from repro_torch.utils.logging import get_logger
@@ -124,7 +127,9 @@ def run_generator_baseline(
     objective = GEN_OBJECTIVES[method]
     n = len(client_applies)
     device = draws.device
-    logits_all_fn = make_logits_all(list(client_applies))
+    logits_all_fn, client_params = make_ensemble(
+        client_applies, client_params, impl=cfg.ensemble_impl, scan_chunk=cfg.ensemble_scan_chunk
+    )
     w = uniform_weights(n, device)
     epoch_step, gen_opt, srv_opt = make_coboost_epoch(
         logits_all_fn, server_apply, gen_apply, cfg, n, num_classes,
@@ -169,7 +174,9 @@ def run_adi_baseline(
     statistics — the clients are GroupNorm, so only image priors apply)."""
     n = len(client_applies)
     device = draws.device
-    logits_all_fn = make_logits_all(list(client_applies))
+    logits_all_fn, client_params = make_ensemble(
+        client_applies, client_params, impl=cfg.ensemble_impl, scan_chunk=cfg.ensemble_scan_chunk
+    )
     w = uniform_weights(n, device)
 
     def inv_loss(x, y, cp):
@@ -214,7 +221,9 @@ def run_feddf(
     randomness, so nothing is drawn from ``draws``."""
     n = len(client_applies)
     device = draws.device
-    logits_all_fn = make_logits_all(list(client_applies))
+    logits_all_fn, client_params = make_ensemble(
+        client_applies, client_params, impl=cfg.ensemble_impl, scan_chunk=cfg.ensemble_scan_chunk
+    )
     w = uniform_weights(n, device)
     nb = len(val_x) // cfg.batch_size
     epoch_step, srv_opt = make_feddf_epoch(logits_all_fn, server_apply, cfg)

@@ -28,7 +28,8 @@ import torch
 from repro_torch import obs
 from repro_torch.config.train import OFLConfig
 from repro_torch.core.buffer import ReplayBuffer, buffer_init
-from repro_torch.core.ensemble import make_logits_all, uniform_weights
+from repro_torch.core.client_bank import make_ensemble
+from repro_torch.core.ensemble import uniform_weights
 from repro_torch.core.epoch import distill_schedule, make_coboost_epoch
 from repro_torch.models.generator import image_generator, init_image_generator
 from repro_torch.utils.logging import get_logger
@@ -74,10 +75,13 @@ def run_coboosting(
     """Algorithm 1. ``draws`` is the epoch's draw seam
     (:class:`repro_torch.utils.prng.Draws`); the run uses its device.
     ``eval_fn(server_params, w) -> dict`` is called every ``eval_every``
-    epochs and after the last one for history logging."""
+    epochs and after the last one for history logging. The client ensemble
+    is ``cfg.ensemble_impl``'s (:func:`repro_torch.core.client_bank.make_ensemble`)."""
     n = len(client_applies)
     device = draws.device
-    logits_all_fn = make_logits_all(list(client_applies))
+    logits_all_fn, client_params = make_ensemble(
+        client_applies, client_params, impl=cfg.ensemble_impl, scan_chunk=cfg.ensemble_scan_chunk
+    )
     w = uniform_weights(n, device)
     epoch_step, gen_opt, srv_opt = make_coboost_epoch(
         logits_all_fn, server_apply, gen_apply, cfg, n, num_classes

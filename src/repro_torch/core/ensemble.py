@@ -3,8 +3,10 @@
 Clients are (apply_fn, params) pairs; ``make_logits_all`` builds the
 function producing the (K, B, C) stack of client logits that every
 downstream component (generator loss, DHS perturbation, EE weight search,
-distillation) consumes. It loops over the clients; the grouped ``ClientBank``
-of the JAX package is not ported yet.
+distillation) consumes. It loops over the clients: the ``"looped"`` engine,
+kept as the parity baseline. The default engine is the grouped
+:class:`repro_torch.core.client_bank.ClientBank`; the method drivers build
+either through :func:`repro_torch.core.client_bank.make_ensemble`.
 """
 from __future__ import annotations
 

@@ -9,8 +9,12 @@ partition, SGD-m local training), then runs the chosen server-side method
 (Co-Boosting or one of the paper's Table 1 baselines) and reports server
 and ensemble test accuracy. Runs on ``cuda`` unless ``--device cpu`` is
 given; TF32 is off, so the card computes in full f32 like the reference.
-``--metrics-out``, ``--trace-out`` and ``--profile-dir`` export the run's
-telemetry (:mod:`repro_torch.obs`), as the reference's launcher does.
+The client ensemble is the grouped ``ClientBank`` (one vmapped forward a
+client architecture) unless ``--ensemble-impl looped`` asks for one
+forward a client; ``--grouped-market`` trains each architecture group of
+the market at once. ``--metrics-out``, ``--trace-out`` and
+``--profile-dir`` export the run's telemetry (:mod:`repro_torch.obs`), as
+the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -24,12 +28,12 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.config.train import OFLConfig
+from repro_torch.config.train import ENSEMBLE_IMPLS, OFLConfig
 from repro_torch.core.baselines import fedavg, run_adi_baseline, run_feddf, run_generator_baseline
 from repro_torch.core.coboosting import default_image_setup, run_coboosting
 from repro_torch.core.ensemble import uniform_weights
 from repro_torch.data.synthetic import make_synth_images
-from repro_torch.fed.market import build_market, market_eval_fn
+from repro_torch.fed.market import build_market, build_market_grouped, market_eval_fn
 from repro_torch.kernels.dispatch import KERNEL_BACKENDS
 from repro_torch.models.cnn import CNN_ARCHS, cnn_apply, init_cnn
 from repro_torch.utils.device import disable_tf32, get_device
@@ -71,7 +75,7 @@ def run_method(
     init_gen = torch.Generator(device=device)
     init_gen.manual_seed(seed + 77)
     server_params = init_cnn(init_gen, server_arch, num_classes, image_shape)
-    eval_fn = market_eval_fn(applies, params, server_apply, test_x, test_y)
+    eval_fn = market_eval_fn(applies, params, server_apply, test_x, test_y, impl=cfg.ensemble_impl)
     w = uniform_weights(len(params), device)
     draws = Draws(seed, device)
 
@@ -131,6 +135,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--backend", default="auto", choices=KERNEL_BACKENDS,
                    help="loss kernels: auto (hand kernels for CUDA tensors, "
                         "plain versions on the CPU) | cuda | ref")
+    p.add_argument("--ensemble-impl", default="grouped", choices=ENSEMBLE_IMPLS,
+                   help="client forward engine: grouped ClientBank (one vmap "
+                        "per arch group) or the K-way looped baseline")
+    p.add_argument("--ensemble-scan-chunk", type=int, default=0,
+                   help=">0: loop over vmapped chunks of this many clients "
+                        "inside each group (memory bound at large K)")
+    p.add_argument("--grouped-market", action="store_true",
+                   help="vmap local client training within arch groups "
+                        "(build_market_grouped) instead of the per-client loop")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None)
@@ -167,7 +180,8 @@ class Run:
 
 def prepare_run(args: argparse.Namespace, device) -> Run:
     """The configuration (latent 32, 4 ring slots), the synthetic data and
-    the trained client market from the parsed flags."""
+    the trained client market from the parsed flags (``--grouped-market``:
+    trained by arch group, then handed on as the per-client list)."""
     shape = (args.image, args.image, 3)
     cfg = OFLConfig(
         num_clients=args.clients,
@@ -186,12 +200,19 @@ def prepare_run(args: argparse.Namespace, device) -> Run:
         use_ee=not args.no_ee,
         use_adv=not args.no_adv,
         backend=args.backend,
+        ensemble_impl=args.ensemble_impl,
+        ensemble_scan_chunk=args.ensemble_scan_chunk,
         seed=args.seed,
     )
     x, y = make_synth_images(args.seed, args.classes, args.per_class, shape)
     test_x, test_y = make_synth_images(args.seed + 1, args.classes, max(40, args.per_class // 4), shape)
     archs = args.client_archs.split(",") if args.client_archs else None
-    applies, params, sizes, _ = build_market(args.seed, x, y, cfg, args.classes, archs, device=device)
+    if args.grouped_market:
+        bank, bank_params, sizes, _ = build_market_grouped(args.seed, x, y, cfg, args.classes, archs, device=device)
+        params = bank.unstack_params(bank_params)
+        applies = [bank.client_apply(k) for k in range(bank.num_clients)]
+    else:
+        applies, params, sizes, _ = build_market(args.seed, x, y, cfg, args.classes, archs, device=device)
     return Run(cfg, shape, x, test_x, test_y, applies, params, sizes, archs)
 
 

@@ -66,7 +66,8 @@ def group_norm(x, scale, bias, groups=8, eps=1e-5):
     g = min(groups, c)
     while c % g:
         g -= 1
-    xg = x.reshape(b, g, c // g, h, w).float()
+    # statistics in f32 at least (float64 stays float64: an exact reference)
+    xg = x.reshape(b, g, c // g, h, w).to(torch.promote_types(x.dtype, torch.float32))
     mean = xg.mean(dim=(2, 3, 4), keepdim=True)
     var = xg.var(dim=(2, 3, 4), keepdim=True, correction=0)
     xg = (xg - mean) * torch.rsqrt(var + eps)

@@ -60,6 +60,42 @@ def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
     return tree
 
 
+def tree_stack(trees: List[Any]) -> Any:
+    """Stack identically structured trees along a new leading axis 0. A
+    non-tensor leaf (a block's ``"stride"``) must be equal in every tree and
+    stays one unstacked value."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        if any(set(t) != set(t0) for t in trees[1:]):
+            raise ValueError(f"trees to stack have different keys: {[sorted(t) for t in trees]}")
+        return {k: tree_stack([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, list):
+        if any(len(t) != len(t0) for t in trees[1:]):
+            raise ValueError(f"lists to stack have different lengths: {[len(t) for t in trees]}")
+        return [tree_stack([t[i] for t in trees]) for i in range(len(t0))]
+    if torch.is_tensor(t0):
+        return torch.stack(trees)
+    if any(t != t0 for t in trees[1:]):
+        raise ValueError(f"non-tensor leaves differ across the trees to stack: {trees}")
+    return t0
+
+
+def tree_unstack(tree: Any, n: int) -> List[Any]:
+    """Inverse of :func:`tree_stack`: ``n`` trees, the i-th of every tensor
+    leaf's rows; non-tensor leaves are shared."""
+    return [tree_map(lambda x, i=i: x[i], tree) for i in range(n)]
+
+
+def vmap_dims(tree: Any) -> Any:
+    """``torch.func.vmap``'s ``in_dims`` for a stacked tree: 0 at every
+    tensor leaf, ``None`` at every non-tensor leaf."""
+    if isinstance(tree, dict):
+        return {k: vmap_dims(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [vmap_dims(v) for v in tree]
+    return 0 if torch.is_tensor(tree) else None
+
+
 def value_and_grad(fn: Callable[..., torch.Tensor], params: Any, *args) -> Tuple[torch.Tensor, Any]:
     """``(fn(params, *args), d fn / d params)``: the loss (detached) and a
     tree of gradients shaped like ``params``. Only the tensor leaves of

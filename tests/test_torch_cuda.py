@@ -3,9 +3,9 @@ backwards that compute only the wanted cotangents; the CUDA C++
 attention kernels, forward and both backward passes: the tensor-core
 kernels for bf16, the CUDA-core kernels for f32; split-KV paged decode),
 against their plain PyTorch versions on the same inputs, a second call
-bitwise equal, one full-width training step, and one small epoch of each
-distilling Table 1 baseline, and a paged decode run that telemetry adds
-no device sync to. These tests need a CUDA device (marker
+bitwise equal, one full-width training step, one small epoch of each
+distilling Table 1 baseline, the grouped client bank against the looped
+ensemble, and a paged decode run that telemetry adds no device sync to. These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -607,6 +607,66 @@ def test_baseline_epoch_kernels_match_plain_and_launch_once_a_step(device, metho
             assert float((got - want).abs().max()) <= 1e-5, (p, float((got - want).abs().max()))
         else:
             assert servers["cuda"][p] == want
+
+
+def test_client_bank_on_card_matches_looped_and_launches_as_looped(device):
+    """The grouped client bank on the card: on Table 3's five families (two
+    clients each, 16×16×3, batch 32) its f32 stack stays within 1e-4 of
+    the looped one and, in float64, its input gradient within 1e-10 of the
+    looped one, relative to the largest value (in f32 ReLU and max-pool
+    make the input gradient jump where rounding moves a kink, with either
+    engine); one small
+    Co-Boosting epoch (cnn5, mlp, cnn5; batch 16, 3 generator steps)
+    launches each loss kernel as often with either engine, to finite
+    losses, with the ensembling weights on the simplex."""
+    from functools import partial
+
+    from repro_torch.config.train import OFLConfig
+    from repro_torch.core.client_bank import make_ensemble
+    from repro_torch.core.coboosting import run_coboosting
+    from repro_torch.models.cnn import cnn_apply, init_cnn
+    from repro_torch.models.generator import image_generator, init_image_generator
+    from repro_torch.utils.prng import Draws
+    from repro_torch.utils.trees import tree_map
+
+    classes, shape = 4, (16, 16, 3)
+    g = torch.Generator(device=device).manual_seed(0)
+    archs = ["cnn5", "cnn2", "miniresnet", "mlp", "lenet5"] * 2
+    applies = [partial(cnn_apply, a) for a in archs]
+    params = [init_cnn(g, a, classes, shape) for a in archs]
+    x = torch.rand((32, *shape), generator=g, device=device) * 2 - 1
+    u = torch.rand((len(archs), 32, classes), generator=g, device=device) * 2 - 1
+    params64 = [tree_map(torch.Tensor.double, p) for p in params]
+    out = {}
+    for impl in ("looped", "grouped"):
+        for prec, ps, xs in (("f32", params, x), ("f64", params64, x.double())):
+            fn, p = make_ensemble(applies, ps, impl=impl)
+            xi = xs.clone().requires_grad_()
+            la = fn(p, xi)
+            (gx,) = torch.autograd.grad(torch.sum(la * u), xi)
+            assert torch.isfinite(la).all() and torch.isfinite(gx).all()
+            out[impl, prec] = (la.detach(), gx)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    assert rel(out["grouped", "f32"][0], out["looped", "f32"][0]) <= 1e-4
+    assert rel(out["grouped", "f64"][1], out["looped", "f64"][1]) <= 1e-10
+
+    archs = ["cnn5", "mlp", "cnn5"]
+    clients = [init_cnn(g, a, classes, shape) for a in archs]
+    server = init_cnn(g, "cnn5", classes, shape)
+    gen0 = init_image_generator(g, 8, classes, shape)
+    launches = {}
+    for impl in ("looped", "grouped"):
+        cfg = OFLConfig(num_clients=3, epochs=1, gen_iters=3, batch_size=16, latent_dim=8, buffer_batches=2,
+                        ensemble_impl=impl)
+        reset_launch_counts()
+        st = run_coboosting(
+            [partial(cnn_apply, a) for a in archs], clients, partial(cnn_apply, "cnn5"), server,
+            lambda p, z, y: image_generator(p, z, y, shape), gen0, cfg, classes, Draws(1, device),
+        )
+        torch.cuda.synchronize()
+        launches[impl] = {n: launch_counts()[n] for n in ("ensemble_kl_fwd", "ensemble_kl_bwd", "ghm_ce_fwd", "ghm_ce_bwd")}
+        assert torch.isfinite(st.buffer.x).all() and abs(float(st.weights.sum()) - 1.0) < 1e-5
+    assert launches["grouped"] == launches["looped"] and min(launches["looped"].values()) > 0, launches
 
 
 def _decode_inputs(b, h, kh, hd, ps, w, window, dtype, device, seed=0, pos=None, max_pos=None):
