@@ -130,6 +130,34 @@ result line):
    come back with its 64 tokens, and tok/s and p50/p95 latency are printed.
    The run is then repeated under ``torch.profiler`` (device activity
    only) for the device's busy and idle share.
+5c. Shared-prefix serving (the radix prefix cache, ``lm_extend`` and
+   speculative decoding). First f32 at full width (embedding ×10 as in
+   phase 5): ``hot_prefix_stream``, 8 requests, prompt 128 (a 64-token
+   shared head on every other prompt), 16 new tokens, 4 slots, page 16,
+   arrivals 2 s apart on ``ManualClock``, through four engines: cold,
+   prefix cache, prefix cache with the target itself drafting (k = 4) and
+   speculative decoding with the ``seed + 1`` drafter, the launch counters
+   reset just before each run and read just after. Fatal: every engine's
+   tokens equal the cold engine's at every position before the request's
+   first near-tie (a cold-path top-2 margin at or below 1e-3, teacher-forced
+   through ``lm_forward``; the cold tokens must equal those argmaxes
+   there); the prefix engines splice (``spliced_admissions`` > 0) and
+   prefill fewer tokens than the cold one; the matched drafter's
+   acceptance exceeds 0.5; ``flash_attention_fwd`` launches exactly 30
+   layers × (the target's and the drafter's prefill dispatches), on the
+   CUDA cores; ``flash_decode`` launches in the prefix-only run and never in
+   a speculative one (verify runs through ``lm_extend``). Then bf16 through
+   ``repro_torch.launch.serve`` at phase 5's settings with ``--hot-fraction
+   0.5``: plain, ``--prefix-cache``, and ``--prefix-cache --spec-decode
+   --spec-k 4``, the counters reset when the scheduler's run starts (after
+   the launcher's warm-up): every request returns its 64 tokens and the
+   launch rule above holds on the tensor cores; the spliced tail's
+   last-position logits (head pages from a cold bf16 prefill of another hot
+   prompt, tail through ``lm_extend``) stay within 2× the cold bf16
+   prefill's own gap to the f32 cold prefill (largest |gap| relative to the
+   largest |f32 logit|, phase 6's rule). Printed: tok/s, p50/p95, TTFT,
+   prefill tokens, CoW copies, acceptance and the share of tokens equal to
+   the plain run on the same stream.
 5b. Telemetry (``repro_torch.obs``): phase 4's Co-Boosting run, then
    phase 5's serving run, each through its launcher with
    ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
@@ -259,6 +287,12 @@ SERVE_ARGV = [
     "--requests", str(SERVE["requests"]), "--prompt-len", str(SERVE["prompt"]), "--gen", str(SERVE["gen"]),
     "--max-slots", str(SERVE["slots"]), "--page-size", str(SERVE["page"]), "--device", "cuda",
 ]
+# phase 5c: hot-prefix traffic, f32 through four engines at full width, then
+# bf16 through the launcher at phase 5's settings
+HOT = dict(requests=8, prompt=128, gen=16, slots=4, page=16, shared=0.5, spec_k=4)
+HOT_FLAGS = (["--hot-fraction", "0.5"], ["--hot-fraction", "0.5", "--prefix-cache"],
+             ["--hot-fraction", "0.5", "--prefix-cache", "--spec-decode", "--spec-k", "4"])
+NEAR_TIE = 1e-3
 # the smallest share of the device time launched inside the ofl.epoch spans
 # that the three Algorithm 1 phase ranges must cover (phase 5b)
 PHASE_COVERAGE = 0.9
@@ -1575,6 +1609,219 @@ def serving_path():
 
 
 # ---------------------------------------------------------------------------
+# phase 5c
+
+
+def _launch_rule(where, counts, stats, drafter_prefills, spec, dtype):
+    """#5 once a layer for every prefill of the target and of the drafter
+    (a spliced admission's tail runs through ``lm_extend``, not #5); #8 in
+    a plain decode chunk and never in a speculative one."""
+    _check_variants(where, counts, dtype)
+    want = TRAIN["layers"] * (stats["prefill_dispatches"] + drafter_prefills)
+    if counts["flash_attention_fwd"] != want:
+        fail(f"{where}: flash_attention_fwd launched {counts['flash_attention_fwd']} times, expected {want} "
+             f"(30 x ({stats['prefill_dispatches']} target + {drafter_prefills} drafter prefills))")
+    if spec and counts["flash_decode"]:
+        fail(f"{where}: flash_decode launched {counts['flash_decode']} times in a speculative run")
+    if not spec and not counts["flash_decode"]:
+        fail(f"{where}: flash_decode never launched")
+
+
+def _cold_gates(params, cfg, reqs, cold):
+    """Per request, the positions before its first near-tie: the cold
+    path's teacher-forced top-2 margins (``lm_forward`` over the prompt and
+    its tokens); the cold tokens must be those argmaxes there."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import lm_forward
+
+    gates, smallest = {}, float("inf")
+    with torch.inference_mode():
+        for r in reqs:
+            toks = cold[r.rid]
+            seq = torch.as_tensor(np.concatenate([r.tokens, toks[:-1]]), device="cuda")[None]
+            rows = lm_forward(params, cfg, {"tokens": seq})[0][0, len(r.tokens) - 1 :]
+            top2 = rows.topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            smallest = min(smallest, float(margin.min()))
+            near = np.flatnonzero(margin <= NEAR_TIE)
+            gates[r.rid] = int(near[0]) if len(near) else len(toks)
+            if not np.array_equal(rows.argmax(-1).cpu().numpy()[: gates[r.rid]], toks[: gates[r.rid]]):
+                fail(f"prefix/spec f32: rid {r.rid}: cold tokens are not the teacher-forced argmaxes")
+    return gates, smallest
+
+
+def prefix_spec_f32():
+    """Four engines on one hot-prefix stream at full width in f32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine, hot_prefix_stream
+
+    dev = torch.device("cuda")
+    cfg = get_arch("smollm-135m").replace(dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    params["embed"]["table"] *= 10.0
+    other = init_lm(cfg, torch.Generator(device=dev).manual_seed(2))  # the seed + 1 drafter
+    prompts, _ = hot_prefix_stream(cfg.vocab_size, HOT["requests"], HOT["prompt"], HOT["gen"], seed=1,
+                                   budget_min=1, shared_fraction=HOT["shared"])
+    reqs = [Request(rid=i, tokens=p, max_new_tokens=HOT["gen"], arrival=2.0 * i) for i, p in enumerate(prompts)]
+    base = dict(max_slots=HOT["slots"], max_seq=HOT["prompt"] + HOT["gen"], max_new=HOT["gen"],
+                page_size=HOT["page"])
+    arms = {
+        "cold": ({}, None),
+        "prefix": (dict(prefix_cache=True), None),
+        "prefix+spec matched": (dict(prefix_cache=True, spec_k=HOT["spec_k"]), (cfg, params)),
+        "spec seed+1 drafter": (dict(spec_k=HOT["spec_k"]), (cfg, other)),
+    }
+    out, stats = {}, {}
+    for name, (knobs, drafter) in arms.items():
+        eng = ServeEngine(cfg, params, EngineConfig(**base, **knobs), drafter=drafter)
+        sched = ContinuousScheduler(eng, clock=ManualClock(tick=0.2))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        comps = sched.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: launch_counts()[n] for n in ATTN_KERNELS}
+        st = dict(eng.stats)
+        dp = eng.spec.prefill_dispatches if eng.spec is not None else 0
+        _launch_rule(f"prefix/spec f32 {name}", launch_counts(), st, dp, "spec_k" in knobs, "float32")
+        out[name], stats[name] = {c.rid: c.tokens for c in comps}, st
+        acc = st["draft_accepted"] / st["draft_proposed"] if st["draft_proposed"] else None
+        print(f"prefix/spec f32 {name}: {wall:.2f} s; stats {json.dumps(st)}; drafter prefills {dp}; acceptance "
+              f"{acc}; launches {json.dumps(counts)}", flush=True)
+    gates, smallest = _cold_gates(params, cfg, reqs, out["cold"])
+    gated = sum(gates.values())
+    for name in arms:
+        for rid, g in gates.items():
+            if not np.array_equal(out[name][rid][:g], out["cold"][rid][:g]):
+                fail(f"prefix/spec f32 {name}: rid {rid} tokens {out[name][rid].tolist()} != cold "
+                     f"{out['cold'][rid].tolist()} before its first near-tie (position {g})")
+    for name in ("prefix", "prefix+spec matched"):
+        st = stats[name]
+        if st["spliced_admissions"] <= 0 or st["prefill_tokens"] >= stats["cold"]["prefill_tokens"]:
+            fail(f"prefix/spec f32 {name}: spliced {st['spliced_admissions']}, prefill tokens "
+                 f"{st['prefill_tokens']} (cold {stats['cold']['prefill_tokens']})")
+    st = stats["prefix+spec matched"]
+    if st["draft_accepted"] <= 0.5 * st["draft_proposed"]:
+        fail(f"prefix/spec f32: the matched drafter's acceptance {st['draft_accepted']}/{st['draft_proposed']} <= 0.5")
+    print(f"prefix/spec f32 at full width: tokens of all four engines equal on {gated} of "
+          f"{HOT['requests'] * HOT['gen']} positions (those before each request's first near-tie), smallest "
+          f"cold top-2 margin {smallest:.3e}", flush=True)
+
+
+def _splice_gap():
+    """bf16 against f32: the spliced tail's last-position logits (head
+    pages from a cold prefill of the first hot prompt, tail through
+    ``lm_extend``) and a cold prefill's, both against the f32 cold
+    prefill, over the other hot prompts of the launcher's stream. Returns
+    the largest gap of each relative to the largest |f32 logit|, and the
+    f32 splice's own gap."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import cast_weights, init_lm, init_lm_state, lm_extend, lm_prefill
+    from repro_torch.serve import hot_prefix_stream
+
+    dev = torch.device("cuda")
+    ps, n = SERVE["page"], SERVE["prompt"] + SERVE["gen"]
+    f32 = get_arch("smollm-135m").replace(dtype="float32")
+    params = init_lm(f32, torch.Generator(device=dev).manual_seed(0))  # the launcher's weights (--seed 0)
+    prompts, _ = hot_prefix_stream(f32.vocab_size, SERVE["requests"], SERVE["prompt"], SERVE["gen"], seed=0,
+                                   budget_min=1, shared_fraction=0.5)
+    head = SERVE["prompt"] // 2 // ps  # full pages of the shared head
+    hot = [p for p in prompts if np.array_equal(p[: head * ps], prompts[0][: head * ps])]
+
+    def cold(cfg, w, p):
+        st = init_lm_state(cfg, 1, n, device=dev)
+        return lm_prefill(w, cfg, {"tokens": torch.as_tensor(p[None], device=dev)}, st)[0][0, 0].float()
+
+    def spliced(cfg, w, src, p):
+        st = init_lm_state(cfg, 1, n, device=dev)
+        lm_prefill(w, cfg, {"tokens": torch.as_tensor(src[None], device=dev)}, st)
+        pages = init_lm_state(cfg, 1, n, kv_pages=n // ps + 1, kv_page_size=ps, device=dev)
+        for dense, paged in (("k", "k_pages"), ("v", "v_pages")):
+            pages[paged][:, :head] = st[dense][:, 0, : head * ps].unflatten(1, (head, ps))
+        table = torch.full((1, n // ps), n // ps, dtype=torch.int32, device=dev)
+        table[0, :head] = torch.arange(head, dtype=torch.int32, device=dev)
+        table[0, head:] = torch.arange(head, n // ps, dtype=torch.int32, device=dev)
+        tail = torch.as_tensor(p[None, head * ps :], device=dev)
+        start = torch.full((1,), head * ps, dtype=torch.int32, device=dev)
+        return lm_extend(w, cfg, tail, pages, start, table)[0][0, -1].float()
+
+    gaps = {"cold": 0.0, "spliced": 0.0, "spliced_f32": 0.0}
+    with torch.inference_mode():
+        bf16 = f32.replace(dtype="bfloat16")
+        wb = cast_weights(params, bf16)
+        for p in hot[1:]:
+            ref = cold(f32, params, p)
+            scale = float(ref.abs().max())
+            gaps["cold"] = max(gaps["cold"], float((cold(bf16, wb, p) - ref).abs().max()) / scale)
+            gaps["spliced"] = max(gaps["spliced"], float((spliced(bf16, wb, hot[0], p) - ref).abs().max()) / scale)
+            gaps["spliced_f32"] = max(gaps["spliced_f32"],
+                                      float((spliced(f32, params, hot[0], p) - ref).abs().max()) / scale)
+    return gaps, len(hot) - 1
+
+
+def prefix_spec_path():
+    """bf16 through ``launch.serve`` on hot-prefix traffic: plain, prefix
+    cache, prefix cache with speculative decoding."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.serve.scheduler import FleetRouter
+
+    run = FleetRouter.run
+
+    def counted_run(self, requests):  # the counts cover the timed run, not the warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        return run(self, requests)
+
+    results = {}
+    FleetRouter.run = counted_run
+    try:
+        for flags in HOT_FLAGS:
+            name = " ".join(flags[2:]) or "plain"
+            result = serve.main(SERVE_ARGV + flags)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            st = result["stats"]
+            _launch_rule(f"hot-prefix serving {name}", counts, st, result["drafter_prefills"],
+                         "--spec-decode" in flags, "bfloat16")
+            comps = result["completions"]
+            if len(comps) != SERVE["requests"] or any(len(c.tokens) != SERVE["gen"] for c in comps):
+                fail(f"hot-prefix serving {name}: expected {SERVE['requests']} completions of {SERVE['gen']} tokens")
+            results[name] = result
+            toks = {c.rid: c.tokens for c in comps}
+            plain = {c.rid: c.tokens for c in results["plain"]["completions"]}
+            same = sum(int((toks[r] == plain[r]).sum()) for r in toks) / (SERVE["requests"] * SERVE["gen"])
+            acc = st["draft_accepted"] / st["draft_proposed"] if st["draft_proposed"] else None
+            summary = {k: result[k] for k in ("tok_per_s", "p50_s", "p95_s", "ttft_p50_s", "ttft_p95_s", "wall_s")}
+            print(f"hot-prefix serving {name}: {json.dumps(summary)}; prefill tokens {st['prefill_tokens']}, "
+                  f"spliced {st['spliced_admissions']}/{st['admitted']}, CoW copies {st['cow_copies']}, "
+                  f"acceptance {acc} ({st['draft_accepted']}/{st['draft_proposed']}, {st['spec_steps']} verify "
+                  f"steps), drafter prefills {result['drafter_prefills']}; share of tokens equal to the plain run "
+                  f"{same:.4f}; launches {json.dumps({n: counts[n] for n in ATTN_KERNELS})}", flush=True)
+    finally:
+        FleetRouter.run = run
+    gaps, n = _splice_gap()
+    print(f"hot-prefix serving, bf16 vs f32 cold prefill at the last prompt position over {n} hot prompts (largest "
+          f"|gap| / largest |f32 logit|): cold bf16 {gaps['cold']:.3e}, spliced bf16 {gaps['spliced']:.3e} (limit "
+          f"2 x {gaps['cold']:.3e}), spliced f32 {gaps['spliced_f32']:.3e}", flush=True)
+    if gaps["spliced"] > 2 * gaps["cold"]:
+        fail(f"hot-prefix serving: the spliced bf16 logits' gap {gaps['spliced']:.3e} beyond 2 x {gaps['cold']:.3e}")
+
+
+# ---------------------------------------------------------------------------
 # phase 5b
 
 
@@ -1822,6 +2069,8 @@ def main() -> None:
     bank_path({n: counts[n] for n in LOSS_KERNELS})
     serving_parity_f32()
     serving, serve_stats = serving_path()
+    prefix_spec_f32()
+    prefix_spec_path()
     telemetry_path({n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
     counts.update(lm_training_path())

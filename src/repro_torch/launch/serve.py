@@ -10,11 +10,19 @@ engine (default) or the static-batch baseline, on the GPU.
     python -m repro_torch.launch.serve --arch smollm-135m --reduced --device cpu \\
         --requests 6 --max-slots 3 --prompt-len 24 --gen 12
 
+    # shared-prefix serving: half the prompts open with one common head; the
+    # radix prefix cache splices its resident pages, and a drafter proposes
+    # --spec-k tokens a round that the target verifies in one extend
+    python -m repro_torch.launch.serve --arch smollm-135m --engine continuous \\
+        --kv-layout paged --prefix-cache --spec-decode --hot-fraction 0.5
+
     # static baseline: one batch, prefill then decode on the dense cache
     python -m repro_torch.launch.serve --reduced --device cpu --engine static \\
         --batch 3 --prompt-len 24 --gen 12
 
-Weights are random, made from ``--seed``. Full width serves in the
+Weights are random, made from ``--seed`` (the drafter's from ``--seed``
++ 1: a different random model, so its drafts are rarely accepted; the
+tokens are the target's either way). Full width serves in the
 config's bf16 activations with f32 params; ``--reduced`` runs the reduced
 variant in f32, as the JAX launcher does. Runs on ``cuda`` unless
 ``--device cpu`` is given. Arguments are checked, and the engine and KV
@@ -48,6 +56,7 @@ from repro_torch.serve import (
     KVPool,
     Request,
     ServeEngine,
+    hot_prefix_stream,
     latency_summary,
     static_generate,
 )
@@ -81,6 +90,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="paged: KVPool + flash-decode; dense: per-slot rectangle + SDPA")
     p.add_argument("--page-size", type=int, default=16, help="tokens per KV page (power of two)")
     p.add_argument("--pool-pages", type=int, default=0, help="KV pool capacity in pages (0 = full per-slot capacity)")
+    # prefix cache and speculative decoding (continuous arm)
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="radix prefix cache over refcounted KV pages: hot admissions splice resident "
+                        "prompt pages and prefill only the uncovered tail (paged layout only)")
+    p.add_argument("--spec-decode", action="store_true",
+                   help="speculative decoding: a drafter proposes --spec-k tokens a round, the target "
+                        "verifies them in one batched forward (temperature 0 only)")
+    p.add_argument("--drafter", default="smollm-135m",
+                   help="registry arch drafting for --spec-decode (reduced alongside --reduced; must share "
+                        "the target's vocabulary and be attention-only with a full cache)")
+    p.add_argument("--spec-k", type=int, default=4, help="draft tokens per verify round for --spec-decode")
+    p.add_argument("--hot-fraction", type=float, default=0.0,
+                   help="fraction of requests sharing a hot prompt prefix (exercises --prefix-cache; "
+                        "0 = fully cold traffic)")
     p.add_argument("--profile", action="store_true",
                    help="trace the timed run with torch.profiler and log the device's busy share and the "
                         "kernels by device time (the tracing slows the run down)")
@@ -131,7 +154,19 @@ def continuous_engine_config(args) -> EngineConfig:
         kv_layout=args.kv_layout,
         page_size=args.page_size,
         pool_pages=args.pool_pages,
+        prefix_cache=args.prefix_cache,
+        spec_k=args.spec_k if args.spec_decode else 0,
     )
+
+
+def drafter_config(args):
+    """The drafter's ModelConfig for --spec-decode: reduced alongside the
+    target (a full-size drafter against a reduced target would be slower
+    than what it accelerates)."""
+    dcfg = get_arch(args.drafter)
+    if args.reduced:
+        dcfg = reduced_variant(dcfg).replace(dtype="float32", param_dtype="float32")
+    return dcfg
 
 
 def validate_args(args, cfg) -> None:
@@ -150,6 +185,42 @@ def validate_args(args, cfg) -> None:
             raise SystemExit(f"{flag} must be >= {low}, got {value}")
     if args.request_rate < 0:
         raise SystemExit(f"--request-rate must be >= 0, got {args.request_rate}")
+    if args.prefix_cache and args.kv_layout == "dense":
+        raise SystemExit(
+            "--prefix-cache requires --kv-layout paged: prefix sharing IS page-table "
+            "splicing — the dense per-slot rectangle has no page units to share."
+        )
+    if not 0.0 <= args.hot_fraction <= 1.0:
+        raise SystemExit(f"--hot-fraction must be in [0, 1], got {args.hot_fraction}")
+    if args.spec_decode:
+        if args.spec_k < 1:
+            raise SystemExit(f"--spec-k must be >= 1, got {args.spec_k}")
+        if args.kv_layout != "paged":
+            raise SystemExit(
+                "--spec-decode requires --kv-layout paged: the batched verify is an "
+                "extend over the page-table cache view."
+            )
+        if args.temperature > 0.0:
+            raise SystemExit(
+                "--spec-decode requires --temperature 0: the accept-longest-greedy-run "
+                "verify is a greedy parity contract."
+            )
+        try:
+            dcfg = drafter_config(args)
+        except (KeyError, NotImplementedError) as ex:
+            raise SystemExit(f"--drafter: {ex.args[0]}")
+        if dcfg.sliding_window > 0:
+            raise SystemExit(
+                f"--drafter {dcfg.name} uses a sliding window ({dcfg.sliding_window}): the "
+                "ring cache cannot roll back rejected drafts (stale writes alias earlier "
+                "positions). Draft with a full-attention arch."
+            )
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise SystemExit(
+                f"--drafter {dcfg.name} vocab ({dcfg.vocab_size}) does not match "
+                f"{cfg.name} ({cfg.vocab_size}): drafted token ids would be meaningless "
+                "to the verifier."
+            )
     try:
         ecfg = continuous_engine_config(args)
         if args.kv_layout == "paged":
@@ -178,16 +249,29 @@ def run_static(args, cfg, params, device) -> dict:
 
 def run_continuous(args, cfg, params) -> dict:
     dt = 1.0 / args.request_rate if args.request_rate > 0 else 0.0
-    data = make_token_stream(args.seed, cfg.vocab_size, args.requests, args.prompt_len)
-    requests = [
-        Request(rid=i, tokens=data["tokens"][i, : args.prompt_len].astype(np.int32), max_new_tokens=args.gen, arrival=i * dt)
-        for i in range(args.requests)
-    ]
+    if args.hot_fraction > 0:
+        # every request asks for --gen tokens, so the stream's budgets go
+        # unused; they are drawn after the prompts, so budget_min=1 (valid
+        # for any --gen) leaves the prompts the reference's
+        prompts, _ = hot_prefix_stream(
+            cfg.vocab_size, args.requests, args.prompt_len, args.gen, seed=args.seed,
+            budget_min=1, shared_fraction=args.hot_fraction,
+        )
+    else:
+        data = make_token_stream(args.seed, cfg.vocab_size, args.requests, args.prompt_len)
+        prompts = [data["tokens"][i, : args.prompt_len].astype(np.int32) for i in range(args.requests)]
+    requests = [Request(rid=i, tokens=p, max_new_tokens=args.gen, arrival=i * dt) for i, p in enumerate(prompts)]
+    drafter = None
+    if args.spec_decode:
+        dcfg = drafter_config(args).replace(backend=cfg.backend)
+        device = params["embed"]["table"].device
+        gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        drafter = (dcfg, cast_weights(init_lm(dcfg, gen), dcfg))
     # with --metrics-out the engine's stats land in the process-global
     # registry under its replica label; without it the engine keeps its
     # private always-on registry
     registry = obs.registry() if args.metrics_out else None
-    engine = ServeEngine(cfg, params, continuous_engine_config(args), registry=registry)
+    engine = ServeEngine(cfg, params, continuous_engine_config(args), drafter=drafter, registry=registry)
     sched = ContinuousScheduler(engine)
     # every admission size and the decode chunk run once before timing
     engine.warmup(requests[0].tokens, min(2, args.gen))
@@ -216,9 +300,26 @@ def run_continuous(args, cfg, params) -> dict:
             "replica 0 kv pool: %d pages x %d tokens (%s layout), %d decode-time appends",
             engine.pool.n_pages, engine.pool.page_size, engine.layout, engine.stats["page_appends"],
         )
+    if args.prefix_cache:
+        admitted = max(engine.stats["admitted"], 1)
+        log.info(
+            "replica 0 prefix cache: %d/%d admissions spliced (hit rate %.0f%%), %d pages reused, %d CoW copies",
+            engine.stats["spliced_admissions"], engine.stats["admitted"],
+            100.0 * engine.stats["spliced_admissions"] / admitted, engine.stats["spliced_pages"],
+            engine.stats["cow_copies"],
+        )
+    if args.spec_decode:
+        proposed = max(engine.stats["draft_proposed"], 1)
+        log.info(
+            "replica 0 spec decode: %d verify steps, %d/%d drafts accepted (%.0f%%)",
+            engine.stats["spec_steps"], engine.stats["draft_accepted"], engine.stats["draft_proposed"],
+            100.0 * engine.stats["draft_accepted"] / proposed,
+        )
     log.info("sample continuation (rid 0): %s", completions[0].tokens[:16].tolist())
     _finalize_telemetry(args, [engine])
-    return {**s, "wall_s": wall, "device_busy_s": busy, "stats": dict(engine.stats), "completions": completions}
+    drafter_prefills = engine.spec.prefill_dispatches if engine.spec is not None else 0
+    return {**s, "wall_s": wall, "device_busy_s": busy, "stats": dict(engine.stats), "completions": completions,
+            "drafter_prefills": drafter_prefills}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -8,7 +8,10 @@ Entry points:
 * :func:`attn_prefill` — the same, and fills the cache;
 * :func:`attn_decode`  — one token against the cache: the dense per-slot
   layout attends through :func:`_sdpa_small` (plain PyTorch), the paged
-  layout through the flash-decode op.
+  layout through the flash-decode op;
+* :func:`attn_extend`  — a multi-token continuation against a paged cache
+  (prefix-cache tail prefill and speculative verify), through the table's
+  gathered view and :func:`_sdpa_small`, as the reference computes it.
 
 Full-sequence attention goes through the flash-attention op
 (:mod:`repro_torch.kernels.flash_attention`), paged decode through the
@@ -16,7 +19,8 @@ flash-decode op; ``cfg.backend`` routes both.
 
 Unlike the reference, whose arrays are immutable, the caches are updated
 **in place**: ``attn_prefill`` and ``attn_decode`` write the new K/V into
-the tensors they are given (views of the model state) and return them.
+the tensors they are given (views of the model state) and return them;
+``attn_extend`` writes the page buffers in place too.
 A serving state is written every decode step, and a copy per step would
 double its memory traffic.
 """
@@ -69,7 +73,7 @@ def _attn_mix(q, k, v, cfg):
 
 
 def _sdpa_small(q, k, v, bias, cfg):
-    """Unblocked attention for decode (Sq == 1). q: (B, Sq, H, hd);
+    """Unblocked attention for decode (Sq == 1) and extend. q: (B, Sq, H, hd);
     k, v: (B, Sk, KH, hd); ``bias`` is per batch row, ``(B, Sq, Sk)`` or
     right-aligned broadcastable to it, like the engine's ``(B, 1, Sk)``."""
     b, sq, h, hd = q.shape
@@ -176,6 +180,52 @@ def attn_decode(params, x, cfg, cache, pos, page_table=None):
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     bias = torch.where(valid, zero, NEG_INF)[:, None, :]  # (B, 1, cl)
     out = _sdpa_small(q, ck, cv, bias, cfg)
+    return _out_proj(out, params["wo"]), cache
+
+
+def attn_extend(params, x, cfg, cache, pos, page_table):
+    """Multi-token continuation against an existing paged cache. x: (B, S,
+    d); ``pos``: (B,) per-row start positions — row ``b``'s tokens occupy
+    logical positions ``pos[b] .. pos[b]+S-1``. The primitive behind
+    prefix-cache admission (prefill only the tail after a page-table splice)
+    and speculative verify (score k draft tokens in one forward).
+
+    K/V are written into the pages first (in place) and attended after:
+    each query sees every position at or before its own through the
+    table's gathered view, so pad-tail positions and rejected drafts hold
+    values no surviving query attended, overwritten by the next write there.
+    Writes past the table extent go to the buffer's last page, the engine's
+    scratch page (``DecodeWorker`` sizes the buffer one page past the pool,
+    and unallocated table entries point there too). Several rows may write
+    one scratch offset together; that page is never read unmasked, so the
+    order of those writes is moot. A sliding-window ring is refused: a
+    wrapped write could land in a page another request shares."""
+    if cfg.sliding_window > 0:
+        raise ValueError(
+            "attn_extend requires a full (non-ring) cache: sliding-window "
+            "layers wrap writes into shared/live pages"
+        )
+    b, s, _ = x.shape
+    posv = _positions(pos, b, x.device)
+    idx = posv[:, None] + torch.arange(s, dtype=torch.int32, device=x.device)[None, :]  # (B, S)
+    q, k_new, v_new = _project_qkv(params, x, cfg, idx)
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    ps, width = kp.shape[1], page_table.shape[1]
+    extent = width * ps
+    pid = torch.gather(page_table, 1, torch.clamp(idx // ps, max=width - 1).long())
+    pid = torch.where(idx < extent, pid, kp.shape[0] - 1).long()
+    off = (idx % ps).long()
+    kp[pid, off] = k_new.to(kp.dtype)
+    vp[pid, off] = v_new.to(vp.dtype)
+    # the logical cache through the table, attended densely (as the
+    # reference does: extend runs at admission and verify cadence)
+    table = page_table.long()
+    k_full = kp[table].reshape(b, extent, *kp.shape[2:])
+    v_full = vp[table].reshape(b, extent, *vp.shape[2:])
+    valid = torch.arange(extent, dtype=torch.int32, device=x.device)[None, None, :] <= idx[:, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    bias = torch.where(valid, zero, NEG_INF)  # (B, S, extent)
+    out = _sdpa_small(q, k_full, v_full, bias, cfg)
     return _out_proj(out, params["wo"]), cache
 
 

@@ -136,6 +136,8 @@ def _apply_block(p, x, cfg, mode: str, cache, pos, page_table):
         y = attn_lib.attn_train(p["attn"], h, cfg)
     elif mode == "prefill":
         y, _ = attn_lib.attn_prefill(p["attn"], h, cfg, cache)
+    elif mode == "extend":
+        y, _ = attn_lib.attn_extend(p["attn"], h, cfg, cache, pos, page_table)
     else:
         y, _ = attn_lib.attn_decode(p["attn"], h, cfg, cache, pos, page_table=page_table)
     x = x + y
@@ -214,6 +216,17 @@ def lm_prefill(params, cfg, batch, state, last_index=None):
         idx = torch.as_tensor(last_index, device=x.device).long().reshape(-1).expand(x.shape[0])
         x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
     return lm_logits(params, cfg, x_last), state
+
+
+def lm_extend(params, cfg, tokens, state, pos, page_table):
+    """Multi-token continuation against a paged state: consume ``tokens``
+    (B, S) starting at per-row positions ``pos`` (B,), write their K/V into
+    the pages (in place) and return the logits of every fed position
+    ((B, S, V)) and the state. The primitive behind prefix-cache tail
+    prefill (the tokens the splice did not cover; the true last row's
+    logits) and speculative verify (every draft's predecessor logits)."""
+    x = _run_blocks(params, cfg, embed_tokens(params, cfg, tokens), "extend", state=state, pos=pos, page_table=page_table)
+    return lm_logits(params, cfg, x), state
 
 
 def lm_decode(params, cfg, token, state, pos, page_table=None):

@@ -14,8 +14,8 @@ Namespaces:
 * ``serve.decode.*``   — decode chunks and the once-per-chunk host syncs
 * ``serve.slots.*``    — slot lifecycle
 * ``serve.kv.*``       — page pool traffic (allocs, appends, CoW, resets)
-* ``serve.prefix.*``   — prefix cache hits/splices (not ported yet: stay 0)
-* ``serve.spec.*``     — speculative draft/verify (not ported yet: stay 0)
+* ``serve.prefix.*``   — prefix cache hits/splices
+* ``serve.spec.*``     — speculative draft/verify
 * ``serve.router.*``   — fleet routing decisions
 * ``serve.request.*``  — per-request latency breakdown (TTFT, queue wait)
 * ``ofl.*``            — the Co-Boosting epoch (generator boost, EE weight

@@ -23,7 +23,18 @@ chunk is a Python loop of device ops that never reads the device: finished
 rows stay frozen on the device, and the host bounds the loop by the largest
 remaining budget it knows from the last sync (the step at which the
 reference's loop condition would stop, when no EOS token is set), so there
-is still one host sync per chunk.
+is still one host sync per chunk. A speculative chunk emits a
+data-dependent number of tokens a round, so the host cannot know when the
+reference's loop stops: it runs every round the budget bound allows, and a
+round after every row has finished changes nothing the reference would not
+(see :mod:`repro_torch.serve.spec_decode`).
+
+Two opt-in accelerations live on the decode worker, because they need the
+pool and the slot state: the **radix prefix cache** (``ecfg.prefix_cache``;
+a hot admission splices resident pages into its page table and prefills
+only the tail through ``lm_extend``, :meth:`DecodeWorker.admit_spliced`)
+and **speculative decoding** (``ecfg.spec_k`` and a ``drafter``; the chunk
+drafts and verifies through :class:`repro_torch.serve.spec_decode.SpecDecoder`).
 
 Two KV layouts (``EngineConfig.kv_layout``): **paged** (default) — a shared
 page pool; admission allocates the pages the bucketed prefill fills, decode
@@ -46,10 +57,10 @@ Telemetry (:mod:`repro_torch.obs`): ``stats`` is a
 labelled with the replica id); it counts dispatches and host syncs (one per
 decode chunk). A bare engine gets a private registry; a launcher passes the
 shared one. Host-side spans (``serve.prefill``, ``serve.handoff``,
-``serve.adopt``, ``serve.decode_chunk``, ``serve.sync``) bracket the hot
-path's actions and never force a device sync. Disaggregated fleets, the
-prefix cache and speculative decoding are not ported yet and raise; their
-counters stay 0.
+``serve.adopt``, ``serve.splice``, ``serve.decode_chunk``,
+``serve.spec.verify``, ``serve.sync``) bracket the hot path's actions and
+never force a device sync. Disaggregated fleets are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -60,7 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.models.transformer import init_lm_state, lm_decode, lm_prefill
+from repro_torch.models.transformer import init_lm_state, lm_decode, lm_extend, lm_prefill
 from repro_torch.obs import KV_GAUGES, SERVE_ENGINE_METRICS, MetricsRegistry, StatsView
 from repro_torch.serve.kv_pool import KVPool
 
@@ -94,9 +105,9 @@ class EngineConfig:
     kv_layout: str = "paged"  # paged (KVPool + flash-decode) | dense (SDPA)
     page_size: int = 16  # tokens per KV page (power of two)
     pool_pages: int = 0  # pool capacity; 0 => max_slots × full per-slot width
-    disagg: bool = False  # not ported yet
-    prefix_cache: bool = False  # not ported yet
-    spec_k: int = 0  # not ported yet
+    disagg: bool = False  # prefill and decode as separate fleet workers: not ported yet
+    prefix_cache: bool = False  # radix prefix cache over refcounted pages
+    spec_k: int = 0  # speculative decoding: drafts per verify step (0 = off)
 
     def __post_init__(self):
         for field in ("max_slots", "max_seq", "max_new", "decode_chunk", "prefill_bucket"):
@@ -106,10 +117,23 @@ class EngineConfig:
             raise ValueError(f"EngineConfig.kv_layout must be one of {KV_LAYOUTS}, got {self.kv_layout!r}")
         if self.spec_k < 0:
             raise ValueError(f"EngineConfig.spec_k must be >= 0, got {self.spec_k}")
-        for field, on in (("disagg", self.disagg), ("prefix_cache", self.prefix_cache), ("spec_k", self.spec_k > 0)):
-            if on:
-                raise NotImplementedError(f"EngineConfig.{field}: not ported yet")
+        if self.spec_k and self.temperature > 0.0:
+            raise ValueError(
+                "speculative decoding (spec_k > 0) requires temperature=0: the "
+                "accept-longest-greedy-run verify is a GREEDY parity contract; "
+                "sampled drafts would need rejection sampling the engine does "
+                "not implement. Drop --spec-decode or set --temperature 0."
+            )
+        if self.disagg:
+            raise NotImplementedError("EngineConfig.disagg: not ported yet")
         if self.kv_layout != "paged":
+            if self.prefix_cache:
+                raise ValueError(
+                    'prefix_cache=True requires kv_layout="paged": prefix sharing '
+                    "IS page-table splicing — the dense per-slot rectangle has no "
+                    "page units to share. Drop --prefix-cache or use --kv-layout "
+                    "paged."
+                )
             return
         if self.page_size < 1 or (self.page_size & (self.page_size - 1)):
             raise ValueError(
@@ -155,6 +179,9 @@ class KVHandoff(NamedTuple):
     n_alloc: int  # sealed pages per row (0 for the dense layout)
     staging_id: int  # staging-pool reservation on the source (-1 when none)
     source: Any  # the PrefillWorker that sealed this burst
+    tokens: Any = None  # (N, bucket) host prompt tokens: the adopting side
+    # feeds them to the speculative drafter's own prefill; never needed by
+    # the target model
 
     @property
     def n(self) -> int:
@@ -172,6 +199,24 @@ def bucket_len(cfg, ecfg: EngineConfig, prompt_len: int) -> int:
         cl = min(cfg.sliding_window, ecfg.max_seq)
         lb = prompt_len if prompt_len > cl else min(lb, cl)
     return lb
+
+
+def _require_extend_capable(cfg, ecfg: EngineConfig, feature: str) -> None:
+    """Both prefix sharing and speculative verify run :func:`lm_extend` —
+    "prefill semantics starting mid-cache" — which only a full attention
+    cache supports: an SWA ring wraps writes into pages another request may
+    share. (A recurrent carry could neither start mid-sequence nor roll
+    back; the port's configs are attention-only, ``group_pattern`` refuses
+    the other families.) Fails fast, before the device."""
+    from repro_torch.models.attention import cache_len
+
+    if cache_len(cfg, ecfg.max_seq) != ecfg.max_seq:
+        raise ValueError(
+            f"{cfg.name}: {feature} requires a full (non-ring) KV cache, but "
+            f"sliding_window={cfg.sliding_window} < max_seq={ecfg.max_seq} "
+            "makes decode writes wrap into earlier pages — a wrapped write "
+            "would land in a page another request shares"
+        )
 
 
 def _fresh_stats(registry: Optional[MetricsRegistry] = None, replica: int = 0) -> StatsView:
@@ -262,7 +307,7 @@ class PrefillWorker:
         self.stats["prefill_tokens"] += n * lb
         return KVHandoff(
             sealed=sealed, first_tok=toks0, true_lens=lens, budgets=buds,
-            n_alloc=n_alloc, staging_id=staging_id, source=self,
+            n_alloc=n_alloc, staging_id=staging_id, source=self, tokens=padded,
         )
 
     def release(self, handoff: KVHandoff) -> None:
@@ -274,10 +319,14 @@ class PrefillWorker:
 
 class DecodeWorker:
     """Decode half of the serving pair: owns the slots, the KV pool and the
-    chunked decode loop; ingests sealed prefills through ``adopt``."""
+    chunked decode loop; ingests sealed prefills through ``adopt``, and
+    hot-prefix admissions through ``admit_spliced`` (the matched pages are
+    resident in this worker's pool). With ``ecfg.spec_k`` and a
+    ``drafter=(cfg, params)`` the chunk drafts and verifies through
+    :class:`repro_torch.serve.spec_decode.SpecDecoder`."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig, *, stats: Optional[StatsView] = None,
-                 registry: Optional[MetricsRegistry] = None, replica: int = 0):
+                 registry: Optional[MetricsRegistry] = None, drafter=None, replica: int = 0):
         self.cfg = cfg
         self.ecfg = ecfg
         self.params = params
@@ -286,9 +335,67 @@ class DecodeWorker:
         self.replica = replica
         self.pool: Optional[KVPool] = KVPool(cfg, ecfg) if self.layout == "paged" else None
         self.stats = stats if stats is not None else _fresh_stats(registry, replica)
+        self.prefix = None
+        if ecfg.prefix_cache:
+            _require_extend_capable(cfg, ecfg, "prefix_cache")
+            from repro_torch.serve.prefix_cache import PrefixCache
+
+            self.prefix = PrefixCache(self.pool)
+        self._spec = None
+        if ecfg.spec_k > 0:
+            if drafter is None:
+                raise ValueError(
+                    "spec_k > 0 but no drafter: pass drafter=(cfg, params) — any "
+                    "registry config with attention-only mixers (e.g. a reduced "
+                    "smollm-135m) can draft"
+                )
+            if self.layout != "paged":
+                raise ValueError(
+                    f"{cfg.name}: spec_decode requires the paged layout — the "
+                    "batched verify is an lm_extend over the page-table view"
+                )
+            _require_extend_capable(cfg, ecfg, "spec_decode")
+            from repro_torch.serve.spec_decode import SpecDecoder
+
+            self._spec = SpecDecoder(self, drafter[0], drafter[1], ecfg.spec_k)
+        elif drafter is not None:
+            raise ValueError("drafter given but spec_k == 0: set spec_k to enable it")
         self.reset()
 
     # -- device programs ----------------------------------------------------
+
+    @torch.inference_mode()
+    def _cow(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """Copy-on-write, device half: duplicate pages ``src`` (M,) into
+        ``dst`` (M,) on every layer's page buffers ((L, P, page, KH, hd)).
+        The host half (``KVPool.cow``) already swapped the table entry;
+        ``src == dst == scratch`` rows are self-copies of the scratch page,
+        whose write order is moot."""
+        for name in ("k_pages", "v_pages"):
+            big = self._state.kv[name]
+            big[:, dst] = big[:, src]
+
+    @torch.inference_mode()
+    def _splice(self, tokens, slot: int, start: int, last_idx: int, budget: int, true_len: int,
+                table_row, cow_src, cow_dst) -> None:
+        """One hot-prefix admission: the copy-on-write page duplicate
+        (scratch onto scratch when none is needed), the slot's new page-table
+        row (spliced prefix pages and fresh tail pages), the tail extend
+        (only the tokens the radix match did not cover), first-token sampling
+        from the true last prompt position and the slot's bookkeeping."""
+        ds = self._state
+        self._cow(cow_src, cow_dst)
+        ds.page_table[slot] = table_row
+        start_v = torch.full((1,), start, dtype=torch.int32, device=self.device)
+        logits, _ = lm_extend(self.params, self.cfg, tokens, ds.kv, start_v, table_row[None, :])
+        tok0 = sample_tokens(logits[:, last_idx], self._gen, self.ecfg.temperature)[0]
+        ds.last_tok[slot, 0] = tok0
+        ds.pos[slot] = true_len
+        ds.active[slot] = budget > 1
+        ds.out[slot] = 0
+        ds.out[slot, 0] = tok0
+        ds.n_out[slot] = 1
+        ds.budget[slot] = budget
 
     @torch.inference_mode()
     def _adopt(self, sealed, toks0, slots, true_lens, budgets, table_rows, page_ids) -> None:
@@ -351,11 +458,18 @@ class DecodeWorker:
         # generate as of the last sync (bounds the next chunk's steps)
         self._budget: Dict[int, int] = {}
         self._left: Dict[int, int] = {}
+        # pages a slot borrowed from the prefix cache instead of allocating
+        # (its billed load is discounted by exactly this many pages)
+        self._spliced: Dict[int, int] = {}
         # evicted slots whose table rows still point at returned pages; their
         # ride-along writes must be re-aimed at the scratch page before the
         # next chunk (unless adoption rewrites the row first)
         self._stale_slots: set = set()
         self._gen = torch.Generator(device=dev).manual_seed(e.seed)
+        if self.prefix is not None:
+            self.prefix.clear()  # refcounts are wiped by pool.reset() below
+        if self._spec is not None:
+            self._spec.reset()
         if self.pool is not None:
             self.pool.reset()
             # +1: the scratch page — the write target of idle slots' frozen
@@ -395,14 +509,43 @@ class DecodeWorker:
 
     def billed_pages(self) -> int:
         """Resident load: the lifetime page bill of every resident request
-        (paged) or the resident count (dense)."""
+        (paged) or the resident count (dense). Spliced pages are discounted:
+        a request serving its prompt off shared prefix pages loads the pool
+        (and the router's least-loaded comparison) only by the pages it
+        grows into privately."""
         if self.pool is None:
             return self.ecfg.max_slots - len(self.free_slots)
-        return sum(self._lifetime_pages(tl, b) for tl, b in self._meta.values())
+        return sum(
+            self._lifetime_pages(tl, b) - self._spliced.get(slot, 0)
+            for slot, (tl, b) in self._meta.items()
+        )
+
+    def prefix_probe(self, tokens) -> int:
+        """Resident full prefix pages for a prompt (0 without the cache);
+        read-only: no LRU touch, so capacity checks and router affinity
+        probes never age the cache."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.probe(np.asarray(tokens, np.int32).reshape(-1))
+
+    def _headroom(self) -> int:
+        """Pages obtainable for growth right now: the free list plus every
+        cache-only page eviction could reclaim on demand."""
+        free = self.pool.free_pages
+        if self.prefix is not None:
+            free += self.prefix.reclaimable()
+        return free
+
+    def _make_room(self, n_pages: int) -> None:
+        """Ensure ``n_pages`` are on the free list, evicting LRU cache-only
+        pages if needed (their refcount drops to zero: truly orphaned)."""
+        if self.prefix is not None and n_pages > self.pool.free_pages:
+            self.prefix.make_room(n_pages - self.pool.free_pages)
 
     def _committed_growth(self) -> int:
         """Pages resident requests may still demand: lifetime bill minus the
-        pages already in their tables."""
+        pages already in their tables (attached prefix pages count: they
+        never need allocating again)."""
         return sum(
             max(self._lifetime_pages(tl, b) - len(self.pool.owned(slot)), 0)
             for slot, (tl, b) in self._meta.items()
@@ -420,11 +563,18 @@ class DecodeWorker:
         capacity net of every resident request's remaining growth. Billing
         lifetimes means residents can always grow to their full budget, so
         a scheduler that admits through this never exhausts the pool
-        mid-decode."""
+        mid-decode.
+
+        With the prefix cache, capacity is free pages plus reclaimable cache
+        pages, and each candidate still bills its full lifetime: a spliced
+        admission takes ``lifetime - matched`` fresh pages but pins its
+        ``matched`` pages (and a fully-covered prompt trades one splice for
+        one CoW page), so the lifetime is the exact worst-case claim either
+        way; the sharing shows in residents' committed growth."""
         n = min(len(requests), len(self.free_slots))
         if self.pool is None:
             return n
-        free = self.pool.free_pages - self._committed_growth()
+        free = self._headroom() - self._committed_growth()
         count = 0
         for tokens, budget in list(requests)[:n]:
             need = self._lifetime_pages(len(np.asarray(tokens).reshape(-1)), budget)
@@ -447,6 +597,7 @@ class DecodeWorker:
                     "dense handoff offered to a paged decode worker: the prefill and "
                     "decode halves of a pair must share kv_layout"
                 )
+            self._make_room(n * handoff.n_alloc)
             if n * handoff.n_alloc > self.pool.free_pages:
                 raise RuntimeError(
                     f"KV pool cannot adopt this burst: its sealed prefills need "
@@ -473,6 +624,7 @@ class DecodeWorker:
                 table_rows[j] = self.pool.table_row(slot)
                 self._meta[slot] = (int(handoff.true_lens[j]), int(handoff.budgets[j]))
                 self._pos_est[slot] = int(handoff.true_lens[j])
+                self._spliced[slot] = 0
                 self._stale_slots.discard(slot)  # row fully rewritten
         self.stats["pages_allocated"] += n * max(handoff.n_alloc, 0)
         dev = self.device
@@ -487,27 +639,124 @@ class DecodeWorker:
                 torch.as_tensor(page_ids, device=dev),
             )
         handoff.source.release(handoff)
+        if self._spec is not None:
+            self._spec.on_admit(gslots, np.asarray(handoff.tokens), [int(t) for t in handoff.true_lens])
         self.stats["admitted"] += n
         self.stats["handoffs"] += 1
         return gslots
 
+    def admit_spliced(self, tokens, budget: int) -> Optional[int]:
+        """Hot-prefix admission: splice the longest resident radix run into
+        a fresh slot's page table (``KVPool.attach``) and prefill only the
+        uncovered tail. Returns the slot, or ``None`` when the cache holds no
+        full page of this prompt (the caller takes the classic prefill).
+
+        The spliced pages hold the KV a full prefill of the same prompt
+        would write (same params, same positions), and the tail extend
+        continues with prefill semantics, so greedy tokens match the cold
+        admission. A prompt the cache covers entirely (tail length 0) must
+        replay its last token to recover that token's logits; the replay
+        writes one position of the final matched page, which others may
+        share, so it always goes through copy-on-write."""
+        if self.prefix is None:
+            return None
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        true_len = len(tokens)
+        pages = self.prefix.match(tokens)
+        if not pages:
+            return None
+        if not self.free_slots:
+            raise RuntimeError("spliced admission with no free slot")
+        e, ps = self.ecfg, self.pool.page_size
+        m = len(pages)
+        r = true_len - m * ps  # uncovered tail tokens
+        fresh = self.pool.required_pages(true_len) - m + (1 if r == 0 else 0)
+        self._make_room(fresh)
+        if fresh > self.pool.free_pages:
+            raise RuntimeError(
+                f"KV pool cannot admit this spliced request: its tail needs "
+                f"{fresh} fresh pages but only {self.pool.free_pages}/"
+                f"{self.pool.n_pages} are free (page_size={ps}). Drain a "
+                "request, raise --pool-pages, or lower --max-slots."
+            )
+        slot = self.free_slots.pop()
+        self.pool.attach(slot, pages)
+        cow_src = cow_dst = self.pool.scratch_page  # a self-copy of the scratch page
+        if r > 0:
+            self.pool.alloc(slot, self.pool.required_pages(true_len))
+            tb = min(-(-r // e.prefill_bucket) * e.prefill_bucket, e.max_seq)
+            start, last_idx = m * ps, r - 1
+            tail = np.zeros((1, tb), np.int32)
+            tail[0, :r] = tokens[m * ps :]
+        else:
+            # fully-covered prompt: CoW the final matched page, then replay
+            # the last prompt token into the private copy to recover its
+            # logits (the cache stores KV, not logits)
+            cow_src, cow_dst = self.pool.cow(slot, m - 1)
+            if cow_src != cow_dst:
+                self.stats["cow_copies"] += 1
+            tb, start, last_idx = 1, true_len - 1, 0
+            tail = tokens[None, -1:].copy()
+        table_row = self.pool.table_row(slot)  # after the CoW: private ids only
+        dev = self.device
+        with obs.span("serve.splice", replica=self.replica, matched=m, tail=tb):
+            self._splice(
+                torch.as_tensor(tail, device=dev), slot, start, last_idx, budget, true_len,
+                torch.as_tensor(table_row, device=dev),
+                torch.as_tensor([cow_src], dtype=torch.long, device=dev),
+                torch.as_tensor([cow_dst], dtype=torch.long, device=dev),
+            )
+        self._meta[slot] = (true_len, budget)
+        self._pos_est[slot] = true_len
+        self._budget[slot] = budget
+        self._left[slot] = budget - 1
+        self._spliced[slot] = m
+        self._stale_slots.discard(slot)  # row fully rewritten by the splice
+        if self._spec is not None:
+            # the drafter shares no pages: it prefills the full prompt into
+            # its own dense cache (cheap: the drafter is small by design)
+            lb = bucket_len(self.cfg, e, true_len)
+            padded = np.zeros((1, lb), np.int32)
+            padded[0, :true_len] = tokens
+            self._spec.on_admit([slot], padded, [true_len])
+        self.stats["admitted"] += 1
+        self.stats["prefix_hits"] += 1
+        self.stats["spliced_admissions"] += 1
+        self.stats["spliced_pages"] += m
+        self.stats["prefill_tokens"] += tb
+        self.stats["pages_allocated"] += fresh
+        return slot
+
     def _ensure_chunk_pages(self) -> None:
         """Grow resident slots' page tables to cover the positions the next
-        chunk can write, and re-aim stale rows at the scratch page. The
-        position estimate only moves down at sync, so back-to-back chunks
-        without a sync stay safe (a page is appended at worst one chunk
-        early, never late)."""
-        horizon = self.ecfg.decode_chunk
+        chunk can write, copy shared pages those writes would reach, and
+        re-aim stale rows at the scratch page. The position estimate only
+        moves down at sync, so back-to-back chunks without a sync stay safe
+        (a page is appended at worst one chunk early, never late)."""
+        # a speculative chunk's verify extend can write up to steps*(k+1)
+        # positions (plus rejected-draft values the next verify overwrites;
+        # writes past the planned coverage go to the scratch page)
+        horizon = self._spec.horizon if self._spec is not None else self.ecfg.decode_chunk
         # phase 1 — plan, no mutation: exhaustion raises with the engine untouched
         growth: List[Tuple[int, int, int]] = []  # (slot, have, need)
+        cows: List[Tuple[int, int]] = []  # (slot, page index) to copy-on-write
         total_new = 0
+        ps = self.pool.page_size
         for slot, (true_len, budget) in self._meta.items():
-            end = min(self._pos_est[slot] + horizon, true_len + budget)
+            est = self._pos_est[slot]
+            end = min(est + horizon, true_len + budget)
             need = self.pool.required_pages(end)
-            have = len(self.pool.owned(slot))
-            if need > have:
-                growth.append((slot, have, need))
-                total_new += need - have
+            owned = self.pool.owned(slot)
+            if need > len(owned):
+                growth.append((slot, len(owned), need))
+                total_new += need - len(owned)
+            # a write reaching a page another slot (or the prefix cache)
+            # still references must copy first: sharing is read-only
+            for idx in range(est // ps, min(-(-end // ps), len(owned))):
+                if self.pool.refcount(owned[idx]) > 1:
+                    cows.append((slot, idx))
+                    total_new += 1
+        self._make_room(total_new)
         if total_new > self.pool.free_pages:
             raise RuntimeError(
                 f"KV pool exhausted mid-decode: growing {len(growth)} slot(s) for "
@@ -536,23 +785,45 @@ class DecodeWorker:
                 upd_vals.append(pages[k])
             self.stats["page_appends"] += need - have
             self.stats["pages_allocated"] += need - have
+        cow_src: List[int] = []
+        cow_dst: List[int] = []
+        for slot, idx in cows:
+            src, dst = self.pool.cow(slot, idx)
+            if src == dst:
+                continue  # became private since the plan (same-batch dedup)
+            cow_src.append(src)
+            cow_dst.append(dst)
+            upd_rows.append(slot)
+            upd_cols.append(idx)
+            upd_vals.append(dst)
+            self.stats["cow_copies"] += 1
+            self.stats["pages_allocated"] += 1
         for slot, (true_len, budget) in self._meta.items():
             self._pos_est[slot] = min(self._pos_est[slot] + horizon, true_len + budget - 1)
+        dev = self.device
         if upd_rows:
-            dev = self.device
             self._state.page_table[
                 torch.as_tensor(upd_rows, device=dev), torch.as_tensor(upd_cols, device=dev)
             ] = torch.as_tensor(upd_vals, dtype=torch.int32, device=dev)
+        if cow_src:
+            self._cow(torch.as_tensor(cow_src, device=dev), torch.as_tensor(cow_dst, device=dev))
         self._stale_slots.clear()
 
     def decode_chunk(self) -> None:
-        """Up to ``decode_chunk`` batched decode steps with no host sync. The
-        span brackets the steps' enqueueing only."""
+        """Up to ``decode_chunk`` batched decode steps (or, with speculative
+        decoding, up to ``SpecDecoder.steps`` draft/verify rounds) with no
+        host sync. Every active row emits at least one token a step or a
+        round, so the largest remaining budget bounds both. The span
+        brackets the enqueueing only."""
         with obs.span("serve.decode_chunk", replica=self.replica):
             if self.pool is not None:
                 self._ensure_chunk_pages()
-            steps = min(self.ecfg.decode_chunk, max(self._left.values(), default=0))
-            self._chunk(steps)
+            limit = self._spec.steps if self._spec is not None else self.ecfg.decode_chunk
+            steps = min(limit, max(self._left.values(), default=0))
+            if self._spec is not None:
+                self._spec.chunk(steps)
+            else:
+                self._chunk(steps)
         for slot in self._left:
             self._left[slot] = max(self._left[slot] - steps, 0)
         self.stats["decode_chunks"] += 1
@@ -560,10 +831,14 @@ class DecodeWorker:
     def sync(self) -> Tuple[np.ndarray, np.ndarray]:
         """The once-per-chunk host sync: ``(active, n_out)`` as numpy, in one
         device-to-host transfer. Reconciles the host's position estimates
-        and remaining budgets to the truth."""
+        and remaining budgets to the truth; with speculative decoding the
+        draft counters ride the same transfer."""
         with obs.span("serve.sync", replica=self.replica):
-            both = torch.stack([self._state.active.to(torch.int32), self._state.n_out]).cpu().numpy()
-        active, n_out = both[0].astype(bool), both[1]
+            if self._spec is not None:
+                active, n_out = self._spec.sync()
+            else:
+                both = torch.stack([self._state.active.to(torch.int32), self._state.n_out]).cpu().numpy()
+                active, n_out = both[0].astype(bool), both[1]
         self.stats["host_syncs"] += 1
         for slot in self._left:
             self._left[slot] = self._budget[slot] - int(n_out[slot]) if active[slot] else 0
@@ -573,18 +848,22 @@ class DecodeWorker:
         return active, n_out
 
     def publish_gauges(self) -> None:
-        """Push the pool occupancy gauges into the stats registry, at
-        snapshot/dump time (occupancy is a point-in-time value)."""
+        """Push the pool and prefix-cache occupancy gauges into the stats
+        registry, at snapshot/dump time (occupancy is a point-in-time
+        value)."""
         if self.pool is None:
             return
         reg, labels = self.stats.registry, self.stats.labels
         reg.set_gauge(KV_GAUGES["free_pages"], self.pool.free_pages, **labels)
         reg.set_gauge(KV_GAUGES["pages_in_use"], self.pool.pages_in_use, **labels)
         reg.set_gauge(KV_GAUGES["capacity_pages"], self.pool.n_pages, **labels)
+        if self.prefix is not None:
+            reg.set_gauge(KV_GAUGES["reclaimable_pages"], self.prefix.reclaimable(), **labels)
 
     def fetch(self, slot: int, n_out: int) -> np.ndarray:
         """Copy a finished slot's tokens to the host and free the slot
-        (returning its pages to the pool in the paged layout)."""
+        (returning its orphaned pages to the pool in the paged layout; pages
+        the prefix cache pins stay resident for later splices)."""
         # a copy: on the CPU .cpu() would alias the slot's row, which the next request reuses
         toks = self._state.out[slot, :n_out].to("cpu", copy=True).numpy()
         self.free_slots.append(slot)
@@ -594,6 +873,7 @@ class DecodeWorker:
             self.pool.free_slot(slot)
             self._meta.pop(slot, None)
             self._pos_est.pop(slot, None)
+            self._spliced.pop(slot, None)
             self._stale_slots.add(slot)
         self.stats["evicted"] += 1
         return toks
@@ -602,10 +882,11 @@ class DecodeWorker:
 class ServeEngine:
     """One replica: a :class:`PrefillWorker` and a :class:`DecodeWorker`
     behind the engine API that :class:`repro_torch.serve.scheduler.FleetRouter`
-    (and ``ContinuousScheduler``) drives from the request queue."""
+    (and ``ContinuousScheduler``) drives from the request queue. ``drafter``
+    is ``(cfg, params)`` of the speculative drafter (with ``ecfg.spec_k``)."""
 
-    def __init__(self, cfg, params, ecfg: EngineConfig, *, registry: Optional[MetricsRegistry] = None,
-                 replica: int = 0):
+    def __init__(self, cfg, params, ecfg: EngineConfig, *, drafter=None,
+                 registry: Optional[MetricsRegistry] = None, replica: int = 0):
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -613,13 +894,23 @@ class ServeEngine:
         self.replica = replica
         self.stats: StatsView = _fresh_stats(registry, replica)
         self.prefill = PrefillWorker(cfg, params, ecfg, stats=self.stats, replica=replica)
-        self.decode = DecodeWorker(cfg, params, ecfg, stats=self.stats, replica=replica)
+        self.decode = DecodeWorker(cfg, params, ecfg, stats=self.stats, drafter=drafter, replica=replica)
 
     # -- delegation (the device state lives on the workers) -----------------
 
     @property
     def pool(self) -> Optional[KVPool]:
         return self.decode.pool
+
+    @property
+    def prefix(self):
+        """The decode worker's radix prefix cache (None when disabled)."""
+        return self.decode.prefix
+
+    @property
+    def spec(self):
+        """The decode worker's :class:`SpecDecoder` (None when off)."""
+        return self.decode._spec
 
     @property
     def free_slots(self) -> List[int]:
@@ -652,6 +943,11 @@ class ServeEngine:
     def max_admissible(self, requests) -> int:
         return self.decode.max_admissible(requests)
 
+    def prefix_hit_pages(self, tokens) -> int:
+        """Resident full prefix pages for a prompt (0 without the cache):
+        the router's prefix-affinity signal. Read-only: never ages the LRU."""
+        return self.decode.prefix_probe(tokens)
+
     def admit(self, tokens: np.ndarray, max_new_tokens: int) -> int:
         """Prefill one prompt (1-D int32) into a free slot; returns its id."""
         return self.admit_many([(tokens, max_new_tokens)])[0]
@@ -661,9 +957,12 @@ class ServeEngine:
 
         Prompts sharing a bucket length prefill together, split into
         power-of-two admission batches (4+2+1…); each batch is one prefill
-        sealed into a KVHandoff and one adoption on the decode worker.
-        Admission is atomic with respect to pool exhaustion: the whole
-        burst's page bill is checked first."""
+        sealed into a KVHandoff and one adoption on the decode worker. With
+        the prefix cache, a prompt with resident full pages is spliced
+        instead (:meth:`DecodeWorker.admit_spliced`), and every admitted
+        prompt's full pages are indexed afterwards. Admission is atomic with
+        respect to pool exhaustion: the whole burst's page bill is checked
+        first."""
         e = self.ecfg
         prepped = []
         for tokens, max_new_tokens in requests:
@@ -675,8 +974,27 @@ class ServeEngine:
             prepped.append((tokens, max_new_tokens))
         if len(prepped) > len(self.free_slots):
             raise RuntimeError(f"{len(prepped)} admissions but only {len(self.free_slots)} free slots")
+        prefix = self.decode.prefix
+        # probe (read-only) before any admission: duplicates within a burst
+        # do not share with each other — sharing starts on the next tick,
+        # once the first copy's pages are indexed below
+        hot = set()
+        if prefix is not None:
+            hot = {i for i, (tokens, _) in enumerate(prepped) if self.decode.prefix_probe(tokens) > 0}
         if self.pool is not None:
-            need = sum(self.pool.required_pages(self.bucket_len(len(t))) for t, _ in prepped)
+            # hot requests bill only their uncovered tail (+1 for the
+            # fully-covered replay's CoW page): evicting a matched page to
+            # make room frees exactly the page its splice would have saved
+            ps = self.pool.page_size
+            need = 0
+            for i, (tokens, _) in enumerate(prepped):
+                if i in hot:
+                    m = self.decode.prefix_probe(tokens)
+                    r = len(tokens) - m * ps
+                    need += self.pool.required_pages(len(tokens)) - m + (1 if r == 0 else 0)
+                else:
+                    need += self.pool.required_pages(self.bucket_len(len(tokens)))
+            self.decode._make_room(need)
             if need > self.pool.free_pages:
                 raise RuntimeError(
                     f"KV pool cannot admit this burst: its bucketed prefills need "
@@ -685,9 +1003,16 @@ class ServeEngine:
                     "requests, raise --pool-pages, or lower --max-slots."
                 )
         slots = [0] * len(prepped)
+        cold: List[int] = []
+        for i in range(len(prepped)):
+            slot = self.decode.admit_spliced(*prepped[i]) if i in hot else None
+            if slot is None:  # no hot prefix, or its match was evicted since the probe
+                cold.append(i)
+            else:
+                slots[i] = slot
         by_bucket: Dict[int, List[int]] = {}
-        for i, (tokens, _) in enumerate(prepped):
-            by_bucket.setdefault(self.bucket_len(len(tokens)), []).append(i)
+        for i in cold:
+            by_bucket.setdefault(self.bucket_len(len(prepped[i][0])), []).append(i)
         for idxs in by_bucket.values():
             while idxs:
                 n = 1 << (len(idxs).bit_length() - 1)  # largest pow2 <= len
@@ -695,13 +1020,20 @@ class ServeEngine:
                 handoff = self.prefill.prefill_group([prepped[i] for i in group])
                 for j, slot in zip(group, self.decode.adopt(handoff)):
                     slots[j] = slot
+        if prefix is not None:
+            # index every admitted prompt's full pages: spliced prompts map
+            # their chunks to the very pages they attached, so only fresh
+            # tails add nodes; the next burst with these prefixes splices
+            for i, (tokens, _) in enumerate(prepped):
+                prefix.insert(tokens, self.pool.owned(slots[i]))
         return slots
 
     def warmup(self, prompt: np.ndarray, budget: int = 2) -> None:
         """Run every admission size a serving run can hit — one per power of
         two up to ``max_slots`` for ``prompt``'s bucket — and a decode chunk
-        each, then reset: the first timed burst then finds the kernels
-        built and the allocator warm."""
+        each (and, with the prefix cache, both splice paths), then reset:
+        the first timed burst then finds the kernels built and the
+        allocator warm."""
         budget = min(budget, self.ecfg.max_new)
         n = 1
         while n <= self.ecfg.max_slots:
@@ -713,6 +1045,25 @@ class ServeEngine:
             self.decode_chunk()
             self.sync()
             n *= 2
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if (
+            self.decode.prefix is not None
+            and len(prompt) >= self.ecfg.page_size
+            and self.ecfg.max_slots >= 2
+            and len(prompt) + 1 + budget <= self.ecfg.max_seq
+        ):
+            # both splice paths: admit cold (seeds the cache), then re-admit
+            # the same prompt (fully-covered replay, tail of 1) and a
+            # one-token-longer prompt (tail extend, one prefill bucket)
+            self.reset()
+            self.admit(prompt, budget)
+            if self.max_admissible([(prompt, budget)]) >= 1:
+                self.admit(prompt, budget)
+            longer = np.concatenate([prompt, prompt[-1:]])
+            if self.max_admissible([(longer, budget)]) >= 1:
+                self.admit(longer, budget)
+            self.decode_chunk()
+            self.sync()
         self.reset()
 
     def decode_chunk(self) -> None:
@@ -725,5 +1076,5 @@ class ServeEngine:
         return self.decode.fetch(slot, n_out)
 
     def publish_gauges(self) -> None:
-        """Push the pool occupancy gauges into the stats registry."""
+        """Push the pool and prefix-cache occupancy gauges into the stats registry."""
         self.decode.publish_gauges()

@@ -161,9 +161,12 @@ class FleetRouter:
 
     def _route(self, req: Request, queues: List[deque]) -> int:
         """Least-loaded replica among those that could ever admit the
-        request (an empty pool fits its lifetime bill). The reference leads
-        this key with prefix-cache affinity; the port has no prefix cache
-        yet."""
+        request (an empty pool fits its lifetime bill). With prefix caching
+        on, **prefix affinity** leads the key: replicas' radix caches are
+        private, so a request lands where most of its prompt is already
+        resident (a splice there skips that much prefill and allocation);
+        billed-page load only breaks affinity ties, which keeps cold traffic
+        routed least-loaded as before."""
         feasible = [
             i
             for i, eng in enumerate(self.engines)
@@ -178,8 +181,11 @@ class FleetRouter:
                 "--pool-pages or shrink the prompt/budget."
             )
         self.stats["routed"] += 1
-        best = min(feasible, key=lambda i: self._load(i, queues))
-        obs.instant("serve.route", rid=req.rid, replica=best, prefix_hits=0)
+        hits = {i: self.engines[i].prefix_hit_pages(req.tokens) for i in feasible}
+        best = min(feasible, key=lambda i: (-hits[i],) + self._load(i, queues))
+        if hits[best] > 0:
+            self.stats["affinity_hits"] += 1
+        obs.instant("serve.route", rid=req.rid, replica=best, prefix_hits=hits[best])
         return best
 
     # -- the serving loop ---------------------------------------------------

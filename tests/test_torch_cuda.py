@@ -5,7 +5,9 @@ kernels for bf16, the CUDA-core kernels for f32; split-KV paged decode),
 against their plain PyTorch versions on the same inputs, a second call
 bitwise equal, one full-width training step, one small epoch of each
 distilling Table 1 baseline, the grouped client bank against the looped
-ensemble, and a paged decode run that telemetry adds no device sync to. These tests need a CUDA device (marker
+ensemble, a paged decode run that telemetry adds no device sync to, and
+the prefix cache with speculative decoding on hot-prefix traffic. These
+tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -758,6 +760,45 @@ def test_engine_on_card_launches_kernels_and_layouts_agree(device):
     )
     counts = launch_counts()
     assert counts["flash_attention_fwd"] > 0 and counts["flash_decode"] > 0
+    for c, p in zip(comps, prompts):
+        want = static_generate(params, cfg, {"tokens": torch.as_tensor(p[None], device=device)}, 8, max_seq=32)
+        np.testing.assert_array_equal(c.tokens, want[0].cpu().numpy())
+
+
+def test_prefix_spec_engine_on_card_matches_static(device):
+    """A reduced f32 model on hot-prefix traffic through the prefix cache
+    and speculative decoding (the target drafting itself): its greedy
+    tokens equal the static dense-SDPA path's, admissions splice, the
+    prefill kernel launches once a layer for every prefill of the target
+    and of the drafter, and paged decode never launches (verify runs
+    through ``lm_extend``)."""
+    import numpy as np
+
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import (
+        ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine, hot_prefix_stream, static_generate,
+    )
+
+    cfg = reduced_variant(get_arch("smollm-135m")).replace(dtype="float32", param_dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0))
+    params["embed"]["table"] *= 10.0  # wide logit margins for greedy parity
+    prompts, _ = hot_prefix_stream(cfg.vocab_size, 6, 24, 8, seed=1, budget_min=1, shared_fraction=0.5)
+    eng = ServeEngine(
+        cfg, params,
+        EngineConfig(max_slots=2, max_seq=32, max_new=8, decode_chunk=4, page_size=8, prefix_cache=True, spec_k=3),
+        drafter=(cfg, params),
+    )
+    sched = ContinuousScheduler(eng, clock=ManualClock(tick=0.2))
+    reqs = [Request(rid=i, tokens=p, max_new_tokens=8, arrival=2.0 * i) for i, p in enumerate(prompts)]
+    reset_launch_counts()
+    comps = sched.run(reqs)
+    counts = launch_counts()
+    st = eng.stats
+    assert st["spliced_admissions"] > 0 and st["spec_steps"] > 0
+    assert counts["flash_attention_fwd"] == cfg.num_layers * (st["prefill_dispatches"] + eng.spec.prefill_dispatches) > 0
+    assert counts["flash_decode"] == 0
     for c, p in zip(comps, prompts):
         want = static_generate(params, cfg, {"tokens": torch.as_tensor(p[None], device=device)}, 8, max_seq=32)
         np.testing.assert_array_equal(c.tokens, want[0].cpu().numpy())

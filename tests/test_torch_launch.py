@@ -65,7 +65,9 @@ def test_package_imports_neither_jax_nor_repro():
     """Import every module of repro_torch in a fresh interpreter; neither
     ``jax`` nor ``repro`` may end up loaded."""
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
-    assert "repro_torch.kernels.ensemble_kl.kernel" in names and "repro_torch.launch.ofl" in names
+    for name in ("repro_torch.kernels.ensemble_kl.kernel", "repro_torch.launch.ofl",
+                 "repro_torch.serve.prefix_cache", "repro_torch.serve.spec_decode"):
+        assert name in names
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
