@@ -33,7 +33,10 @@ result line):
    cases (Sq = Sk = 37, hd 32, with and without window and softcap) and at
    a non-causal windowed case with Sq > Sk, hd 128 and fully-masked rows;
    ``flash_decode`` at the smollm-135m decode shape (8 slots, 16-token
-   pages, 12 table entries) and in a windowed ring case.
+   pages, 12 table entries) and in a windowed ring case; both also at the
+   attention shapes of granite-3-2b (32 heads over 8 kv heads, hd 64) and
+   internlm2-20b (48 over 8, hd 128): the forward at 8 prompts × 128
+   tokens, decode at 8 slots with ragged positions, each timed in bf16.
    ``flash_decode`` (the split kernel and its combine) also at ragged
    positions from 0 to the last slot, at hd 128 with one query head per kv
    head, and with a table far wider than the live pages; a second call
@@ -158,6 +161,38 @@ result line):
    largest |f32 logit|, phase 6's rule). Printed: tok/s, p50/p95, TTFT,
    prefill tokens, CoW copies, acceptance and the share of tokens equal to
    the plain run on the same stream.
+5d. The rest of serving (about 2 minutes). First smollm-135m at full width
+   in f32 (embedding ×10) on an 8-request staggered stream (prompts of
+   96–160 tokens, 8–16 new tokens, 4 slots, page 16, ``ManualClock``)
+   through one engine, through 2 replicas behind ``FleetRouter`` with
+   replica 0 a disaggregated pair (``prefill_device="cpu"``: its prefill
+   worker runs the plain forward on the host's CPU with its own copy of the
+   weights, its decode worker on the card, every admission's sealed pages
+   copied across), and through 3 colocated replicas, the launch counters
+   reset just before each run and read just after. Fatal: every fleet's
+   tokens equal the single engine's at every position before the request's
+   first near-tie (as in phase 5c); each fleet uses every replica; the
+   pair's prefill worker is on the CPU, its decode worker on the card, and
+   it hands off; ``flash_attention_fwd`` launches exactly 30 layers × the
+   summed prefill dispatches of the replicas that prefill on the card, on
+   the CUDA cores, and ``flash_decode`` launches. Then bf16 through
+   ``repro_torch.launch.serve`` at phase 5's settings in turns: one engine,
+   ``--replicas 2`` (two colocated replicas), the same again, one engine,
+   the counters reset when the scheduler's run starts:
+   every request returns its 64 tokens, both replicas admit, the launch
+   rule holds on the tensor cores; tok/s of each turn and the medians are
+   printed, not gated. Then granite-3-2b at full width and depth (40
+   layers, d_model 2048, 32 heads over 8, random weights, embedding ×10):
+   the f32 paged engine against the static generator
+   (``static_generate``) on 4 requests × 16 tokens, as in phase 5
+   (tokens equal, smallest top-2 margin above 1e-3), #5 launching 40 ×
+   its prefill dispatches; then the launcher in bf16 at phase 5's
+   settings: every request returns its 64 tokens, #5 launches 40 × the
+   timed run's prefill dispatches on the tensor cores; printed: tok/s,
+   p50/p95, TTFT and the peak device memory. Last internlm2-20b at full
+   width cut to 4 of its 48 layers (f32, about 10.8 GB; 48 heads over 8,
+   hd 128, head ×10): the f32 engine against the static generator on 4
+   requests × 16 tokens. The phase's seconds are printed.
 5b. Telemetry (``repro_torch.obs``): phase 4's Co-Boosting run, then
    phase 5's serving run, each through its launcher with
    ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
@@ -280,6 +315,9 @@ BANK_TOL_F64 = 1e-10
 BANK_CHUNK = 3
 BANK_TURNS = ("looped", "grouped", "grouped", "looped")
 
+# the attention heads (H, KH, hd) of the two dense configs served besides
+# smollm-135m: granite-3-2b (a GQA group of 4) and internlm2-20b (6, hd 128)
+ARCH_HEADS = {"granite-3-2b": (32, 8, 64), "internlm2-20b": (48, 8, 128)}
 # serving: smollm-135m at full width
 SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
 SERVE_ARGV = [
@@ -293,6 +331,15 @@ HOT = dict(requests=8, prompt=128, gen=16, slots=4, page=16, shared=0.5, spec_k=
 HOT_FLAGS = (["--hot-fraction", "0.5"], ["--hot-fraction", "0.5", "--prefix-cache"],
              ["--hot-fraction", "0.5", "--prefix-cache", "--spec-decode", "--spec-k", "4"])
 NEAR_TIE = 1e-3
+# phase 5d: smollm-135m in f32 on a staggered stream through one engine and
+# two fleets (arms: each replica's prefill device, None = colocated; replica
+# 0 of n2 prefills on the CPU and decodes on the card), then the launcher
+# with --replicas 2; granite-3-2b at full depth; internlm2-20b cut to
+# INTERNLM2_LAYERS of its 48 layers (f32 fits one card)
+FLEET = dict(requests=8, prompt=(96, 161), budget=(8, 17), slots=4, max_seq=176,
+             arms={"single": (None,), "n2, replica 0 prefill on the CPU": ("cpu", None),
+                   "n3 colocated": (None, None, None)})
+INTERNLM2_LAYERS = 4
 # the smallest share of the device time launched inside the ofl.epoch spans
 # that the three Algorithm 1 phase ranges must cover (phase 5b)
 PHASE_COVERAGE = 0.9
@@ -796,7 +843,8 @@ def attention_kernels_vs_plain():
     errs = {n: 0.0 for n in ATTN_KERNELS}
     timing = {}
     n_pre, lb = SERVE["slots"], SERVE["prompt"]
-    timed = {"smollm prefill": "prefill", "smollm train": "train"}
+    timed = {"smollm prefill": "prefill", "smollm train": "train", "granite prefill": "granite prefill",
+             "internlm2 prefill": "internlm2 prefill"}
     attn_cases = [
         ("smollm prefill", (n_pre, lb, lb, 9, 3, 64), dict(causal=True)),
         ("smollm train", (TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], 9, 3, 64), dict(causal=True)),
@@ -804,6 +852,9 @@ def attention_kernels_vs_plain():
         ("tail window+softcap", (2, 37, 37, 4, 2, 32), dict(causal=True, window=8, softcap=30.0)),
         # Sq > Sk, non-causal, window: the rows past the keys + window see none of them
         ("cross hd128 window", (1, 70, 33, 4, 1, 128), dict(causal=False, window=16)),
+        # the prefill shapes of granite-3-2b (32 heads over 8, hd 64) and internlm2-20b (48 over 8, hd 128)
+        ("granite prefill", (n_pre, lb, lb) + ARCH_HEADS["granite-3-2b"], dict(causal=True)),
+        ("internlm2 prefill", (n_pre, lb, lb) + ARCH_HEADS["internlm2-20b"], dict(causal=True)),
     ]
     w_pages = (SERVE["prompt"] + SERVE["gen"]) // SERVE["page"]
     mid = SERVE["prompt"] + SERVE["gen"] // 2
@@ -815,7 +866,10 @@ def attention_kernels_vs_plain():
         ("hd128 one head per kv head", (2, 8, 8, 128, 64, 3, 0, [0, 150])),
         # max_seq far beyond the positions reached: 11 live entries of 256
         ("smollm decode wide table", (SERVE["slots"], 9, 3, 64, SERVE["page"], 256, 0, [mid] * SERVE["slots"])),
+        ("granite decode", (SERVE["slots"], *ARCH_HEADS["granite-3-2b"], SERVE["page"], w_pages, 0, ragged)),
+        ("internlm2 decode", (SERVE["slots"], *ARCH_HEADS["internlm2-20b"], SERVE["page"], w_pages, 0, ragged)),
     ]
+    decode_timed = {"smollm decode": "decode", "granite decode": "granite decode", "internlm2 decode": "internlm2 decode"}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
@@ -857,13 +911,13 @@ def attention_kernels_vs_plain():
             errs["flash_decode"] = max(errs["flash_decode"], _err(f"flash_decode {tag} {dname}", out, want))
             if not torch.equal(flash_decode_fwd(q, kp, vp, table, pos, **kw), out):
                 fail(f"flash_decode {tag} {dname}: a second call gave other bits")
-            if ci == 0:
+            if tag in decode_timed:
                 b, h, kh, hd = args[:4]
                 nbytes = 2 * keys * kh * hd * kp.element_size() + 2 * q.numel() * q.element_size() + 4 * (table.numel() + b)
                 flops = 4 * keys * (h // kh) * kh * hd
                 bound, bound_by = _bound_ms(nbytes, flops, peak)
                 call = lambda: flash_decode_fwd(q, kp, vp, table, pos, **kw)
-                timing[("flash_decode", "decode", dname)] = {
+                timing[("flash_decode", decode_timed[tag], dname)] = {
                     "ms": _time_ms(call),
                     "plain_ms": _time_ms(lambda: flash_decode_ref(q, kp, vp, table, pos, **kw)),
                     "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
@@ -1533,46 +1587,72 @@ def bank_path(coboost_counts):
 # phase 5
 
 
-def serving_parity_f32():
-    """Full width in f32: the paged engine's greedy tokens equal the static
-    dense-cache path's (same prefill kernel, decode through the plain
-    small-SDPA) for 4 requests x 16 tokens. As in the CPU serving test, the
-    tied embedding is scaled by 10 to widen the random model's top-2 logit
-    margins, and the static path's smallest margin must exceed 1e-3, so
-    that no near-tie decides a token."""
+def _engine_vs_static(where, cfg, params, n, gen, prompt, seed=1, gated=False):
+    """The paged engine's greedy tokens against the static dense-cache
+    path's (``static_generate``; the same prefill kernel, decode
+    through the plain small-SDPA) for ``n`` requests x ``gen`` tokens, in
+    f32 on the CUDA-core kernels. The static path's smallest teacher-forced
+    top-2 margin must exceed 1e-3, so that no near-tie decides a token;
+    ``gated``: each request's tokens are compared before its first
+    near-tie instead (as phase 5c does), and at least half of all positions
+    must be compared. Returns the smallest margin compared, the count of
+    positions compared, the engine's launches and its stats."""
     import numpy as np
     import torch
 
-    from repro_torch.config.registry import get_arch
     from repro_torch.data.synthetic import make_token_stream
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.transformer import init_lm, lm_forward
+    from repro_torch.models.transformer import lm_forward
     from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine, static_generate
+
+    dev = torch.device("cuda")
+    tokens = make_token_stream(seed, cfg.vocab_size, n, prompt)["tokens"]
+    ecfg = EngineConfig(max_slots=n, max_seq=prompt + gen, max_new=gen, page_size=SERVE["page"], kv_layout="paged")
+    eng = ServeEngine(cfg, params, ecfg)
+    reset_launch_counts()
+    comps = ContinuousScheduler(eng, clock=ManualClock()).run(
+        [Request(rid=i, tokens=tokens[i], max_new_tokens=gen) for i in range(n)]
+    )
+    counts = launch_counts()
+    prompts = torch.as_tensor(tokens, device=dev)
+    want = static_generate(params, cfg, {"tokens": prompts}, gen)
+    _check_variants(where, launch_counts(), "float32")
+    with torch.inference_mode():  # the logits behind each static token, teacher-forced
+        logits, _ = lm_forward(params, cfg, {"tokens": torch.cat([prompts, want[:, :-1].to(prompts.dtype)], 1)})
+    top2 = logits[:, prompt - 1 :].topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    del logits
+    # per request, the positions before its first near-tie (all of them when not gated)
+    gates = [int(np.flatnonzero(m <= NEAR_TIE)[0]) if (m <= NEAR_TIE).any() else gen for m in margins]
+    if not gated and min(gates) < gen:
+        fail(f"{where}: the static path has a near-tie (top-2 margin {margins.min():.2e}), the comparison cannot decide")
+    if sum(gates) < n * gen / 2:
+        fail(f"{where}: near-ties leave {sum(gates)} of {n * gen} positions to compare (gates {gates})")
+    margin = float(min(m[:g].min() for m, g in zip(margins, gates) if g))
+    want = want.cpu().numpy()
+    got = np.stack([c.tokens for c in comps])
+    if not all(np.array_equal(a[:g], b[:g]) for a, b, g in zip(got, want, gates)):
+        fail(f"{where}: paged engine tokens {got.tolist()} != static dense-cache path {want.tolist()} "
+             f"(compared before positions {gates})")
+    return margin, sum(gates), counts, dict(eng.stats)
+
+
+def serving_parity_f32():
+    """Full width in f32: the paged engine's greedy tokens equal the static
+    dense-cache path's for 4 requests x 16 tokens. As in the CPU serving
+    test, the tied embedding is scaled by 10 to widen the random model's
+    top-2 logit margins."""
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
 
     dev = torch.device("cuda")
     cfg = get_arch("smollm-135m").replace(dtype="float32")
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
     params["embed"]["table"] *= 10.0
-    n, gen, prompt = 4, 16, SERVE["prompt"]
-    tokens = make_token_stream(1, cfg.vocab_size, n, prompt)["tokens"]
-    ecfg = EngineConfig(max_slots=n, max_seq=prompt + gen, max_new=gen, page_size=SERVE["page"], kv_layout="paged")
-    reset_launch_counts()
-    comps = ContinuousScheduler(ServeEngine(cfg, params, ecfg), clock=ManualClock()).run(
-        [Request(rid=i, tokens=tokens[i], max_new_tokens=gen) for i in range(n)]
-    )
-    prompts = torch.as_tensor(tokens, device=dev)
-    want = static_generate(params, cfg, {"tokens": prompts}, gen)
-    _check_variants("f32 serving", launch_counts(), "float32")
-    with torch.inference_mode():  # the logits behind each static token, teacher-forced
-        logits, _ = lm_forward(params, cfg, {"tokens": torch.cat([prompts, want[:, :-1].to(prompts.dtype)], 1)})
-    top2 = logits[:, prompt - 1 :].topk(2, dim=-1).values
-    margin = float((top2[..., 0] - top2[..., 1]).min())
-    if margin <= 1e-3:
-        fail(f"f32 serving: the static path has a near-tie (top-2 margin {margin:.2e}), the comparison cannot decide")
-    want = want.cpu().numpy()
-    got = np.stack([c.tokens for c in comps])
-    if not np.array_equal(got, want):
-        fail(f"f32 serving: paged engine tokens {got.tolist()} != static dense-cache path {want.tolist()}")
+    n, gen = 4, 16
+    margin, _, _, _ = _engine_vs_static("f32 serving", cfg, params, n, gen, SERVE["prompt"])
     print(f"serving f32 at full width: paged engine == static dense-cache path (same prefill kernel) on {n}x{gen} "
           f"tokens, smallest top-2 margin {margin:.3e}", flush=True)
 
@@ -1612,22 +1692,23 @@ def serving_path():
 # phase 5c
 
 
-def _launch_rule(where, counts, stats, drafter_prefills, spec, dtype):
+def _launch_rule(where, counts, stats, drafter_prefills, spec, dtype, layers=None):
     """#5 once a layer for every prefill of the target and of the drafter
     (a spliced admission's tail runs through ``lm_extend``, not #5); #8 in
     a plain decode chunk and never in a speculative one."""
     _check_variants(where, counts, dtype)
-    want = TRAIN["layers"] * (stats["prefill_dispatches"] + drafter_prefills)
+    layers = layers or TRAIN["layers"]
+    want = layers * (stats["prefill_dispatches"] + drafter_prefills)
     if counts["flash_attention_fwd"] != want:
         fail(f"{where}: flash_attention_fwd launched {counts['flash_attention_fwd']} times, expected {want} "
-             f"(30 x ({stats['prefill_dispatches']} target + {drafter_prefills} drafter prefills))")
+             f"({layers} x ({stats['prefill_dispatches']} target + {drafter_prefills} drafter prefills))")
     if spec and counts["flash_decode"]:
         fail(f"{where}: flash_decode launched {counts['flash_decode']} times in a speculative run")
     if not spec and not counts["flash_decode"]:
         fail(f"{where}: flash_decode never launched")
 
 
-def _cold_gates(params, cfg, reqs, cold):
+def _cold_gates(params, cfg, reqs, cold, where="prefix/spec f32"):
     """Per request, the positions before its first near-tie: the cold
     path's teacher-forced top-2 margins (``lm_forward`` over the prompt and
     its tokens); the cold tokens must be those argmaxes there."""
@@ -1648,7 +1729,7 @@ def _cold_gates(params, cfg, reqs, cold):
             near = np.flatnonzero(margin <= NEAR_TIE)
             gates[r.rid] = int(near[0]) if len(near) else len(toks)
             if not np.array_equal(rows.argmax(-1).cpu().numpy()[: gates[r.rid]], toks[: gates[r.rid]]):
-                fail(f"prefix/spec f32: rid {r.rid}: cold tokens are not the teacher-forced argmaxes")
+                fail(f"{where}: rid {r.rid}: cold tokens are not the teacher-forced argmaxes")
     return gates, smallest
 
 
@@ -1775,19 +1856,11 @@ def prefix_spec_path():
     cache, prefix cache with speculative decoding."""
     import torch
 
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts
     from repro_torch.launch import serve
-    from repro_torch.serve.scheduler import FleetRouter
-
-    run = FleetRouter.run
-
-    def counted_run(self, requests):  # the counts cover the timed run, not the warm-up
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        return run(self, requests)
 
     results = {}
-    FleetRouter.run = counted_run
+    undo = _counted_runs()  # the counts cover the timed run, not the warm-up
     try:
         for flags in HOT_FLAGS:
             name = " ".join(flags[2:]) or "plain"
@@ -1812,13 +1885,224 @@ def prefix_spec_path():
                   f"steps), drafter prefills {result['drafter_prefills']}; share of tokens equal to the plain run "
                   f"{same:.4f}; launches {json.dumps({n: counts[n] for n in ATTN_KERNELS})}", flush=True)
     finally:
-        FleetRouter.run = run
+        undo()
     gaps, n = _splice_gap()
     print(f"hot-prefix serving, bf16 vs f32 cold prefill at the last prompt position over {n} hot prompts (largest "
           f"|gap| / largest |f32 logit|): cold bf16 {gaps['cold']:.3e}, spliced bf16 {gaps['spliced']:.3e} (limit "
           f"2 x {gaps['cold']:.3e}), spliced f32 {gaps['spliced_f32']:.3e}", flush=True)
     if gaps["spliced"] > 2 * gaps["cold"]:
         fail(f"hot-prefix serving: the spliced bf16 logits' gap {gaps['spliced']:.3e} beyond 2 x {gaps['cold']:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5d
+
+
+def _counted_runs():
+    """Patch ``FleetRouter.run`` (and so ``ContinuousScheduler.run``) to
+    reset the launch counters when a run starts: the counts then cover the
+    launcher's timed run, not its warm-up. Returns the undo."""
+    import torch
+
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.serve.scheduler import FleetRouter
+
+    run = FleetRouter.run
+
+    def counted_run(self, requests):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        return run(self, requests)
+
+    FleetRouter.run = counted_run
+    return lambda: setattr(FleetRouter, "run", run)
+
+
+def fleet_f32():
+    """smollm-135m at full width in f32 on a staggered stream: one engine,
+    two replicas with replica 0 a cross-device pair (prefill on the CPU,
+    decode on the card), three colocated replicas, each on
+    ``ManualClock``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, FleetRouter, ManualClock, ServeEngine, staggered_stream
+
+    dev = torch.device("cuda")
+    cfg = get_arch("smollm-135m").replace(dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    params["embed"]["table"] *= 10.0
+    reqs = staggered_stream(cfg.vocab_size, FLEET["requests"], seed=1, prompt_range=FLEET["prompt"],
+                            budget_range=FLEET["budget"])
+    ecfg = dict(max_slots=FLEET["slots"], max_seq=FLEET["max_seq"], max_new=FLEET["budget"][1], page_size=SERVE["page"])
+    out = {}
+    for name, placement in FLEET["arms"].items():
+        engines = [ServeEngine(cfg, params, EngineConfig(**ecfg), prefill_device=d, replica=i)
+                   for i, d in enumerate(placement)]
+        clock = ManualClock(tick=0.2)
+        sched = ContinuousScheduler(engines[0], clock=clock) if len(engines) == 1 else FleetRouter(engines, clock=clock)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        comps = sched.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        replicas = [dict(e.stats) for e in engines]
+        # #5 runs only where a prefill worker sits on the card
+        on_card = [r for r, e in zip(replicas, engines) if e.prefill.device.type == "cuda"]
+        _launch_rule(f"fleet f32 {name}", counts, {"prefill_dispatches": sum(r["prefill_dispatches"] for r in on_card)},
+                     0, False, "float32")
+        used = sorted({c.replica for c in comps})
+        if used != list(range(len(engines))):
+            fail(f"fleet f32 {name}: replicas used {used}")
+        for i, (d, e, r) in enumerate(zip(placement, engines, replicas)):
+            # a pair apart: every handoff it made crossed from the CPU to the card
+            if d is not None and (e.prefill.device.type != "cpu" or e.decode.device.type != "cuda"
+                                  or r["handoffs"] == 0):
+                fail(f"fleet f32 {name}: replica {i} prefill on {e.prefill.device}, decode on "
+                     f"{e.decode.device}, {r['handoffs']} handoffs")
+        out[name] = {c.rid: c.tokens for c in comps}
+        print(f"fleet f32 {name}: {wall:.2f} s; per replica (prefills, handoffs, decode chunks) "
+              f"{[(r['prefill_dispatches'], r['handoffs'], r['decode_chunks']) for r in replicas]}; router "
+              f"{json.dumps(dict(sched.stats))}; launches {json.dumps({n: counts[n] for n in ATTN_KERNELS})}",
+              flush=True)
+    gates, smallest = _cold_gates(params, cfg, reqs, out["single"], where="fleet f32")
+    for name in FLEET["arms"]:
+        for rid, g in gates.items():
+            if not np.array_equal(out[name][rid][:g], out["single"][rid][:g]):
+                fail(f"fleet f32 {name}: rid {rid} tokens {out[name][rid].tolist()} != single engine "
+                     f"{out['single'][rid].tolist()} before its first near-tie (position {g})")
+    print(f"fleet f32 at full width: both fleets' tokens equal the single engine's on {sum(gates.values())} of "
+          f"{sum(len(t) for t in out['single'].values())} positions (those before each request's first near-tie), "
+          f"smallest top-2 margin {smallest:.3e}", flush=True)
+
+
+def _serve_summary(result):
+    return {k: result[k] for k in ("tok_per_s", "p50_s", "p95_s", "ttft_p50_s", "ttft_p95_s", "wall_s")}
+
+
+def _served_in_full(where, result, vocab):
+    comps = result["completions"]
+    if len(comps) != SERVE["requests"] or any(len(c.tokens) != SERVE["gen"] for c in comps):
+        fail(f"{where}: expected {SERVE['requests']} completions of {SERVE['gen']} tokens")
+    if any(int(t) < 0 or int(t) >= vocab for c in comps for t in c.tokens):
+        fail(f"{where}: token id out of the vocabulary")
+
+
+def fleet_launcher(card):
+    """bf16 through ``launch.serve`` at phase 5's settings: one engine and
+    ``--replicas 2`` (two colocated replicas), in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve
+
+    tok_s = {"single": [], "fleet": []}
+    undo = _counted_runs()
+    try:
+        for turn in ("single", "fleet", "fleet", "single"):
+            fleet = turn == "fleet"
+            result = serve.main(SERVE_ARGV + (["--replicas", "2"] if fleet else []))
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            where = f"fleet bf16 {turn}"
+            _served_in_full(where, result, 49152)
+            _launch_rule(where, counts, result["stats"], 0, False, "bfloat16")
+            if fleet and (len(result["replicas"]) != 2 or min(r["admitted"] for r in result["replicas"]) == 0):
+                fail(f"{where}: replicas {result['replicas']}")
+            tok_s[turn].append(result["tok_per_s"])
+            print(f"{where}: {json.dumps(_serve_summary(result))}; per replica (admitted, prefills, handoffs) "
+                  f"{[(r['admitted'], r['prefill_dispatches'], r['handoffs']) for r in result['replicas']]}; router "
+                  f"{json.dumps(result['router'])}; launches {json.dumps({n: counts[n] for n in ATTN_KERNELS})}",
+                  flush=True)
+    finally:
+        undo()
+    print(f"fleet bf16, launch.serve at phase 5's settings in turns single, fleet, fleet, single ({card}): tok/s "
+          f"single {tok_s['single']}, --replicas 2 {tok_s['fleet']}; medians "
+          f"{float(np.median(tok_s['single'])):.1f} and {float(np.median(tok_s['fleet'])):.1f}", flush=True)
+
+
+def granite_path(card):
+    """granite-3-2b at full width and depth: the f32 engine against the
+    static generator, then the bf16 launcher at phase 5's settings."""
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_lm
+
+    dev = torch.device("cuda")
+    cfg = get_arch("granite-3-2b")
+    f32 = cfg.replace(dtype="float32")
+    params = init_lm(f32, torch.Generator(device=dev).manual_seed(1))
+    params["embed"]["table"] *= 10.0  # tied: wide top-2 margins
+    t0 = time.perf_counter()
+    margin, compared, counts, stats = _engine_vs_static("granite-3-2b f32", f32, params, 4, 16, SERVE["prompt"],
+                                                        gated=True)
+    _launch_rule("granite-3-2b f32", counts, stats, 0, False, "float32", cfg.num_layers)
+    print(f"granite-3-2b f32 at full width and depth ({cfg.num_layers} layers, d_model {cfg.d_model}): paged "
+          f"engine == static generator on {compared} of 4x16 positions (those before each request's first "
+          f"near-tie), smallest top-2 margin compared {margin:.3e}, "
+          f"{time.perf_counter() - t0:.1f} s; launches {json.dumps({n: counts[n] for n in ATTN_KERNELS})}",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    undo = _counted_runs()
+    try:
+        argv = [a if a != "smollm-135m" else "granite-3-2b" for a in SERVE_ARGV]
+        result = serve.main(argv)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    _served_in_full("granite-3-2b bf16", result, cfg.vocab_size)
+    _launch_rule("granite-3-2b bf16", counts, result["stats"], 0, False, "bfloat16", cfg.num_layers)
+    print(f"granite-3-2b bf16, launch.serve at phase 5's settings ({card}): {json.dumps(_serve_summary(result))}; "
+          f"max_memory_allocated {peak} bytes; prefills {result['stats']['prefill_dispatches']}; launches "
+          f"{json.dumps({n: counts[n] for n in ATTN_KERNELS})}", flush=True)
+    return {n: counts[n] for n in ATTN_KERNELS}
+
+
+def internlm2_path():
+    """internlm2-20b at full width, cut to INTERNLM2_LAYERS of its 48
+    layers: the f32 engine against the static generator."""
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.utils.trees import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = get_arch("internlm2-20b").replace(dtype="float32", num_layers=INTERNLM2_LAYERS)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    params["lm_head"]["kernel"] *= 10.0  # untied: wide top-2 margins
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    t0 = time.perf_counter()
+    margin, compared, counts, stats = _engine_vs_static("internlm2-20b f32", cfg, params, 4, 16, SERVE["prompt"],
+                                                        gated=True)
+    _launch_rule("internlm2-20b f32", counts, stats, 0, False, "float32", cfg.num_layers)
+    print(f"internlm2-20b f32 at full width, {cfg.num_layers} of 48 layers ({n_params} parameters): paged engine == "
+          f"static generator on {compared} of 4x16 positions (those before each request's first near-tie), smallest "
+          f"top-2 margin compared {margin:.3e}, {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps({n: counts[n] for n in ATTN_KERNELS})}", flush=True)
+
+
+def rest_of_serving_path(card):
+    t0 = time.perf_counter()
+    fleet_f32()
+    fleet_launcher(card)
+    granite = granite_path(card)
+    internlm2_path()
+    print(f"rest-of-serving phase (5d): {time.perf_counter() - t0:.1f} s", flush=True)
+    return granite
 
 
 # ---------------------------------------------------------------------------
@@ -2052,9 +2336,9 @@ def lm_distill_path():
 
 
 def main() -> None:
-    environment()
     import torch
 
+    card = environment()
     errs, timing = kernels_vs_plain()
     attn_errs, attn_timing = attention_kernels_vs_plain()
     errs.update(attn_errs)
@@ -2071,11 +2355,12 @@ def main() -> None:
     serving, serve_stats = serving_path()
     prefix_spec_f32()
     prefix_spec_path()
+    granite = rest_of_serving_path(card)
     telemetry_path({n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
     counts.update(lm_training_path())
     print(f"flash_attention_fwd launches: serving path {serving['flash_attention_fwd']} (tensor cores "
-          f"{serving['flash_attention_fwd_sm90']}), LM training path {counts['flash_attention_fwd']} (tensor cores "
+          f"{serving['flash_attention_fwd_sm90']}), granite-3-2b serving {granite['flash_attention_fwd']}, LM training path {counts['flash_attention_fwd']} (tensor cores "
           f"{counts['flash_attention_fwd_sm90']}; the table's)", flush=True)
     lm_distill_path()
     print("kernels: " + json.dumps({n: {"launches": counts[n], "max_abs_err": errs[n]} for n in REPLACES}))

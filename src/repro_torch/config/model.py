@@ -4,16 +4,18 @@
 The port serves the dense decoder family: every field a dense config uses
 keeps its JAX name and default. The other families (MoE, SSM, hybrid,
 audio, VLM) are not ported yet; :meth:`ModelConfig.validate` refuses them.
-One ``backend`` knob ("auto" | "cuda" | "ref", see
-:mod:`repro_torch.kernels.dispatch`) routes both attention ops: ``"attn"``
-(train/prefill flash attention) and ``"decode"`` (paged Sq=1 decode).
+A :class:`~repro_torch.kernels.dispatch.BackendPolicy` in ``backend``
+routes the two attention ops, ``"attn"`` (train/prefill flash attention)
+and ``"decode"`` (paged Sq=1 decode), each to ``"auto" | "cuda" | "ref"``
+(:mod:`repro_torch.kernels.dispatch`); ``backend_for(op)`` reads it. A
+plain string given as ``backend`` means that value for both ops.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 
-from repro_torch.kernels.dispatch import check_backend
+from repro_torch.kernels.dispatch import BackendPolicy, as_policy
 
 PORTED_FAMILIES = ("dense",)
 
@@ -44,13 +46,22 @@ class ModelConfig:
     sliding_window: int = 0  # 0 = full attention
     attn_logit_softcap: float = 0.0
 
-    # kernel backend for the dispatched attention ops ("attn", "decode")
-    backend: str = "auto"
+    # backend policy for the dispatched ops this model touches ("attn":
+    # train/prefill flash attention; "decode": paged Sq=1 decode); a string
+    # is coerced to BackendPolicy(default=s)
+    backend: BackendPolicy = BackendPolicy()
 
     # numerics -----------------------------------------------------------------
     dtype: str = "bfloat16"  # activations
     param_dtype: str = "float32"
     logit_dtype: str = "float32"
+
+    def __post_init__(self):
+        object.__setattr__(self, "backend", as_policy(self.backend))
+
+    def backend_for(self, op: str) -> str:
+        """The requested backend for ``op`` (``"attn"`` or ``"decode"``)."""
+        return self.backend.for_op(op)
 
     @property
     def head_dim_(self) -> int:
@@ -67,7 +78,6 @@ class ModelConfig:
             raise NotImplementedError(f"{self.name}: act {self.act!r} is not ported yet (the port has SwiGLU)")
         if self.qk_norm:
             raise NotImplementedError(f"{self.name}: qk_norm is not ported yet")
-        check_backend(self.backend)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -16,9 +16,7 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 
 #: Architectures of the JAX package that the port does not serve yet.
 NOT_PORTED = (
-    "granite-3-2b",
     "hubert-xlarge",
-    "internlm2-20b",
     "jamba-v0.1-52b",
     "mixtral-8x7b",
     "phi-3-vision-4.2b",

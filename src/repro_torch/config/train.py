@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from repro_torch.kernels.dispatch import check_backend
+from repro_torch.kernels.dispatch import BackendPolicy, as_policy
 
 # the client ensemble engines (repro_torch.core.client_bank.make_ensemble)
 ENSEMBLE_IMPLS = ("grouped", "looped")
@@ -79,14 +79,19 @@ class OFLConfig:
     # vmap per group
     ensemble_scan_chunk: int = 0
 
-    # loss-kernel backend (repro_torch.kernels.dispatch): auto | cuda | ref
-    backend: str = "auto"
+    # backend policy for every dispatched op (repro_torch.kernels.dispatch):
+    # auto | cuda | ref per op; a string is coerced to BackendPolicy(default=s)
+    backend: BackendPolicy = BackendPolicy()
 
     seed: int = 0
 
     def __post_init__(self):
-        check_backend(self.backend)
+        object.__setattr__(self, "backend", as_policy(self.backend))
         if self.ensemble_impl not in ENSEMBLE_IMPLS:
             raise ValueError(f"unknown ensemble impl {self.ensemble_impl!r}; expected one of {ENSEMBLE_IMPLS}")
         if self.ensemble_scan_chunk < 0:
             raise ValueError(f"ensemble_scan_chunk must be >= 0, got {self.ensemble_scan_chunk}")
+
+    def backend_for(self, op: str) -> str:
+        """The requested backend for ``op`` (the epoch losses read ``"loss"``)."""
+        return self.backend.for_op(op)

@@ -18,7 +18,7 @@ which is exactly the contrast the paper draws (no co-boosting of data and
 ensemble). Each runner builds its ensemble with ``cfg.ensemble_impl``
 (:func:`repro_torch.core.client_bank.make_ensemble`); ``fedavg`` keeps the
 per-client list. Every distillation sweep here (DENSE, F-DAFL, F-ADI, FedDF) runs
-the Eq. 4 loss through the ``ensemble_kl`` op under ``cfg.backend``, its
+the Eq. 4 loss through the ``ensemble_kl`` op under ``cfg.backend_for("loss")``, its
 forward and backward kernels on the card. Each runner takes the draw seam
 (:mod:`repro_torch.utils.prng`) where the reference takes a key.
 """

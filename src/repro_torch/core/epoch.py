@@ -23,7 +23,7 @@ scans all slots and masks the empty ones; the draws of the masked slots
 come after the valid ones there, so the two agree.
 
 The Eq. 4 / Eq. 6–8 / Eq. 11–12 losses route through the fused kernels
-(:mod:`repro_torch.kernels`) according to ``cfg.backend``, for both passes:
+(:mod:`repro_torch.kernels`) according to ``cfg.backend_for("loss")``, for both passes:
 every distillation sweep (Co-Boosting and all four distilling baselines)
 runs Eq. 4 through ``ensemble_kl``. The baselines' synthesis objectives
 are plain PyTorch, as in the reference.
@@ -82,7 +82,7 @@ def make_distill_sweep(
 ):
     """The distillation sweep: one server step per valid ring slot, in
     ``slot_order``, each on a freshly diversified batch when ``use_dhs``."""
-    loss_fn = make_kd_loss(logits_all_fn, server_apply, cfg.kd_temperature, cfg.backend)
+    loss_fn = make_kd_loss(logits_all_fn, server_apply, cfg.kd_temperature, cfg.backend_for("loss"))
 
     def sweep(server_params, srv_opt_state, buf: ReplayBuffer, draws, w, client_params, slot_order, n_valid, srv_step0):
         sp, st, step = server_params, srv_opt_state, int(srv_step0)
@@ -142,7 +142,7 @@ def make_coboost_epoch(
         return generator_loss(
             la, w, s_logits, y,
             beta=cfg.beta, use_ghs=cfg.use_ghs, use_adv=cfg.use_adv,
-            kl_temperature=cfg.gen_kl_temperature, backend=cfg.backend,
+            kl_temperature=cfg.gen_kl_temperature, backend=cfg.backend_for("loss"),
         )
 
     def gen_loss_fn(gp, z, y, client_params, w, server_params):
@@ -180,7 +180,7 @@ def make_coboost_epoch(
                     xe = diversify(logits_all_fn, client_params, w, x_new, u, cfg.epsilon)
                 with torch.no_grad():
                     la = logits_all_fn(client_params, xe)
-                w = update_weights(w, la, y, mu, backend=cfg.backend)
+                w = update_weights(w, la, y, mu, backend=cfg.backend_for("loss"))
 
         # 4. server distillation over the replay ring (lines 16-18)
         with record_function("ofl.kd"):
@@ -243,7 +243,7 @@ def make_feddf_epoch(logits_all_fn: Callable, server_apply: Callable, cfg: OFLCo
          client_params)
         -> (server_params, srv_opt_state, srv_steps, mean loss)"""
     srv_opt = sgdm(constant_schedule(cfg.server_lr), momentum=0.9)
-    loss_fn = make_kd_loss(logits_all_fn, server_apply, cfg.kd_temperature, cfg.backend)
+    loss_fn = make_kd_loss(logits_all_fn, server_apply, cfg.kd_temperature, cfg.backend_for("loss"))
 
     def epoch_step(server_params, srv_opt_state, srv_step0, order, val_batches, w, client_params):
         sp, st, step = server_params, srv_opt_state, int(srv_step0)

@@ -18,16 +18,19 @@ use (:mod:`repro_torch.kernels.build`).
 Each subpackage: ``kernel.py`` (the kernels' wrappers),
 ``ops.py`` (the differentiable ``torch.autograd.Function``), ``ref.py``
 (the plain PyTorch versions). :mod:`repro_torch.kernels.dispatch` maps the
-``backend`` knob ("auto" | "cuda" | "ref") to an implementation.
+``backend`` values ("auto" | "cuda" | "ref"), one per op through a
+:class:`~repro_torch.kernels.dispatch.BackendPolicy`, to an implementation.
 """
 from repro_torch.kernels.build import launch_counts, reset_launch_counts
-from repro_torch.kernels.dispatch import KERNEL_BACKENDS, resolve
+from repro_torch.kernels.dispatch import BACKEND_OPS, KERNEL_BACKENDS, BackendPolicy, resolve
 from repro_torch.kernels.ensemble_kl import ensemble_kl, ensemble_kl_ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.ghm_ce import ghm_ce, ghm_ce_ref
 
 __all__ = [
+    "BACKEND_OPS",
+    "BackendPolicy",
     "KERNEL_BACKENDS",
     "resolve",
     "launch_counts",

@@ -16,6 +16,11 @@ engine (default) or the static-batch baseline, on the GPU.
     python -m repro_torch.launch.serve --arch smollm-135m --engine continuous \\
         --kv-layout paged --prefix-cache --spec-decode --hot-fraction 0.5
 
+    # serving fleet: N engine replicas behind the least-loaded router (on
+    # one card the replicas share the device)
+    python -m repro_torch.launch.serve --arch smollm-135m --engine continuous \\
+        --replicas 2 --requests 16 --prompt-len 128 --gen 64 --max-slots 8
+
     # static baseline: one batch, prefill then decode on the dense cache
     python -m repro_torch.launch.serve --reduced --device cpu --engine static \\
         --batch 3 --prompt-len 24 --gen 12
@@ -29,7 +34,7 @@ variant in f32, as the JAX launcher does. Runs on ``cuda`` unless
 pool configuration built on the host, before anything touches the device.
 
 Telemetry (:mod:`repro_torch.obs`), off by default: ``--metrics-out``
-routes the engine's and the router's stats into the shared registry and
+routes every replica's and the router's stats into the shared registry and
 dumps it at exit (JSONL plus a ``.prom`` sibling), ``--trace-out`` dumps the
 host spans as Chrome trace-event JSON, ``--profile-dir`` writes a
 ``torch.profiler`` trace with every span as a ``record_function`` range.
@@ -53,6 +58,7 @@ from repro_torch.models.transformer import cast_weights, init_lm
 from repro_torch.serve import (
     ContinuousScheduler,
     EngineConfig,
+    FleetRouter,
     KVPool,
     Request,
     ServeEngine,
@@ -86,6 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--request-rate", type=float, default=0.0, help="arrivals per second (0 = all at t=0)")
     p.add_argument("--max-slots", type=int, default=4)
     p.add_argument("--decode-chunk", type=int, default=8)
+    # fleet topology (continuous arm)
+    p.add_argument("--replicas", type=int, default=1,
+                   help="engine replicas behind the least-loaded router (on one device they share it)")
     p.add_argument("--kv-layout", default="paged", choices=("paged", "dense"),
                    help="paged: KVPool + flash-decode; dense: per-slot rectangle + SDPA")
     p.add_argument("--page-size", type=int, default=16, help="tokens per KV page (power of two)")
@@ -175,6 +184,13 @@ def validate_args(args, cfg) -> None:
         raise SystemExit(f"--prompt-len ({args.prompt_len}) and --gen ({args.gen}) must be >= 1")
     if args.profile and args.profile_dir:
         raise SystemExit("--profile and --profile-dir each run torch.profiler, and one process runs one: pick one")
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
+    if args.replicas > 1 and args.engine != "continuous":
+        raise SystemExit(
+            "--replicas describes the continuous serving fleet; the static "
+            "baseline is a single fused program. Use --engine continuous."
+        )
     if args.engine == "static":
         if args.batch < 1:
             raise SystemExit(f"--batch must be >= 1, got {args.batch}")
@@ -247,6 +263,25 @@ def run_static(args, cfg, params, device) -> dict:
     return {"tokens": float(toks), "wall_s": dt, "tok_per_s": toks / max(dt, 1e-9), "sample": out[0].tolist()}
 
 
+def build_fleet(args, cfg, params) -> list:
+    """The engine replicas, ids 0..N-1, on the parameters' device: on one
+    device the replicas colocate (their own pools and slots, one device),
+    as the reference's do meshless. One drafter (``--spec-decode``) serves
+    every replica; with ``--metrics-out`` every replica's stats land in the
+    process-global registry under its replica label, without it each
+    engine keeps its private always-on registry."""
+    ecfg = continuous_engine_config(args)
+    drafter = None
+    if args.spec_decode:
+        dcfg = drafter_config(args).replace(backend=cfg.backend)
+        device = params["embed"]["table"].device
+        gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        drafter = (dcfg, cast_weights(init_lm(dcfg, gen), dcfg))
+    registry = obs.registry() if args.metrics_out else None
+    return [ServeEngine(cfg, params, ecfg, drafter=drafter, registry=registry, replica=i)
+            for i in range(args.replicas)]
+
+
 def run_continuous(args, cfg, params) -> dict:
     dt = 1.0 / args.request_rate if args.request_rate > 0 else 0.0
     if args.hot_fraction > 0:
@@ -261,20 +296,12 @@ def run_continuous(args, cfg, params) -> dict:
         data = make_token_stream(args.seed, cfg.vocab_size, args.requests, args.prompt_len)
         prompts = [data["tokens"][i, : args.prompt_len].astype(np.int32) for i in range(args.requests)]
     requests = [Request(rid=i, tokens=p, max_new_tokens=args.gen, arrival=i * dt) for i, p in enumerate(prompts)]
-    drafter = None
-    if args.spec_decode:
-        dcfg = drafter_config(args).replace(backend=cfg.backend)
-        device = params["embed"]["table"].device
-        gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-        drafter = (dcfg, cast_weights(init_lm(dcfg, gen), dcfg))
-    # with --metrics-out the engine's stats land in the process-global
-    # registry under its replica label; without it the engine keeps its
-    # private always-on registry
-    registry = obs.registry() if args.metrics_out else None
-    engine = ServeEngine(cfg, params, continuous_engine_config(args), drafter=drafter, registry=registry)
-    sched = ContinuousScheduler(engine)
-    # every admission size and the decode chunk run once before timing
-    engine.warmup(requests[0].tokens, min(2, args.gen))
+    engines = build_fleet(args, cfg, params)
+    sched = ContinuousScheduler(engines[0]) if len(engines) == 1 else FleetRouter(engines)
+    # every admission size and the decode chunk run once on every replica
+    # before timing
+    for eng in engines:
+        eng.warmup(requests[0].tokens, min(2, args.gen))
     busy = None
     if args.profile:
         completions, busy, wall = profiled(lambda: sched.run(requests), log)
@@ -285,41 +312,50 @@ def run_continuous(args, cfg, params) -> dict:
         wall = time.perf_counter() - t0
     s = latency_summary(completions, wall)
     log.info(
-        "fleet[1]: %d reqs, %d tokens in %.3fs (%.1f tok/s) "
+        "fleet[%d]: %d reqs, %d tokens in %.3fs (%.1f tok/s) "
         "p50=%.3fs p95=%.3fs queue-wait p50=%.3fs p95=%.3fs",
-        len(completions), int(s["tokens"]), wall, s["tok_per_s"],
+        len(engines), len(completions), int(s["tokens"]), wall, s["tok_per_s"],
         s["p50_s"], s["p95_s"], s["queue_wait_p50_s"], s["queue_wait_p95_s"],
     )
-    log.info(
-        "replica 0: %d reqs, %d decode chunks, %d host syncs, %d prefills, %d handoffs",
-        len(completions), engine.stats["decode_chunks"], engine.stats["host_syncs"],
-        engine.stats["prefill_dispatches"], engine.stats["handoffs"],
-    )
-    if engine.pool is not None:
+    for i, eng in enumerate(engines):
+        st = eng.stats
         log.info(
-            "replica 0 kv pool: %d pages x %d tokens (%s layout), %d decode-time appends",
-            engine.pool.n_pages, engine.pool.page_size, engine.layout, engine.stats["page_appends"],
+            "replica %d: %d reqs, %d decode chunks, %d host syncs, %d prefills, %d handoffs",
+            i, sum(1 for c in completions if c.replica == i), st["decode_chunks"], st["host_syncs"],
+            st["prefill_dispatches"], st["handoffs"],
         )
-    if args.prefix_cache:
-        admitted = max(engine.stats["admitted"], 1)
+        if eng.pool is not None:
+            log.info(
+                "replica %d kv pool: %d pages x %d tokens (%s layout), %d decode-time appends",
+                i, eng.pool.n_pages, eng.pool.page_size, eng.layout, st["page_appends"],
+            )
+        if args.prefix_cache:
+            admitted = max(st["admitted"], 1)
+            log.info(
+                "replica %d prefix cache: %d/%d admissions spliced (hit rate %.0f%%), %d pages reused, %d CoW copies",
+                i, st["spliced_admissions"], st["admitted"], 100.0 * st["spliced_admissions"] / admitted,
+                st["spliced_pages"], st["cow_copies"],
+            )
+        if args.spec_decode:
+            proposed = max(st["draft_proposed"], 1)
+            log.info(
+                "replica %d spec decode: %d verify steps, %d/%d drafts accepted (%.0f%%)",
+                i, st["spec_steps"], st["draft_accepted"], st["draft_proposed"],
+                100.0 * st["draft_accepted"] / proposed,
+            )
+    if len(engines) > 1:
         log.info(
-            "replica 0 prefix cache: %d/%d admissions spliced (hit rate %.0f%%), %d pages reused, %d CoW copies",
-            engine.stats["spliced_admissions"], engine.stats["admitted"],
-            100.0 * engine.stats["spliced_admissions"] / admitted, engine.stats["spliced_pages"],
-            engine.stats["cow_copies"],
-        )
-    if args.spec_decode:
-        proposed = max(engine.stats["draft_proposed"], 1)
-        log.info(
-            "replica 0 spec decode: %d verify steps, %d/%d drafts accepted (%.0f%%)",
-            engine.stats["spec_steps"], engine.stats["draft_accepted"], engine.stats["draft_proposed"],
-            100.0 * engine.stats["draft_accepted"] / proposed,
+            "router: %d routed, %d requeued-on-defer, %d prefix-affinity hits",
+            sched.stats["routed"], sched.stats["requeued"], sched.stats["affinity_hits"],
         )
     log.info("sample continuation (rid 0): %s", completions[0].tokens[:16].tolist())
-    _finalize_telemetry(args, [engine])
-    drafter_prefills = engine.spec.prefill_dispatches if engine.spec is not None else 0
-    return {**s, "wall_s": wall, "device_busy_s": busy, "stats": dict(engine.stats), "completions": completions,
-            "drafter_prefills": drafter_prefills}
+    _finalize_telemetry(args, engines)
+    replicas = [dict(eng.stats) for eng in engines]
+    # the fleet's totals, key for key (one replica: its own stats)
+    stats = {k: sum(r[k] for r in replicas) for k in replicas[0]}
+    drafter_prefills = sum(eng.spec.prefill_dispatches for eng in engines if eng.spec is not None)
+    return {**s, "wall_s": wall, "device_busy_s": busy, "stats": stats, "completions": completions,
+            "drafter_prefills": drafter_prefills, "replicas": replicas, "router": dict(sched.stats)}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

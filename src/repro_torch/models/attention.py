@@ -15,7 +15,8 @@ Entry points:
 
 Full-sequence attention goes through the flash-attention op
 (:mod:`repro_torch.kernels.flash_attention`), paged decode through the
-flash-decode op; ``cfg.backend`` routes both.
+flash-decode op; ``cfg.backend_for("attn")`` and
+``cfg.backend_for("decode")`` route them.
 
 Unlike the reference, whose arrays are immutable, the caches are updated
 **in place**: ``attn_prefill`` and ``attn_decode`` write the new K/V into
@@ -68,7 +69,7 @@ def _project_qkv(params, x, cfg, positions):
 def _attn_mix(q, k, v, cfg):
     return flash_attention(
         q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-        softcap=cfg.attn_logit_softcap, backend=cfg.backend,
+        softcap=cfg.attn_logit_softcap, backend=cfg.backend_for("attn"),
     )
 
 
@@ -258,6 +259,6 @@ def _attn_decode_paged(params, q, k_new, v_new, cfg, cache, posv, page_table):
     out = flash_decode(
         q[:, 0], kp, vp, page_table, posv,
         window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
-        cache_len=cl, backend=cfg.backend,
+        cache_len=cl, backend=cfg.backend_for("decode"),
     )
     return _out_proj(out, params["wo"])[:, None], cache

@@ -2,9 +2,10 @@
 of ``repro.serve``).
 
 * :mod:`repro_torch.serve.engine`    — :class:`PrefillWorker`,
-  :class:`DecodeWorker` and their colocated composition
-  :class:`ServeEngine`: bucketed prefill admission, slot-based decode
-  chunks with on-device sampling and one host sync per chunk.
+  :class:`DecodeWorker` and their composition :class:`ServeEngine`
+  (colocated, or disaggregated behind the :class:`KVHandoff`): bucketed
+  prefill admission, slot-based decode chunks with on-device sampling and
+  one host sync per chunk.
 * :mod:`repro_torch.serve.kv_pool`   — the paged KV pool: host-side page
   allocator with refcounts, staging and the scratch page.
 * :mod:`repro_torch.serve.prefix_cache` — the radix prefix cache over the

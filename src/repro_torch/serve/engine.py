@@ -1,6 +1,7 @@
 """Serving engine for the distilled server LM (the port's copy of
-``repro.serve.engine``): a prefill/decode worker pair composed into the
-colocated :class:`ServeEngine`.
+``repro.serve.engine``): a prefill/decode worker pair composed into
+:class:`ServeEngine`, colocated or disaggregated behind an explicit KV
+handoff.
 
 * :class:`PrefillWorker` — admission: prefills a bucketed burst of prompts
   in one batch (padded to a ``prefill_bucket`` multiple; the pad tail is
@@ -17,6 +18,17 @@ colocated :class:`ServeEngine`.
   and runs decode chunks with on-device sampling. The host reads back only
   the ``(active, n_out)`` vectors once per chunk (``sync``) and a finished
   request's tokens once at eviction (``fetch``).
+
+Because adoption is data movement, a request prefilled by one worker can
+land on another worker's pool than the one it decodes from: that is the
+disaggregation seam. ``ServeEngine(..., prefill_device=...)`` places the
+prefill worker, with its own copy of the parameters, on another device
+than the decode worker (the reference's ``prefill_mesh``; paged only,
+since the dense per-slot rectangle has no page units to hand off);
+``adopt`` then copies the sealed pages across under the ``serve.handoff``
+span. Unset, the pair colocates on the parameters' device. It runs the
+same programs either way, so the colocated engine is the disaggregated
+pair's parity oracle by construction.
 
 The reference runs a chunk as one ``lax.while_loop`` dispatch. Here a
 chunk is a Python loop of device ops that never reads the device: finished
@@ -59,8 +71,7 @@ decode chunk). A bare engine gets a private registry; a launcher passes the
 shared one. Host-side spans (``serve.prefill``, ``serve.handoff``,
 ``serve.adopt``, ``serve.splice``, ``serve.decode_chunk``,
 ``serve.spec.verify``, ``serve.sync``) bracket the hot path's actions and
-never force a device sync. Disaggregated fleets are not ported yet and
-raise.
+never force a device sync.
 """
 from __future__ import annotations
 
@@ -74,6 +85,7 @@ from repro_torch import obs
 from repro_torch.models.transformer import init_lm_state, lm_decode, lm_extend, lm_prefill
 from repro_torch.obs import KV_GAUGES, SERVE_ENGINE_METRICS, MetricsRegistry, StatsView
 from repro_torch.serve.kv_pool import KVPool
+from repro_torch.utils.trees import tree_map
 
 KV_LAYOUTS = ("paged", "dense")
 
@@ -105,7 +117,6 @@ class EngineConfig:
     kv_layout: str = "paged"  # paged (KVPool + flash-decode) | dense (SDPA)
     page_size: int = 16  # tokens per KV page (power of two)
     pool_pages: int = 0  # pool capacity; 0 => max_slots × full per-slot width
-    disagg: bool = False  # prefill and decode as separate fleet workers: not ported yet
     prefix_cache: bool = False  # radix prefix cache over refcounted pages
     spec_k: int = 0  # speculative decoding: drafts per verify step (0 = off)
 
@@ -124,8 +135,6 @@ class EngineConfig:
                 "sampled drafts would need rejection sampling the engine does "
                 "not implement. Drop --spec-decode or set --temperature 0."
             )
-        if self.disagg:
-            raise NotImplementedError("EngineConfig.disagg: not ported yet")
         if self.kv_layout != "paged":
             if self.prefix_cache:
                 raise ValueError(
@@ -883,9 +892,16 @@ class ServeEngine:
     """One replica: a :class:`PrefillWorker` and a :class:`DecodeWorker`
     behind the engine API that :class:`repro_torch.serve.scheduler.FleetRouter`
     (and ``ContinuousScheduler``) drives from the request queue. ``drafter``
-    is ``(cfg, params)`` of the speculative drafter (with ``ecfg.spec_k``)."""
+    is ``(cfg, params)`` of the speculative drafter (with ``ecfg.spec_k``).
 
-    def __init__(self, cfg, params, ecfg: EngineConfig, *, drafter=None,
+    Colocated by default: both workers share ``params`` on their device.
+    ``prefill_device`` (the reference's ``prefill_mesh``; paged layout
+    only) puts the prefill worker on another device, with its own copy of
+    the parameters made here, once; each admission then hands its sealed
+    pages across to the decode worker's pool. Either way admission runs the
+    same programs."""
+
+    def __init__(self, cfg, params, ecfg: EngineConfig, *, prefill_device=None, drafter=None,
                  registry: Optional[MetricsRegistry] = None, replica: int = 0):
         self.cfg = cfg
         self.params = params
@@ -893,7 +909,20 @@ class ServeEngine:
         self.layout = ecfg.kv_layout
         self.replica = replica
         self.stats: StatsView = _fresh_stats(registry, replica)
-        self.prefill = PrefillWorker(cfg, params, ecfg, stats=self.stats, replica=replica)
+        prefill_params = params
+        if prefill_device is not None:
+            if ecfg.kv_layout != "paged":
+                raise ValueError(
+                    'prefill_device requires kv_layout="paged": the prefill->decode '
+                    "handoff moves sealed KV PAGES between worker pools, and the "
+                    "dense per-slot rectangle has no page units to hand off."
+                )
+            dev = torch.device(prefill_device)
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            if dev != _device_of(params):
+                prefill_params = tree_map(lambda t: t.to(dev), params)
+        self.prefill = PrefillWorker(cfg, prefill_params, ecfg, stats=self.stats, replica=replica)
         self.decode = DecodeWorker(cfg, params, ecfg, stats=self.stats, drafter=drafter, replica=replica)
 
     # -- delegation (the device state lives on the workers) -----------------

@@ -24,8 +24,8 @@ queue wait and TTFT can be read apart from decode time.
 Telemetry (:mod:`repro_torch.obs`): the router's stats are a
 :class:`~repro_torch.obs.StatsView` over the ``serve.router.*`` names
 (:data:`repro_torch.obs.ROUTER_METRICS`), in the engines' registry, so
-router and engine series land in one snapshot; ``affinity_hits`` stays 0
-until the prefix cache is ported. Each completion observes
+router and engine series land in one snapshot (``affinity_hits`` counts
+routes that prefix affinity decided). Each completion observes
 ``serve.request.{latency,queue_wait,ttft}_s`` under its replica label;
 routing is an ``obs.instant("serve.route")`` and each admission burst a
 ``serve.admit`` span.

@@ -870,3 +870,122 @@ def test_attention_wrappers_reject_bad_inputs(device):
     qd, kp, vp, table, pos, kw = _decode_inputs(2, 4, 2, 32, 8, 3, 0, torch.float32, device)
     with pytest.raises(ValueError, match="int32"):
         flash_decode_fwd(qd, kp, vp, table.long(), pos, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the rest of serving: new attention shapes, the disaggregated pair, the fleet
+
+# (B, S, H, KH, hd) of the two dense configs the port serves besides
+# smollm-135m: granite-3-2b (a GQA group of 4) and internlm2-20b (6, hd 128)
+ARCH_HEADS = {"granite-3-2b": (32, 8, 64), "internlm2-20b": (48, 8, 128)}
+
+
+@pytest.mark.parametrize("arch", list(ARCH_HEADS))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_kernels_at_new_arch_shapes(device, arch, dtype):
+    """#5 (causal prefill, 8 prompts x 128 tokens) and #8 (8 slots, 16-token
+    pages, ragged positions) at the attention shapes of granite-3-2b and
+    internlm2-20b, against their plain versions; a second call gives the
+    same bits."""
+    h, kh, hd = ARCH_HEADS[arch]
+    q, k, v = _attn_inputs(8, 128, 128, h, kh, hd, dtype, device, seed=7)
+    reset_launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_fwd_sm90"] == int(dtype == torch.bfloat16)
+    want_o, want_lse = flash_attention_ref_lse(q, k, v, causal=True)
+    _close(out, want_o)
+    _close(lse, want_lse)
+    assert torch.equal(flash_attention_fwd(q, k, v, causal=True)[0], out)
+    w = 12
+    pos = [i * (w * 16 - 1) // 7 for i in range(8)]
+    qd, kp, vp, table, posd, kw = _decode_inputs(8, h, kh, hd, 16, w, 0, dtype, device, seed=8, pos=pos)
+    got = flash_decode_fwd(qd, kp, vp, table, posd, **kw)
+    _close(got, flash_decode_ref(qd, kp, vp, table, posd, **kw))
+    assert torch.equal(flash_decode_fwd(qd, kp, vp, table, posd, **kw), got)
+
+
+def _served_model(device):
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
+
+    cfg = reduced_variant(get_arch("smollm-135m")).replace(dtype="float32", param_dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0))
+    params["embed"]["table"] *= 10.0  # wide logit margins for greedy parity
+    return cfg, params
+
+
+def test_disagg_pair_prefill_on_cpu_decode_on_card(device):
+    """The one real cross-device handoff one card can show: the prefill
+    worker on the CPU (its own copy of the parameters, the plain forward),
+    the decode worker on the card; every admission's sealed pages cross
+    under ``serve.handoff``. Greedy tokens equal the colocated engine's, and
+    prefill never launches #5 while decode launches #8."""
+    import numpy as np
+
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine
+
+    cfg, params = _served_model(device)
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, tokens=rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), max_new_tokens=8,
+                    arrival=0.5 * i) for i, n in enumerate((9, 24, 13, 17, 20))]
+    ecfg = EngineConfig(max_slots=2, max_seq=32, max_new=8, decode_chunk=4, page_size=8)
+    out = {}
+    for name, kw in (("colocated", {}), ("pair", dict(prefill_device="cpu"))):
+        eng = ServeEngine(cfg, params, ecfg, **kw)
+        reset_launch_counts()
+        comps = ContinuousScheduler(eng, clock=ManualClock(tick=0.2)).run(reqs)
+        out[name] = ({c.rid: c.tokens.tolist() for c in comps}, dict(eng.stats), launch_counts())
+    pair = ServeEngine(cfg, params, ecfg, prefill_device="cpu")
+    assert pair.prefill.device.type == "cpu" and pair.decode.device.type == "cuda"
+    assert out["pair"][0] == out["colocated"][0]
+    assert out["pair"][1] == out["colocated"][1] and out["pair"][1]["handoffs"] > 0
+    assert out["pair"][2]["flash_attention_fwd"] == 0 and out["pair"][2]["flash_decode"] > 0
+    assert out["colocated"][2]["flash_attention_fwd"] == cfg.num_layers * out["colocated"][1]["prefill_dispatches"]
+
+
+def test_fleet_on_card_matches_single_engine_and_its_launches(device):
+    """Two colocated replicas, one slot each, on pairs of requests
+    arriving together: the fleet spreads them, and its
+    f32 tokens equal one engine's; each request prefills and decodes alone
+    in both, so #5 and #8 launch as often in the fleet as in the single
+    engine, once a layer for every prefill dispatch and decode step."""
+    import numpy as np
+
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, FleetRouter, ManualClock, Request, ServeEngine
+    from repro_torch.serve.engine import DecodeWorker
+
+    cfg, params = _served_model(device)
+    rng = np.random.RandomState(1)
+    reqs = [Request(rid=i, tokens=rng.randint(0, cfg.vocab_size, size=8 + 3 * i).astype(np.int32),
+                    max_new_tokens=4 + i % 3, arrival=10.0 * (i // 2)) for i in range(6)]
+    kw = dict(max_slots=1, max_seq=32, max_new=8, decode_chunk=4, page_size=8)
+    steps = []
+    chunk = DecodeWorker._chunk
+
+    def counted(self, n):
+        steps.append(n)
+        return chunk(self, n)
+
+    DecodeWorker._chunk = counted
+    try:
+        runs = {}
+        for name in ("single", "fleet"):
+            engines = [ServeEngine(cfg, params, EngineConfig(**kw), replica=i)
+                       for i in range(1 if name == "single" else 2)]
+            sched = ContinuousScheduler(engines[0], clock=ManualClock(tick=0.2)) if name == "single" else \
+                FleetRouter(engines, clock=ManualClock(tick=0.2))
+            steps.clear()
+            reset_launch_counts()
+            comps = sched.run(reqs)
+            counts = launch_counts()
+            dispatches = sum(e.stats["prefill_dispatches"] for e in engines)
+            runs[name] = ({c.rid: c.tokens.tolist() for c in comps}, {c.replica for c in comps},
+                          counts["flash_attention_fwd"], counts["flash_decode"], dispatches, sum(steps))
+    finally:
+        DecodeWorker._chunk = chunk
+    single, fleet = runs["single"], runs["fleet"]
+    assert fleet[0] == single[0] and fleet[1] == {0, 1}
+    assert fleet[2:4] == single[2:4]
+    assert fleet[2] == cfg.num_layers * fleet[4] > 0 and fleet[3] == cfg.num_layers * fleet[5] > 0

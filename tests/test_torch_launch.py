@@ -66,7 +66,9 @@ def test_package_imports_neither_jax_nor_repro():
     ``jax`` nor ``repro`` may end up loaded."""
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     for name in ("repro_torch.kernels.ensemble_kl.kernel", "repro_torch.launch.ofl",
-                 "repro_torch.serve.prefix_cache", "repro_torch.serve.spec_decode"):
+                 "repro_torch.serve.prefix_cache", "repro_torch.serve.spec_decode",
+                 "repro_torch.kernels.dispatch", "repro_torch.serve.static",
+                 "repro_torch.configs.granite_3_2b", "repro_torch.configs.internlm2_20b"):
         assert name in names
     code = (
         "import importlib, sys\n"

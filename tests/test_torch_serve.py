@@ -282,7 +282,9 @@ def test_kv_pool_matches_jax():
 
 
 def test_engine_config_fails_fast():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # disaggregation is a placement (ServeEngine's prefill_device), not a
+    # config flag: the port's EngineConfig has no disagg field
+    with pytest.raises(TypeError, match="disagg"):
         EngineConfig(disagg=True)
     # the prefix cache and speculative decoding are ported: they build, with
     # the reference's gates (tests/test_torch_serve_prefix.py holds the rest)

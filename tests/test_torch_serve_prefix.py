@@ -449,10 +449,8 @@ def test_streams_match_reference():
 
 def test_prefix_spec_config_fail_fast(model):
     """The reference's gates: config-level where the config suffices,
-    engine-level where the arch or drafter is needed; ``disagg`` is still
-    not ported."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EngineConfig(disagg=True)
+    engine-level where the arch or drafter is needed; a disaggregated pair
+    (``prefill_device``) is paged only."""
     EngineConfig(prefix_cache=True)
     EngineConfig(spec_k=2)
     with pytest.raises(ValueError, match="paged"):
@@ -462,6 +460,8 @@ def test_prefix_spec_config_fail_fast(model):
     with pytest.raises(ValueError, match=">= 0"):
         EngineConfig(spec_k=-1)
     cfg, params = model["target"][2:]
+    with pytest.raises(ValueError, match="paged"):
+        ServeEngine(cfg, params, EngineConfig(**{**PCFG, "kv_layout": "dense"}), prefill_device="cpu")
     spec_cfg = EngineConfig(spec_k=2, **PCFG)
     with pytest.raises(ValueError, match="no drafter"):
         ServeEngine(cfg, params, spec_cfg)
