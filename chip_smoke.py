@@ -34,9 +34,11 @@ result line):
    a non-causal windowed case with Sq > Sk, hd 128 and fully-masked rows;
    ``flash_decode`` at the smollm-135m decode shape (8 slots, 16-token
    pages, 12 table entries) and in a windowed ring case; both also at the
-   attention shapes of granite-3-2b (32 heads over 8 kv heads, hd 64) and
-   internlm2-20b (48 over 8, hd 128): the forward at 8 prompts × 128
-   tokens, decode at 8 slots with ragged positions, each timed in bf16.
+   attention shapes of granite-3-2b (32 heads over 8 kv heads, hd 64),
+   internlm2-20b (48 over 8, hd 128), qwen3-32b (64 over 8, hd 128),
+   mixtral-8x7b (32 over 8, hd 128, window 4096) and qwen3-moe-235b-a22b
+   (64 over 4, hd 128): the forward at 8 prompts × 128 tokens, decode at 8
+   slots with ragged positions, each timed in bf16.
    ``flash_decode`` (the split kernel and its combine) also at ragged
    positions from 0 to the last slot, at hd 128 with one query head per kv
    head, and with a table far wider than the live pages; a second call
@@ -193,6 +195,34 @@ result line):
    width cut to 4 of its 48 layers (f32, about 10.8 GB; 48 heads over 8,
    hd 128, head ×10): the f32 engine against the static generator on 4
    requests × 16 tokens. The phase's seconds are printed.
+5e. MoE and qk-norm decoders (about 3 minutes). The f32 paged engine
+   against the static generator on 4 requests × 16 tokens, each request
+   compared before its first near-tie, #5 once a layer for every prefill
+   dispatch, at full width with the depth cut to fit f32 on one card
+   (head ×10): qwen3-32b at 8 of its 64 layers (qk-norm), mixtral-8x7b at
+   4 of 32 and qwen3-moe-235b-a22b at 2 of 94, the two MoE configs at an
+   ample capacity factor (E / k: 4.0 and 16.0, nothing drops; the engine
+   pads ragged prompts and its idle decode rows are routed too, so with
+   drops its tokens may rightly differ from the static path's). Then one
+   mixtral MoE layer at full width on 8 × 128 tokens at its own factor
+   1.25 and at a tight 0.5 (slots must drop there): einsum and scatter
+   dispatch within 1e-4 of the largest |y| with equal router losses, a
+   second scatter call bitwise, both against the
+   dense ``moe_ref`` within 1e-4 at the ample factor, each timed in f32 and
+   bf16. Then a 4-layer mixtral, registered under its own name in this
+   process, through ``launch.serve`` in bf16 at phase 5's settings (every
+   request returns its 64 tokens, #5 = 4 × the prefill dispatches on the
+   tensor cores; tok/s, p50/p95, TTFT, peak memory and, profiled, the
+   idle share printed). Then qwen3-32b at full width and depth, its
+   weights made directly in bf16 (65.5 GB), through the launcher's paged
+   engine on phase 5's stream (``launch.serve.run_continuous``): every
+   request returns its tokens, #5 = 64 × the prefill dispatches; tok/s and
+   peak memory printed (where the card cannot hold it, the failing peak is
+   printed and the depth cut by 8 layers until it fits). Last ``remat``:
+   one f32 ``lm_loss`` step of smollm-135m at full width (8 × 256) and of
+   mixtral-8x7b at full width, 2 layers (2 × 256), with and without: equal
+   loss, every gradient within 1e-6 of its leaf's largest, #5 twice a layer
+   with remat and once without; each arm's peak memory is printed.
 5b. Telemetry (``repro_torch.obs``): phase 4's Co-Boosting run, then
    phase 5's serving run, each through its launcher with
    ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
@@ -221,11 +251,14 @@ result line):
    P and dS to bf16, which may move the gradients no more than bf16
    activations do); then
    ``repro_torch.launch.train`` at full width in bf16 with AdamW (batch 8,
-   seq 256, 30 steps), with the launch counters reset just before and read
-   just after: the attention forward and both backward kernels must each
-   launch 30 layers × 30 steps times, all on the tensor cores, every loss
-   must be finite and the last-10 mean below the first-10 mean; s/step,
-   tokens/s after the first step and the peak device memory are printed.
+   seq 256, 30 steps), under ``remat`` (the config's default), with the
+   launch counters reset just before and read just after: both backward
+   kernels must each launch 30 layers × 30 steps times and the forward
+   twice that (each layer's recompute in the backward pass), all on the
+   tensor cores, every loss must be finite and the last-10 mean below the
+   first-10 mean; s/step, tokens/s after the first step and the peak
+   device memory are printed, then the same for the same run without
+   remat (smollm-135m registered with ``remat=False`` under its own name).
 7. LM distillation path: ``repro_torch.launch.distill_llm`` at full width
    (K = 3 clients, 8 epochs of DHS, EE and distillation): ``kd`` finite at
    every epoch, ``w`` summing to 1, and both backward kernels launched (DHS
@@ -315,9 +348,12 @@ BANK_TOL_F64 = 1e-10
 BANK_CHUNK = 3
 BANK_TURNS = ("looped", "grouped", "grouped", "looped")
 
-# the attention heads (H, KH, hd) of the two dense configs served besides
-# smollm-135m: granite-3-2b (a GQA group of 4) and internlm2-20b (6, hd 128)
-ARCH_HEADS = {"granite-3-2b": (32, 8, 64), "internlm2-20b": (48, 8, 128)}
+# the attention heads (H, KH, hd) of the configs served besides smollm-135m:
+# granite-3-2b (a GQA group of 4), internlm2-20b (6, hd 128), qwen3-32b (8),
+# mixtral-8x7b (4, window 4096) and qwen3-moe-235b-a22b (16)
+ARCH_HEADS = {"granite-3-2b": (32, 8, 64), "internlm2-20b": (48, 8, 128), "qwen3-32b": (64, 8, 128),
+              "mixtral-8x7b": (32, 8, 128), "qwen3-moe-235b-a22b": (64, 4, 128)}
+ARCH_WINDOW = {"mixtral-8x7b": 4096}
 # serving: smollm-135m at full width
 SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
 SERVE_ARGV = [
@@ -346,8 +382,19 @@ PHASE_COVERAGE = 0.9
 # phase 5b's serving runs with telemetry off and on (metrics and spans), in
 # turns: host-bound tok/s spreads between runs, so each side runs four times
 SERVE_TURNS = ("off", "on", "on", "off", "off", "on", "on", "off")
-# LM training: smollm-135m at full width
+# LM training: smollm-135m at full width, under remat (the config's default:
+# the attention forward launches twice a layer a step, its forward and its
+# recompute in the backward pass)
 TRAIN = dict(batch=8, seq=256, steps=30, layers=30)
+# phase 5e: the MoE and qk-norm decoders at full width, the depth of the f32
+# engine checks cut to fit one card (layers), at an ample capacity factor
+# (E / k: a group's tokens all fit, nothing drops) where the engine is held
+# to the static generator; mixtral's dispatches also at its own factor 1.25
+MOE_CHECKS = {"qwen3-32b": dict(layers=8, factor=None), "mixtral-8x7b": dict(layers=4, factor=4.0),
+              "qwen3-moe-235b-a22b": dict(layers=2, factor=16.0)}
+MIXTRAL_SERVED_LAYERS = 4  # the timed bf16 mixtral-8x7b run through launch.serve
+DISPATCH = dict(batch=8, seq=128)  # one prefill-shaped input for the dispatch check
+REMAT_MIXTRAL = dict(layers=2, batch=2, seq=256)
 
 
 def fail(msg: str) -> None:
@@ -843,8 +890,7 @@ def attention_kernels_vs_plain():
     errs = {n: 0.0 for n in ATTN_KERNELS}
     timing = {}
     n_pre, lb = SERVE["slots"], SERVE["prompt"]
-    timed = {"smollm prefill": "prefill", "smollm train": "train", "granite prefill": "granite prefill",
-             "internlm2 prefill": "internlm2 prefill"}
+    timed = {"smollm prefill": "prefill", "smollm train": "train", **{f"{a} prefill": f"{a} prefill" for a in ARCH_HEADS}}
     attn_cases = [
         ("smollm prefill", (n_pre, lb, lb, 9, 3, 64), dict(causal=True)),
         ("smollm train", (TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], 9, 3, 64), dict(causal=True)),
@@ -852,10 +898,9 @@ def attention_kernels_vs_plain():
         ("tail window+softcap", (2, 37, 37, 4, 2, 32), dict(causal=True, window=8, softcap=30.0)),
         # Sq > Sk, non-causal, window: the rows past the keys + window see none of them
         ("cross hd128 window", (1, 70, 33, 4, 1, 128), dict(causal=False, window=16)),
-        # the prefill shapes of granite-3-2b (32 heads over 8, hd 64) and internlm2-20b (48 over 8, hd 128)
-        ("granite prefill", (n_pre, lb, lb) + ARCH_HEADS["granite-3-2b"], dict(causal=True)),
-        ("internlm2 prefill", (n_pre, lb, lb) + ARCH_HEADS["internlm2-20b"], dict(causal=True)),
-    ]
+        # the prefill shapes of the other served configs (ARCH_HEADS), mixtral's with its window
+    ] + [(f"{a} prefill", (n_pre, lb, lb) + heads, dict(causal=True, window=ARCH_WINDOW.get(a, 0)))
+         for a, heads in ARCH_HEADS.items()]
     w_pages = (SERVE["prompt"] + SERVE["gen"]) // SERVE["page"]
     mid = SERVE["prompt"] + SERVE["gen"] // 2
     ragged = [i * (w_pages * SERVE["page"] - 1) // (SERVE["slots"] - 1) for i in range(SERVE["slots"])]  # 0 .. max_seq-1
@@ -866,10 +911,9 @@ def attention_kernels_vs_plain():
         ("hd128 one head per kv head", (2, 8, 8, 128, 64, 3, 0, [0, 150])),
         # max_seq far beyond the positions reached: 11 live entries of 256
         ("smollm decode wide table", (SERVE["slots"], 9, 3, 64, SERVE["page"], 256, 0, [mid] * SERVE["slots"])),
-        ("granite decode", (SERVE["slots"], *ARCH_HEADS["granite-3-2b"], SERVE["page"], w_pages, 0, ragged)),
-        ("internlm2 decode", (SERVE["slots"], *ARCH_HEADS["internlm2-20b"], SERVE["page"], w_pages, 0, ragged)),
-    ]
-    decode_timed = {"smollm decode": "decode", "granite decode": "granite decode", "internlm2 decode": "internlm2 decode"}
+    ] + [(f"{a} decode", (SERVE["slots"], *heads, SERVE["page"], w_pages, ARCH_WINDOW.get(a, 0), ragged))
+         for a, heads in ARCH_HEADS.items()]
+    decode_timed = {"smollm decode": "decode", **{f"{a} decode": f"{a} decode" for a in ARCH_HEADS}}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
@@ -1197,17 +1241,9 @@ def small_baselines_agreement(clients, server, gen0, cnn5_apply, gen_apply, cfg,
 def _lm_grads(cfg, params, batch):
     """``lm_loss`` and its gradients (flattened) through the kernels
     (backend "cuda") and through plain autograd (backend "ref")."""
-    from repro_torch.models.transformer import lm_loss
-    from repro_torch.utils.trees import flatten_dict, value_and_grad
-
     out = {}
     for backend in ("cuda", "ref"):
-        c = cfg.replace(backend=backend)
-        loss, grads = value_and_grad(lambda p: lm_loss(p, c, batch)[0], params)
-        layers = grads.pop("layers")
-        flat = flatten_dict(grads)
-        for i, layer in enumerate(layers):
-            flat.update({f"layers/{i}/{p}": g for p, g in flatten_dict(layer).items()})
+        loss, flat = _loss_and_grads(cfg.replace(backend=backend), params, batch)
         out[backend] = {"loss": loss, **flat}
     return out["cuda"], out["ref"]
 
@@ -2106,6 +2142,287 @@ def rest_of_serving_path(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 5e
+
+
+def _free():
+    """Collect what the caller dropped, hand the cached blocks back, and
+    start the peak-memory count afresh."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _moe_engine_check(arch):
+    """The f32 paged engine against the static generator at full width, the
+    depth cut to ``MOE_CHECKS[arch]["layers"]``, a MoE at its ample capacity
+    factor, the head x10 for wide margins. Returns (cfg, params)."""
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.utils.trees import tree_leaves
+
+    dev = torch.device("cuda")
+    full = get_arch(arch)
+    check = MOE_CHECKS[arch]
+    cfg = full.replace(dtype="float32", num_layers=check["layers"])
+    if check["factor"] is not None:
+        cfg = cfg.replace(moe_capacity_factor=check["factor"])
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    params["lm_head"]["kernel"] *= 10.0  # untied: wide top-2 margins
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    where = f"{arch} f32"
+    margin, compared, counts, stats = _engine_vs_static(where, cfg, params, 4, 16, SERVE["prompt"], gated=True)
+    _launch_rule(where, counts, stats, 0, False, "float32", cfg.num_layers)
+    factor = "" if check["factor"] is None else f", capacity factor {cfg.moe_capacity_factor} (ample)"
+    print(f"{where} at full width, {cfg.num_layers} of {full.num_layers} layers ({n_params} parameters{factor}): "
+          f"paged engine == static generator on {compared} of 4x16 positions (those before each request's first "
+          f"near-tie), smallest top-2 margin compared {margin:.3e}, {time.perf_counter() - t0:.1f} s; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; launches "
+          f"{json.dumps({n: counts[n] for n in ATTN_KERNELS})}", flush=True)
+    return cfg, params
+
+
+def _mixtral_dispatch_check(cfg, moe_params):
+    """One mixtral-8x7b MoE layer at full width on an 8 x 128 prefill-shaped
+    input: einsum against scatter dispatch at the config's own factor 1.25
+    and at a tight 0.5, where about half the slots drop (the same slots
+    drop, so they agree within 1e-4 of the largest |y|), both against the
+    dense oracle at the ample factor, a second scatter call bitwise; each
+    dispatch timed in f32 and bf16 at 1.25 (CUDA events)."""
+    import torch
+
+    from repro_torch.models.moe import (
+        _capacity, _group, _positions_in_expert, _router, moe_apply_einsum, moe_apply_scatter, moe_ref,
+    )
+
+    dev = torch.device("cuda")
+    own = cfg.replace(moe_capacity_factor=1.25)
+    x = torch.randn((DISPATCH["batch"], DISPATCH["seq"], cfg.d_model), generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev)
+    tokens = DISPATCH["batch"] * DISPATCH["seq"]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    with torch.no_grad():
+        xg, _ = _group(x, own, x.shape[1])
+        _, idx, _ = _router(moe_params, xg, own)
+        pos = _positions_in_expert(idx, own)
+        found = {}
+        for factor in (1.25, 0.5):
+            c = cfg.replace(moe_capacity_factor=factor)
+            cap = _capacity(c, xg.shape[1])
+            y_e, aux_e = moe_apply_einsum(moe_params, x, c)
+            y_s, aux_s = moe_apply_scatter(moe_params, x, c)
+            gap = rel(y_s, y_e)
+            if gap > 1e-4 or not torch.equal(aux_e, aux_s):
+                fail(f"mixtral dispatch at factor {factor}: scatter is {gap:.3e} from einsum (aux {float(aux_e)}, "
+                     f"{float(aux_s)})")
+            if not torch.equal(moe_apply_scatter(moe_params, x, c)[0], y_s):
+                fail(f"mixtral dispatch at factor {factor}: a second scatter call gave other bits")
+            found[factor] = {"capacity": cap, "dropped": int((pos >= cap).sum()), "scatter_vs_einsum": gap}
+        if found[0.5]["dropped"] == 0:
+            fail("mixtral dispatch: nothing dropped at factor 0.5")
+        y_r, _ = moe_ref(moe_params, x, cfg)
+        ample = {n: rel(f(moe_params, x, cfg)[0], y_r) for n, f in (("einsum", moe_apply_einsum), ("scatter", moe_apply_scatter))}
+        if max(ample.values()) > 1e-4:
+            fail(f"mixtral dispatch at the ample factor {cfg.moe_capacity_factor}: gaps to moe_ref {ample}")
+        times = {}
+        for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            p = {n: (w if n == "router" else w.to(dt)) for n, w in moe_params.items()}
+            xd = x.to(dt)
+            for name, fn in (("einsum", moe_apply_einsum), ("scatter", moe_apply_scatter)):
+                times[f"{name} {dname}"] = _time_ms(lambda: fn(p, xd, own), iters=10, warmup=2)
+            del p
+    print(f"mixtral-8x7b dispatch, one MoE layer at full width on {DISPATCH['batch']}x{DISPATCH['seq']} tokens "
+          f"({tokens * cfg.experts_per_token} slots over {cfg.num_experts} experts), by capacity factor: "
+          f"{json.dumps(found)} (gap of the largest |y|; aux equal, a second scatter call bitwise); at the ample "
+          f"factor {cfg.moe_capacity_factor} vs moe_ref {json.dumps(ample)}; ms a call at 1.25 (CUDA events) "
+          f"{json.dumps(times)}", flush=True)
+
+
+def _mixtral_served(card):
+    """A 4-layer mixtral-8x7b, registered under its own name in this
+    process, through ``launch.serve`` in bf16 at phase 5's settings: every
+    request returns its tokens, #5 launches 4 x the prefill dispatches on
+    the tensor cores; then the same run under the profiler."""
+    import torch
+
+    from repro_torch.config.registry import get_arch, register_arch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve
+
+    name = f"mixtral-8x7b-{MIXTRAL_SERVED_LAYERS}l"
+    cfg = register_arch(get_arch("mixtral-8x7b").replace(name=name, num_layers=MIXTRAL_SERVED_LAYERS))
+    argv = [a if a != "smollm-135m" else name for a in SERVE_ARGV]
+    torch.cuda.reset_peak_memory_stats()
+    undo = _counted_runs()
+    try:
+        result = serve.main(argv)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    where = f"{name} bf16"
+    _served_in_full(where, result, cfg.vocab_size)
+    _launch_rule(where, counts, result["stats"], 0, False, "bfloat16", cfg.num_layers)
+    prof = serve.main(argv + ["--profile"])
+    busy, pwall = prof["device_busy_s"], prof["wall_s"]
+    print(f"{where}, launch.serve at phase 5's settings ({card}): {json.dumps(_serve_summary(result))}; "
+          f"max_memory_allocated {peak} bytes; prefills {result['stats']['prefill_dispatches']}; launches "
+          f"{json.dumps({n: counts[n] for n in ATTN_KERNELS})}; profiled: device busy {busy:.3f} s of {pwall:.3f} s "
+          f"wall, idle share {1 - busy / pwall:.3f}", flush=True)
+
+
+def _qwen3_32b_full_depth(card):
+    """qwen3-32b at full width and depth, the weights made directly in bf16
+    (65.5 GB), through the launcher's paged engine on phase 5's stream
+    (``launch.serve.run_continuous``: its f32 init would not fit). Where
+    the card cannot hold it, the peak that failed is printed and the depth
+    cut, 8 layers at a time, to the deepest that fits."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.utils.trees import tree_leaves
+
+    dev = torch.device("cuda")
+    full = get_arch("qwen3-32b")
+    args = serve.build_parser().parse_args([a if a != "smollm-135m" else full.name for a in SERVE_ARGV])
+    obs.configure(metrics=False, trace=False, profile_dir=None, device=dev)
+    for layers in range(full.num_layers, 0, -8):
+        cfg = full.replace(num_layers=layers)
+        params = None
+        _free()
+        try:
+            params = init_lm(cfg, torch.Generator(device=dev).manual_seed(args.seed), param_dtype="bfloat16")
+            n_params = sum(t.numel() for t in tree_leaves(params))
+            undo = _counted_runs()
+            try:
+                result = serve.run_continuous(args, cfg, params)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            finally:
+                undo()
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"qwen3-32b bf16 at {layers} layers does not fit: max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()} bytes at the failure; cutting 8 layers", flush=True)
+            params = None
+    else:
+        fail("qwen3-32b bf16: no depth fits the card")
+    peak = torch.cuda.max_memory_allocated()
+    where = f"qwen3-32b bf16, {layers} of {full.num_layers} layers"
+    _served_in_full(where, result, cfg.vocab_size)
+    _launch_rule(where, counts, result["stats"], 0, False, "bfloat16", cfg.num_layers)
+    print(f"{where} ({n_params} parameters made in bf16), the paged engine on phase 5's stream ({card}): "
+          f"{json.dumps(_serve_summary(result))}; max_memory_allocated {peak} bytes; prefills "
+          f"{result['stats']['prefill_dispatches']}; launches {json.dumps({n: counts[n] for n in ATTN_KERNELS})}",
+          flush=True)
+    del params, result
+
+
+def _loss_and_grads(cfg, params, batch):
+    """``lm_loss`` and its gradients, flattened to ``a/b/c`` paths."""
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.utils.trees import flatten_dict, value_and_grad
+
+    loss, grads = value_and_grad(lambda p: lm_loss(p, cfg, batch)[0], params)
+    layers = grads.pop("layers")
+    flat = flatten_dict(grads)
+    for i, layer in enumerate(layers):
+        flat.update({f"layers/{i}/{p}": g for p, g in flatten_dict(layer).items()})
+    return loss, flat
+
+
+def _remat_check(label, cfg, params, batch):
+    """One f32 ``lm_loss`` step with ``remat`` against without: the same
+    loss, every gradient within 1e-6 of its leaf's largest; #5 twice a
+    layer under remat, once without; each arm's peak memory above what was
+    allocated before its step (the weights, and the other arm's
+    gradients)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    runs = {}
+    for remat in (False, True):
+        _free()
+        base = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        loss, grads = _loss_and_grads(cfg.replace(remat=remat), params, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = (2 if remat else 1) * cfg.num_layers
+        if (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"]) != (want, cfg.num_layers):
+            fail(f"{label} remat={remat}: launches {counts}, expected #5 {want} and #6 {cfg.num_layers}")
+        runs[remat] = (loss, grads, torch.cuda.max_memory_allocated() - base)
+        del grads
+    (loss_r, grads_r, peak_r), (loss_p, grads_p, peak_p) = runs[True], runs[False]
+    rel = {n: float((grads_r[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30) for n, g in grads_p.items()}
+    worst = max(rel, key=rel.get)
+    if not torch.equal(loss_r, loss_p) or rel[worst] > 1e-6:
+        fail(f"{label}: remat loss {float(loss_r)!r} vs {float(loss_p)!r}, largest gradient gap {rel[worst]:.3e} ({worst})")
+    print(f"remat, {label}: loss {float(loss_r):.6f} equal with and without; largest gradient gap relative to the "
+          f"leaf's largest {rel[worst]:.3e} ({worst}); peak memory above the step's start: remat {peak_r} bytes, "
+          f"plain {peak_p} bytes ({peak_r / peak_p:.3f})", flush=True)
+
+
+def remat_path():
+    """``remat`` on the card: smollm-135m at full width (batch 8 x 256) and
+    mixtral-8x7b at full width, 2 layers (batch 2 x 256), f32."""
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.models.transformer import init_lm
+
+    dev = torch.device("cuda")
+    m = REMAT_MIXTRAL
+    for arch, (layers, b, seq) in (("smollm-135m", (None, TRAIN["batch"], TRAIN["seq"])),
+                                   ("mixtral-8x7b", (m["layers"], m["batch"], m["seq"]))):
+        cfg = get_arch(arch).replace(dtype="float32")
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        params = init_lm(cfg, torch.Generator(device=dev).manual_seed(6))
+        batch = {n: torch.as_tensor(a, device=dev) for n, a in make_token_stream(6, cfg.vocab_size, b, seq).items()}
+        _remat_check(f"{arch} f32, {cfg.num_layers} layers, batch {b} x {seq}", cfg, params, batch)
+        del params, batch
+        _free()
+
+
+def moe_qk_norm_path(card):
+    """Phase 5e: qwen3-32b, mixtral-8x7b and qwen3-moe-235b-a22b."""
+    t0 = time.perf_counter()
+    _moe_engine_check("qwen3-32b")
+    _free()
+    cfg, params = _moe_engine_check("mixtral-8x7b")
+    _mixtral_dispatch_check(cfg, params["layers"][0]["moe"])
+    del cfg, params
+    _free()
+    _moe_engine_check("qwen3-moe-235b-a22b")
+    _free()
+    _mixtral_served(card)
+    _free()
+    _qwen3_32b_full_depth(card)
+    _free()
+    remat_path()
+    print(f"MoE and qk-norm phase (5e): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 5b
 
 
@@ -2237,7 +2554,7 @@ def lm_training_path():
     import numpy as np
     import torch
 
-    from repro_torch.config.registry import get_arch
+    from repro_torch.config.registry import get_arch, register_arch
     from repro_torch.data.synthetic import make_token_stream
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
@@ -2296,10 +2613,12 @@ def lm_training_path():
     losses = result["losses"]
     summary = {k: result[k] for k in ("first10", "last10", "s_per_step", "tok_per_s", "max_memory_bytes", "params")}
     print(f"LM training path ({wall:.1f} s with set-up): {json.dumps(summary)}; launches {json.dumps(counts)}", flush=True)
+    # remat: the forward twice a layer a step (its recompute in the backward pass), each backward pass once
     want_n = TRAIN["layers"] * TRAIN["steps"]
     for name, n in counts.items():
-        if n != want_n:
-            fail(f"LM training path launched {name} {n} times, expected {want_n}")
+        want = 2 * want_n if name.startswith("flash_attention_fwd") else want_n
+        if n != want:
+            fail(f"LM training path launched {name} {n} times, expected {want}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"LM training path: non-finite loss in {losses}")
     if not result["last10"] < result["first10"]:
@@ -2307,6 +2626,13 @@ def lm_training_path():
     print(f"LM training: {result['s_per_step']:.4f} s/step, {result['tok_per_s']:.1f} tokens/s after the first step, "
           f"max_memory_allocated {result['max_memory_bytes']} bytes, loss {np.mean(losses[:10]):.4f} -> "
           f"{np.mean(losses[-10:]):.4f}", flush=True)
+    # the same run without remat, under its own name in this process: its
+    # s/step and peak memory beside the run above (printed, not gated)
+    plain = register_arch(get_arch("smollm-135m").replace(name="smollm-135m-no-remat", remat=False))
+    other = train.main([a if a != "smollm-135m" else plain.name for a in argv])
+    print(f"LM training without remat: {other['s_per_step']:.4f} s/step, {other['tok_per_s']:.1f} tokens/s after the "
+          f"first step, max_memory_allocated {other['max_memory_bytes']} bytes (remat: {result['s_per_step']:.4f}, "
+          f"{result['max_memory_bytes']}); losses equal to the remat run's: {other['losses'] == losses}", flush=True)
     return counts
 
 
@@ -2356,6 +2682,7 @@ def main() -> None:
     prefix_spec_f32()
     prefix_spec_path()
     granite = rest_of_serving_path(card)
+    moe_qk_norm_path(card)
     telemetry_path({n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
     counts.update(lm_training_path())

@@ -1,9 +1,12 @@
 """Model configuration of the distilled server LM (the port's copy of
-``repro.config.model``, dense family).
+``repro.config.model``, dense and MoE families).
 
-The port serves the dense decoder family: every field a dense config uses
-keeps its JAX name and default. The other families (MoE, SSM, hybrid,
-audio, VLM) are not ported yet; :meth:`ModelConfig.validate` refuses them.
+The port serves the dense and MoE decoder families, with or without
+qk-norm: every field they use keeps its JAX name and default. The other
+families (SSM, hybrid, audio, VLM) are not ported yet;
+:meth:`ModelConfig.validate` refuses them. The reference's
+``scan_layers`` is left out on purpose: it bounds the size of a compiled
+XLA program, and the eager port has no such program.
 A :class:`~repro_torch.kernels.dispatch.BackendPolicy` in ``backend``
 routes the two attention ops, ``"attn"`` (train/prefill flash attention)
 and ``"decode"`` (paged Sq=1 decode), each to ``"auto" | "cuda" | "ref"``
@@ -17,7 +20,8 @@ from dataclasses import dataclass
 
 from repro_torch.kernels.dispatch import BackendPolicy, as_policy
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
+MOE_IMPLS = ("einsum", "scatter")
 
 
 @dataclass(frozen=True)
@@ -41,10 +45,19 @@ class ModelConfig:
 
     # attention --------------------------------------------------------------
     rope_theta: float = 10000.0
-    qk_norm: bool = False  # True is not ported yet
+    qk_norm: bool = False
     causal: bool = True
     sliding_window: int = 0  # 0 = full attention
     attn_logit_softcap: float = 0.0
+
+    # MoE --------------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0  # expert hidden dim; 0 => d_ff
+    router_aux_coef: float = 0.01
+    moe_impl: str = "einsum"  # einsum (GShard dispatch) | scatter (index_add into the capacity buffer)
+    moe_capacity_factor: float = 1.25
+    moe_group_size: int = 0  # tokens per dispatch group; 0 => one group per sequence
 
     # backend policy for the dispatched ops this model touches ("attn":
     # train/prefill flash attention; "decode": paged Sq=1 decode); a string
@@ -54,6 +67,7 @@ class ModelConfig:
     # numerics -----------------------------------------------------------------
     dtype: str = "bfloat16"  # activations
     param_dtype: str = "float32"
+    remat: bool = True  # recompute each layer in the backward pass of a training step
     logit_dtype: str = "float32"
 
     def __post_init__(self):
@@ -67,6 +81,10 @@ class ModelConfig:
     def head_dim_(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
 
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
     def validate(self) -> None:
         if self.family not in PORTED_FAMILIES:
             raise NotImplementedError(
@@ -76,8 +94,10 @@ class ModelConfig:
             raise ValueError(f"{self.name}: heads {self.num_heads} not divisible by kv {self.num_kv_heads}")
         if self.act != "silu":
             raise NotImplementedError(f"{self.name}: act {self.act!r} is not ported yet (the port has SwiGLU)")
-        if self.qk_norm:
-            raise NotImplementedError(f"{self.name}: qk_norm is not ported yet")
+        if self.family == "moe" and not (self.num_experts > 0 and self.experts_per_token > 0):
+            raise ValueError(f"{self.name}: a moe config needs num_experts > 0 and experts_per_token > 0")
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"{self.name}: moe_impl {self.moe_impl!r} is not one of {MOE_IMPLS}")
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -85,8 +105,8 @@ class ModelConfig:
 
 def reduced_variant(cfg: ModelConfig) -> ModelConfig:
     """The CPU-smoke-test variant: 2 layers, d_model <= 128, <= 4 heads,
-    head_dim 32 — the same code paths (the JAX ``reduced_variant``, dense
-    fields)."""
+    head_dim 32, <= 4 experts, top <= 2, no remat — the same code paths
+    (the JAX ``reduced_variant``, on the fields the port has)."""
     heads = min(cfg.num_heads, 4)
     kv = max(1, min(cfg.num_kv_heads, heads))
     while heads % kv:
@@ -99,6 +119,11 @@ def reduced_variant(cfg: ModelConfig) -> ModelConfig:
         head_dim=32,
         d_ff=min(cfg.d_ff, 256) or 0,
         vocab_size=min(cfg.vocab_size, 512),
+        num_experts=min(cfg.num_experts, 4) if cfg.num_experts else 0,
+        experts_per_token=min(cfg.experts_per_token, 2) if cfg.experts_per_token else 0,
+        moe_d_ff=min(cfg.moe_d_ff, 128) if cfg.moe_d_ff else 0,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        moe_group_size=0,
+        remat=False,
         name=cfg.name + "-smoke",
     )

@@ -18,10 +18,7 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 NOT_PORTED = (
     "hubert-xlarge",
     "jamba-v0.1-52b",
-    "mixtral-8x7b",
     "phi-3-vision-4.2b",
-    "qwen3-32b",
-    "qwen3-moe-235b-a22b",
     "xlstm-125m",
 )
 

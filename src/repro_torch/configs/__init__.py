@@ -1,2 +1,9 @@
 """Registered model configurations (each module registers one)."""
-from repro_torch.configs import granite_3_2b, internlm2_20b, smollm_135m  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    granite_3_2b,
+    internlm2_20b,
+    mixtral_8x7b,
+    qwen3_32b,
+    qwen3_moe_235b_a22b,
+    smollm_135m,
+)

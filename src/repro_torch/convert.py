@@ -125,8 +125,10 @@ def params_to_jax(arch: str, params: Dict[str, Any]) -> Dict[str, Any]:
 # has a leading axis of length num_layers / period, and layer g·period + j
 # is index g of ``groups/p{j}``. The port keeps one dict per layer in
 # ``layers``. Weights keep the einsum layouts on both sides (``wq``/``wk``/
-# ``wv`` (d, H, hd), ``wo`` (H, hd, d), MLP ``wi``/``wg`` (d, f) and ``wo``
-# (f, d), the embedding (V, d)), so the conversion is bitwise.
+# ``wv`` (d, H, hd), ``wo`` (H, hd, d), qk-norm ``q_norm``/``k_norm`` (hd,),
+# MLP ``wi``/``wg`` (d, f) and ``wo`` (f, d), MoE ``router`` (d, E),
+# ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d), the embedding (V, d)), so
+# the conversion is bitwise.
 
 
 def lm_params_from_jax(cfg, tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
@@ -174,8 +176,12 @@ def _check_lm_tree(cfg, params: Dict[str, Any]) -> None:
     """Every leaf the port's LM reads is there, and nothing else."""
     from repro_torch.models.transformer import init_lm
 
-    want = init_lm(cfg.replace(num_layers=1, d_model=2, num_heads=1, num_kv_heads=1, head_dim=2, d_ff=2, vocab_size=2),
-                   torch.Generator().manual_seed(0))
+    # a one-layer template at toy widths, with the config's family, qk-norm
+    # and tied head: the leaves' names are what is compared
+    tiny = dict(num_layers=1, d_model=2, num_heads=1, num_kv_heads=1, head_dim=2, d_ff=2, vocab_size=2)
+    if cfg.num_experts:
+        tiny.update(num_experts=2, experts_per_token=1, moe_d_ff=2)
+    want = init_lm(cfg.replace(**tiny), torch.Generator().manual_seed(0))
     layer_keys = set(flatten_dict(want["layers"][0]))
     top_keys = set(flatten_dict({k: v for k, v in want.items() if k != "layers"}))
     if len(params["layers"]) != cfg.num_layers:

@@ -89,7 +89,8 @@ def coboost_distill_loss(
 ) -> torch.Tensor:
     """Eq. 4 at LM scale: temperature-KL between the weighted client
     ensemble (the teacher, held constant) and the server, over every
-    position.
+    position, plus ``router_aux_coef`` times the server's router loss (0
+    for a dense server).
 
     ``kl_chunk > 0`` is the memory lever: the LM heads are factored out of
     the forwards (``lm_features``), and the (B, S, V) teacher and student
@@ -99,13 +100,13 @@ def coboost_distill_loss(
     if kl_chunk <= 0:
         with torch.no_grad():
             teacher = ensemble_lm_logits(client_params, cfg, batch, w)
-        student, _ = lm_forward(server_params, cfg, batch)
-        return kl_loss(teacher, student, temperature)
+        student, aux = lm_forward(server_params, cfg, batch)
+        return kl_loss(teacher, student, temperature) + cfg.router_aux_coef * aux
 
     with torch.no_grad():
         cfeats = torch.stack([lm_features(p, cfg, batch)[0].to(torch.bfloat16) for p in client_params])  # (K,B,S,d)
         cheads = torch.stack([head_matrix(p, cfg).to(torch.bfloat16) for p in client_params])  # (K,d,V)
-    sfeat, _ = lm_features(server_params, cfg, batch)
+    sfeat, aux = lm_features(server_params, cfg, batch)
     shead = head_matrix(server_params, cfg)
     b, s, _ = sfeat.shape
     chunk = min(kl_chunk, s)
@@ -118,7 +119,7 @@ def coboost_distill_loss(
         t = torch.einsum("k,kbcd,kdv->bcv", wf, cl, cheads.float())
         st = sfeat[:, c0 : c0 + chunk] @ shead.to(sfeat.dtype)
         total = total + torch.sum(kl_per_sample(t, st, temperature))
-    return total / (b * s)
+    return total / (b * s) + cfg.router_aux_coef * aux
 
 
 def coboost_distill_step(

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 
@@ -46,6 +46,9 @@ def init_attention(gen: torch.Generator, cfg, dtype):
         "wv": dense_init(gen, d, (k, hd), dtype),
         "wo": dense_init(gen, h * hd, (d,), dtype).reshape(h, hd, d),
     }
+    if cfg.qk_norm:
+        params["q_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
+        params["k_norm"] = torch.zeros((hd,), dtype=dtype, device=gen.device)
     return params
 
 
@@ -62,7 +65,12 @@ def _out_proj(o, wo):
 
 
 def _project_qkv(params, x, cfg, positions):
+    """q, k, v: (B, S, H|KH, hd). qk-norm comes before RoPE, so every path
+    (train, prefill, decode, extend) caches the normed K."""
     q, k, v = _proj(x, params["wq"]), _proj(x, params["wk"]), _proj(x, params["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 

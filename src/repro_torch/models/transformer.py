@@ -1,17 +1,22 @@
-"""The decoder LM, dense family (the port's copy of
+"""The decoder LM, dense and MoE families (the port's copy of
 ``repro.models.transformer``: the training and serving paths).
 
-A model is a stack of blocks ``(attn, mlp)``: pre-norm attention and a
-pre-norm MLP, each with a residual. The JAX package stacks layers by group
-(``params["groups"]``, leading axis the layer) and scans over them; the
-port keeps one dict per layer in ``params["layers"]`` and loops
-(:mod:`repro_torch.convert` moves weights between the two). Weights keep
-the JAX einsum layouts.
+A model is a stack of blocks ``(attn, ffn)``: pre-norm attention and a
+pre-norm FFN, each with a residual. The FFN is the SwiGLU ``mlp`` of a
+dense model or the ``moe`` of a MoE model (:mod:`repro_torch.models.moe`),
+whose router loss every block returns and the stack sums. The JAX package
+stacks layers by group (``params["groups"]``, leading axis the layer) and
+scans over them; the port keeps one dict per layer in ``params["layers"]``
+and loops (:mod:`repro_torch.convert` moves weights between the two).
+Weights keep the JAX einsum layouts.
 
 Training (:func:`lm_loss`) differentiates the f32 parameter leaves
 directly: weights are cast to the activation dtype where they are used,
-and nothing autograd saved is written in place. :func:`cast_weights` is for
-serving only.
+and nothing autograd saved is written in place. With ``cfg.remat`` (the
+reference's default) each layer of a training forward runs under
+``torch.utils.checkpoint`` when gradients are on, so the backward pass
+recomputes it instead of keeping its activations. :func:`cast_weights` is
+for serving only.
 
 The decode state stacks every layer's cache on a leading axis, as the JAX
 state does: ``{"k", "v"}`` of shape ``(L, B, cache_len, KH, hd)`` for the
@@ -25,8 +30,10 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import apply_mlp, dense_init, embed_init, init_mlp, rms_norm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -37,10 +44,11 @@ def dtype_of(name) -> torch.dtype:
 
 
 def group_pattern(cfg) -> List[Tuple[str, Optional[str]]]:
-    """Per-group (mixer, ffn) pattern; a dense model repeats every layer.
-    Refuses, through ``cfg.validate``, what the port does not run yet."""
+    """Per-group (mixer, ffn) pattern; a dense or MoE model repeats every
+    layer. Refuses, through ``cfg.validate``, what the port does not run
+    yet."""
     cfg.validate()
-    return [("attn", "mlp")]
+    return [("attn", "moe" if cfg.family == "moe" else "mlp")]
 
 
 # ---------------------------------------------------------------------------
@@ -50,14 +58,15 @@ def group_pattern(cfg) -> List[Tuple[str, Optional[str]]]:
 def init_lm(cfg, gen: torch.Generator, param_dtype=None) -> Dict:
     """Random weights from ``gen`` (on the device the params live on)."""
     dtype = dtype_of(param_dtype or cfg.param_dtype)
-    group_pattern(cfg)
+    ((_, ffn),) = group_pattern(cfg)
+    init_ffn = moe_lib.init_moe if ffn == "moe" else init_mlp
     layers = []
     for _ in range(cfg.num_layers):
         zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)
         layers.append({
             "attn": attn_lib.init_attention(gen, cfg, dtype),
             "norm1": {"scale": zeros()},
-            "mlp": init_mlp(gen, cfg, dtype),
+            ffn: init_ffn(gen, cfg, dtype),
             "norm2": {"scale": zeros()},
         })
     params = {
@@ -72,19 +81,22 @@ def init_lm(cfg, gen: torch.Generator, param_dtype=None) -> Dict:
 
 def cast_weights(params, cfg) -> Dict:
     """``params`` with every weight the model casts to the activation dtype
-    where it uses it (the attention and MLP projections, the embedding, the
-    head) cast once, ahead of time; norm scales keep their dtype. The model
-    computes the same values either way; a serving loop saves a cast of
-    every weight at every step."""
+    where it uses it (the attention, MLP and expert projections, the
+    embedding, the head) cast once, ahead of time; norm scales (the qk-norm
+    ``q_norm``/``k_norm`` too) and the MoE router, which runs in f32, keep
+    their dtype. The model computes the same values either way; a serving
+    loop saves a cast of every weight at every step."""
     dtype = dtype_of(cfg.dtype)
     out = {k: v for k, v in params.items() if k != "layers"}
     out["embed"] = {"table": params["embed"]["table"].to(dtype)}
     if "lm_head" in params:
         out["lm_head"] = {"kernel": params["lm_head"]["kernel"].to(dtype)}
+
+    def cast(leaves):
+        return {k: (w if k.endswith("_norm") or k == "router" else w.to(dtype)) for k, w in leaves.items()}
+
     out["layers"] = [
-        {**layer, "attn": {k: (w if k.endswith("_norm") else w.to(dtype)) for k, w in layer["attn"].items()},
-         "mlp": {k: w.to(dtype) for k, w in layer["mlp"].items()}}
-        for layer in params["layers"]
+        {**layer, **{n: cast(layer[n]) for n in ("attn", "mlp", "moe") if n in layer}} for layer in params["layers"]
     ]
     return out
 
@@ -131,6 +143,8 @@ def _layer_cache(state, i: int):
 
 
 def _apply_block(p, x, cfg, mode: str, cache, pos, page_table):
+    """One block; returns ``(x, aux)``, aux the block's router loss (None
+    for an MLP block)."""
     h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
     if mode == "train":
         y = attn_lib.attn_train(p["attn"], h, cfg)
@@ -141,28 +155,51 @@ def _apply_block(p, x, cfg, mode: str, cache, pos, page_table):
     else:
         y, _ = attn_lib.attn_decode(p["attn"], h, cfg, cache, pos, page_table=page_table)
     x = x + y
-    return x + apply_mlp(p["mlp"], rms_norm(x, p["norm2"]["scale"], cfg.norm_eps), cfg)
+    h = rms_norm(x, p["norm2"]["scale"], cfg.norm_eps)
+    if "moe" in p:
+        y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+        return x + y, aux
+    return x + apply_mlp(p["mlp"], h, cfg), None
 
 
 def _run_blocks(params, cfg, x, mode: str, state=None, pos=None, page_table=None):
+    """Every layer in turn; returns ``(x, the router losses summed over the
+    layers)``, None where no layer has a router. A training forward with
+    ``cfg.remat`` and gradients on checkpoints each layer (its router loss
+    among the checkpointed outputs; the blocks draw no random numbers, so
+    no RNG state is kept); the serving modes never do, since they write the
+    cache in place."""
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    aux = None
     for i, p in enumerate(params["layers"]):
-        cache = None if state is None else _layer_cache(state, i)
-        x = _apply_block(p, x, cfg, mode, cache, pos, page_table)
-    return x
+        if remat:
+            x, a = checkpoint(_apply_block, p, x, cfg, mode, None, pos, page_table,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            cache = None if state is None else _layer_cache(state, i)
+            x, a = _apply_block(p, x, cfg, mode, cache, pos, page_table)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def _aux_or_zero(aux, x) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
 def lm_forward(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits, aux loss = 0 for dense)."""
-    x = _run_blocks(params, cfg, _embed_inputs(params, cfg, batch), "train")
-    return lm_logits(params, cfg, x), torch.zeros((), device=x.device)
+    """Full-sequence forward. Returns (logits, the router loss summed over
+    the layers; 0 for a dense model)."""
+    x, aux = _run_blocks(params, cfg, _embed_inputs(params, cfg, batch), "train")
+    return lm_logits(params, cfg, x), _aux_or_zero(aux, x)
 
 
 def lm_features(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """Post-final-norm trunk features (B, S, d): the LM head factored out,
     so vocab-sized tensors can be made a chunk at a time (the chunked
     distillation loss, ``core.distributed.coboost_distill_loss``)."""
-    x = _run_blocks(params, cfg, _embed_inputs(params, cfg, batch), "train")
-    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps), torch.zeros((), device=x.device)
+    x, aux = _run_blocks(params, cfg, _embed_inputs(params, cfg, batch), "train")
+    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps), _aux_or_zero(aux, x)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -178,12 +215,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[tor
 
 
 def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``(loss, {"ce", "moe_aux"})``: CE of the logits against
-    ``batch["labels"]`` (masked by ``batch["mask"]`` where given); a dense
-    model has no router loss, so the total is the CE."""
+    """``(ce + router_aux_coef · aux, {"ce", "moe_aux"})``: CE of the
+    logits against ``batch["labels"]`` (masked by ``batch["mask"]`` where
+    given) plus the weighted router loss; a dense model's aux is 0, so its
+    total is its CE."""
     logits, aux = lm_forward(params, cfg, batch)
     loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
-    return loss, {"ce": loss, "moe_aux": aux}
+    return loss + cfg.router_aux_coef * aux, {"ce": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +247,7 @@ def lm_prefill(params, cfg, batch, state, last_index=None):
     logits (B, 1, V) of position ``last_index`` — an int or a per-row (B,)
     vector (the engine pads ragged prompts to a bucket and needs each row's
     true last prompt token) — or of the last position when ``None``."""
-    x = _run_blocks(params, cfg, embed_tokens(params, cfg, batch["tokens"]), "prefill", state=state)
+    x, _ = _run_blocks(params, cfg, embed_tokens(params, cfg, batch["tokens"]), "prefill", state=state)
     if last_index is None:
         x_last = x[:, -1:]
     else:
@@ -225,7 +263,7 @@ def lm_extend(params, cfg, tokens, state, pos, page_table):
     ((B, S, V)) and the state. The primitive behind prefix-cache tail
     prefill (the tokens the splice did not cover; the true last row's
     logits) and speculative verify (every draft's predecessor logits)."""
-    x = _run_blocks(params, cfg, embed_tokens(params, cfg, tokens), "extend", state=state, pos=pos, page_table=page_table)
+    x, _ = _run_blocks(params, cfg, embed_tokens(params, cfg, tokens), "extend", state=state, pos=pos, page_table=page_table)
     return lm_logits(params, cfg, x), state
 
 
@@ -233,5 +271,5 @@ def lm_decode(params, cfg, token, state, pos, page_table=None):
     """One decode step. token: (B, 1); ``pos``: scalar (absolute) or (B,)
     per-row positions. ``page_table`` ((B, W) int32) switches a paged state
     onto the page-table view. Returns (logits (B, 1, V), state)."""
-    x = _run_blocks(params, cfg, embed_tokens(params, cfg, token), "decode", state=state, pos=pos, page_table=page_table)
+    x, _ = _run_blocks(params, cfg, embed_tokens(params, cfg, token), "decode", state=state, pos=pos, page_table=page_table)
     return lm_logits(params, cfg, x), state

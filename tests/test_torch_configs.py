@@ -1,14 +1,17 @@
-"""The dense configs granite-3-2b and internlm2-20b in the port, against
-the JAX package on the CPU.
+"""The configs granite-3-2b, internlm2-20b (dense), qwen3-32b (dense,
+qk-norm), mixtral-8x7b (MoE, sliding window) and qwen3-moe-235b-a22b (MoE,
+qk-norm) in the port, against the JAX package on the CPU.
 
 * Every field of the port's ``ModelConfig`` equals the JAX config's (the
   backend through ``backend_for`` per op: the port's field is always a
-  policy, the reference's is unset until a caller sets one), and the JAX
-  fields the port's config lacks sit at their family-off defaults
-  (``remat`` and ``scan_layers`` are ROADMAP A.5).
-* Each arch's reduced variant (2 layers, d_model 128, 4 heads, hd 32), and
-  the reduced variant regrouped to the arch's own GQA group (4 query heads
-  a kv head for granite, 6 for internlm2, at hd 16), in f32 with JAX
+  policy, the reference's is unset until a caller sets one), ``remat``
+  among them, and the JAX fields the port's config lacks sit at their
+  family-off defaults (``scan_layers`` is left out on purpose: it bounds
+  the size of a compiled XLA program, and the eager port has none).
+* Each arch's reduced variant (2 layers, d_model 128, 4 heads, hd 32, at
+  most 4 experts, top 2), and the reduced variant regrouped to the arch's
+  own GQA group (4 query heads a kv head for granite and mixtral, 6 for
+  internlm2, 8 for qwen3-32b, 16 for qwen3-moe, at hd 16), in f32 with JAX
   ``init_lm`` weights carried across: ``lm_forward`` logits, prefill logits
   at per-row last indices and four decode steps on the dense and the
   paged layouts, each within 1e-5 of JAX's (absolute, logits of size
@@ -38,9 +41,13 @@ from repro_torch.models.transformer import init_lm_state, lm_decode, lm_forward,
 
 pytestmark = pytest.mark.tier1
 
-ARCHS = ("granite-3-2b", "internlm2-20b")
-# JAX fields the port's config does not have yet (ROADMAP A.5)
-NOT_YET = ("remat", "scan_layers")
+ARCHS = ("granite-3-2b", "internlm2-20b", "qwen3-32b", "mixtral-8x7b", "qwen3-moe-235b-a22b")
+# JAX fields the port's config leaves out on purpose: scan_layers bounds the
+# size of a compiled XLA program, and the eager port has no such program
+NOT_YET = ("scan_layers",)
+# (head_dim, GQA group) of each arch
+HEADS = {"granite-3-2b": (64, 4), "internlm2-20b": (128, 6), "qwen3-32b": (128, 8), "mixtral-8x7b": (128, 4),
+         "qwen3-moe-235b-a22b": (128, 16)}
 B, PROMPT, MAX_SEQ, PS, STEPS = 2, 12, 24, 8, 4
 LENS = np.array([12, 7], np.int32)
 TOL = 1e-5
@@ -59,7 +66,8 @@ def test_config_fields_match_jax(arch):
     for f in dataclasses.fields(JaxModelConfig):
         if f.name not in mine and f.name not in NOT_YET:
             assert getattr(jcfg, f.name) == getattr(defaults, f.name), f.name
-    assert (cfg.head_dim_, cfg.num_heads // cfg.num_kv_heads) == {"granite-3-2b": (64, 4), "internlm2-20b": (128, 6)}[arch]
+    assert (cfg.head_dim_, cfg.num_heads // cfg.num_kv_heads) == HEADS[arch]
+    assert cfg.remat and cfg.expert_d_ff == jcfg.expert_d_ff
     red, jred = reduced_variant(cfg), jax_reduced_variant(jcfg)
     for name in mine:
         assert getattr(red, name) == getattr(jred, name), name
@@ -81,10 +89,11 @@ def model(request):
     arch, variant = request.param
     jcfg, cfg = _variants(arch)[variant]
     jparams = jax.tree_util.tree_map(np.asarray, jax_init_lm(jcfg, jax.random.key(3)))
-    # norm scales start at zero: give them values so that they count
+    # norm scales (qk-norm's too) start at zero: give them values so that they count
     rng = np.random.default_rng(0)
     jparams = jax.tree_util.tree_map_with_path(
-        lambda p, x: (rng.standard_normal(x.shape) * 0.3).astype(np.float32) if "scale" in jax.tree_util.keystr(p) else x,
+        lambda p, x: (rng.standard_normal(x.shape) * 0.3).astype(np.float32)
+        if any(n in jax.tree_util.keystr(p) for n in ("scale", "q_norm", "k_norm")) else x,
         jparams,
     )
     return jcfg, cfg, jax.tree_util.tree_map(jnp.asarray, jparams), lm_params_from_jax(cfg, jparams)

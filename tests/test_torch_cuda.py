@@ -5,9 +5,9 @@ kernels for bf16, the CUDA-core kernels for f32; split-KV paged decode),
 against their plain PyTorch versions on the same inputs, a second call
 bitwise equal, one full-width training step, one small epoch of each
 distilling Table 1 baseline, the grouped client bank against the looped
-ensemble, a paged decode run that telemetry adds no device sync to, and
-the prefix cache with speculative decoding on hot-prefix traffic. These
-tests need a CUDA device (marker
+ensemble, a paged decode run that telemetry adds no device sync to, the
+prefix cache with speculative decoding on hot-prefix traffic, and the MoE
+dispatches, qk-norm prefill and ``remat``. These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -517,7 +517,9 @@ def test_flash_attention_op_backward_launches_kernels(device):
 
 def test_full_width_training_step_on_card(device):
     """One bf16 AdamW step of smollm-135m at full width (30 layers, batch 2,
-    seq 128) through the attention kernels: 30 launches of each, a finite
+    seq 128) through the attention kernels, under ``remat`` (the config's
+    default): the forward launches twice a layer (the forward and its
+    recompute in the backward pass), each backward pass once; a finite
     loss near log(V), finite parameters that moved."""
     import math
 
@@ -538,11 +540,12 @@ def test_full_width_training_step_on_card(device):
     params, opt_state, metrics = step(params, opt_state, batch, 0)
     torch.cuda.synchronize()
     counts = launch_counts()
-    kernels = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-    assert all(counts[n] == cfg.num_layers for n in kernels)
+    assert cfg.remat
+    assert counts["flash_attention_fwd"] == 2 * cfg.num_layers
+    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == cfg.num_layers
     # bf16 activations: the forward and both backward passes ran on the tensor cores
-    assert counts["flash_attention_fwd_sm90"] == counts["flash_attention_bwd_dkv_sm90"] == cfg.num_layers
-    assert counts["flash_attention_bwd_dq_sm90"] == cfg.num_layers
+    assert counts["flash_attention_fwd_sm90"] == 2 * cfg.num_layers
+    assert counts["flash_attention_bwd_dkv_sm90"] == counts["flash_attention_bwd_dq_sm90"] == cfg.num_layers
     loss = float(metrics["loss"])
     assert math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 1.0
     wq = params["layers"][0]["attn"]["wq"]
@@ -989,3 +992,113 @@ def test_fleet_on_card_matches_single_engine_and_its_launches(device):
     assert fleet[0] == single[0] and fleet[1] == {0, 1}
     assert fleet[2:4] == single[2:4]
     assert fleet[2] == cfg.num_layers * fleet[4] > 0 and fleet[3] == cfg.num_layers * fleet[5] > 0
+
+
+# ---------------------------------------------------------------------------
+# MoE and qk-norm decoders, remat
+
+
+def _moe_case(device, dtype, factor, seed=0):
+    """A mixtral-shaped MoE layer at a narrower width (8 experts, top 2,
+    d 512, f 1024) on a prefill-shaped input of 8 x 128 tokens, one group."""
+    from repro_torch.config.model import ModelConfig
+    from repro_torch.models.moe import init_moe
+
+    cfg = ModelConfig(name="moe-card", family="moe", d_model=512, d_ff=1024, num_experts=8, experts_per_token=2,
+                      moe_capacity_factor=factor, dtype="float32")
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = init_moe(g, cfg, dtype)
+    params["router"] *= 4.0  # spread the router's choices
+    x = torch.randn((8, 128, 512), generator=g, device=device).to(dtype)
+    return cfg, params, x
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("factor", [0.5, 1.25, 4.0], ids=["tight", "mixtral", "ample"])
+def test_moe_dispatches_agree_on_card(device, dtype, factor):
+    """einsum and scatter dispatch drop the same slots and agree; at the
+    ample factor (E / k: nothing drops) both equal the dense oracle; a
+    second scatter call gives the same bits (each kept capacity row is
+    written by one token-slot)."""
+    from repro_torch.models.moe import _capacity, moe_apply_einsum, moe_apply_scatter, moe_ref
+
+    cfg, params, x = _moe_case(device, dtype, factor)
+    with torch.no_grad():
+        y_e, aux_e = moe_apply_einsum(params, x, cfg)
+        y_s, aux_s = moe_apply_scatter(params, x, cfg)
+        assert y_e.dtype == y_s.dtype == dtype
+        _close(y_s, y_e)
+        assert torch.equal(aux_e, aux_s)
+        assert torch.equal(moe_apply_scatter(params, x, cfg)[0], y_s)
+        if factor == 4.0:
+            assert _capacity(cfg, 8 * 128) >= 8 * 128
+            y_r, aux_r = moe_ref(params, x, cfg)
+            _close(y_e, y_r)
+            _close(y_s, y_r)
+            assert torch.equal(aux_r, aux_e)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qk_norm_prefill_through_kernel_matches_plain(device, dtype):
+    """qk-norm attention prefill at qwen3-moe-235b-a22b's heads (64 over 4,
+    hd 128; d_model 4096), 2 prompts x 128 tokens: #5 against the plain
+    attention, the output and the cached (normed, rotated) K."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.attention import attn_prefill, init_attention, init_cache
+
+    cfg = get_arch("qwen3-moe-235b-a22b").replace(dtype="float32")
+    assert cfg.qk_norm and (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_) == (64, 4, 128)
+    g = torch.Generator(device=device).manual_seed(3)
+    params = {n: w.to(dtype) for n, w in init_attention(g, cfg, torch.float32).items()}
+    params["q_norm"] = params["q_norm"] + torch.randn((128,), generator=g, device=device).to(dtype) * 0.3
+    params["k_norm"] = params["k_norm"] + torch.randn((128,), generator=g, device=device).to(dtype) * 0.3
+    x = torch.randn((2, 128, cfg.d_model), generator=g, device=device).to(dtype)
+    outs = {}
+    for backend in ("cuda", "ref"):
+        c = cfg.replace(backend=backend)
+        cache = init_cache(c, 2, 128, dtype, device)
+        reset_launch_counts()
+        with torch.no_grad():
+            out, cache = attn_prefill(params, x, c, cache)
+        torch.cuda.synchronize()
+        outs[backend] = (out, cache["k"], launch_counts()["flash_attention_fwd"])
+    assert outs["cuda"][2] == 1 and outs["ref"][2] == 0
+    _close(outs["cuda"][0], outs["ref"][0])
+    assert torch.equal(outs["cuda"][1], outs["ref"][1])  # the same normed K on both paths
+
+
+def test_remat_step_equals_plain_step_on_card(device):
+    """One f32 ``lm_loss`` step of a reduced mixtral-8x7b (2 layers, 4
+    experts, window 64), batch 2 x 128, with ``remat`` against without:
+    the same loss bits, every gradient within 1e-6 of its leaf's largest;
+    #5 launches twice a layer under remat (forward and recompute), once
+    without; #6 and #7 once a layer either way."""
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.utils.trees import flatten_dict, value_and_grad
+
+    cfg = reduced_variant(get_arch("mixtral-8x7b")).replace(dtype="float32", param_dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0))
+    batch = {n: torch.as_tensor(a, device=device) for n, a in make_token_stream(0, cfg.vocab_size, 2, 128).items()}
+    runs = {}
+    for remat in (True, False):
+        c = cfg.replace(remat=remat)
+        reset_launch_counts()
+        loss, grads = value_and_grad(lambda p: lm_loss(p, c, batch)[0], params)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        layers = cfg.num_layers
+        assert counts["flash_attention_fwd"] == (2 if remat else 1) * layers
+        assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == layers
+        runs[remat] = (loss, grads)
+    assert torch.equal(runs[True][0], runs[False][0])
+    got, want = runs[True][1], runs[False][1]
+    pairs = [(f"layers/{i}/{p}", g, flatten_dict(want["layers"][i])[p])
+             for i, layer in enumerate(got["layers"]) for p, g in flatten_dict(layer).items()]
+    pairs += [(p, g, flatten_dict({k: v for k, v in want.items() if k != "layers"})[p])
+              for p, g in flatten_dict({k: v for k, v in got.items() if k != "layers"}).items()]
+    for path, g, w in pairs:
+        assert torch.isfinite(g).all(), path
+        assert float((g - w).abs().max()) <= 1e-6 * max(float(w.abs().max()), 1e-30), path

@@ -77,12 +77,13 @@ def test_config_and_tokens_match_jax():
     for k, v in jax_make_token_stream(3, 512, 4, 17).items():
         np.testing.assert_array_equal(make_token_stream(3, 512, 4, 17)[k], v)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_arch("mixtral-8x7b")
+        get_arch("xlstm-125m")
 
 
-@pytest.mark.parametrize("option", [dict(qk_norm=True), dict(act="gelu")], ids=["qk_norm", "gelu"])
+@pytest.mark.parametrize("option", [dict(act="gelu"), dict(family="ssm")], ids=["gelu", "ssm"])
 def test_unported_dense_options_refuse(option):
-    """A dense option that no ported config uses is refused, never ignored."""
+    """An option or a family that no ported config uses is refused, never
+    ignored."""
     _, cfg = _configs()
     with pytest.raises(NotImplementedError, match="not ported yet"):
         init_lm(cfg.replace(**option), torch.Generator().manual_seed(0))
