@@ -223,6 +223,32 @@ result line):
    mixtral-8x7b at full width, 2 layers (2 × 256), with and without: equal
    loss, every gradient within 1e-6 of its leaf's largest, #5 twice a layer
    with remat and once without; each arm's peak memory is printed.
+5f. The recurrent families (about 3 minutes). xlstm-125m at full width
+   and depth in f32 (12 layers, 144.9 M parameters, embedding x10): the
+   engine (paged requested; an arch without attention runs the dense
+   layout) against the static generator on 4 requests x 16 tokens, each
+   compared before its first near-tie, #5 and #8 never launched. Then
+   ``launch.serve`` in bf16 at phase 5's settings (every request returns
+   its 64 tokens, no attention launch; tok/s, p50/p95, TTFT, peak memory)
+   and one ``lm_prefill`` of 128 tokens at batch 1 and 8 (ms per prompt
+   token on the host clock; the device's idle share, profiled). Then
+   ``launch.train`` in bf16 under remat at batch 8 x 256 (two scan chunks
+   of 128; s/step, tok/s, peak memory, finite losses), and one f32
+   ``lm_loss`` step at batch 2 x 256 with ``chunked_scan``'s chunk
+   checkpoint on and off: the same loss, every gradient within 1e-6 of
+   its leaf's largest, each arm's peak memory printed. Then
+   jamba-v0.1-52b at full width, 8 of its 32 layers (one interleave group,
+   13.30 B parameters, 53.2 GB) in f32 at an ample capacity factor 8.0
+   (E / k), head x10: the paged engine (attention pages and per-slot
+   Mamba carries) against the static generator on ragged prompts of 128,
+   97, 113 and 77 tokens (a recurrent arch prefills at the prompt's own
+   length, so #5 runs unpadded), each compared before its first
+   near-tie; #5 launches once an attention layer for every prefill
+   dispatch. Last jamba in bf16 at the deepest multiple of 8 layers that
+   fits, its weights made in bf16, through the launcher's engine on phase
+   5's stream (``launch.serve.run_continuous``): every request returns its
+   tokens, #5 = attention layers x prefills; tok/s, p50/p95, TTFT, peak
+   memory, and one prefill of 8 x 128 tokens timed as above.
 5b. Telemetry (``repro_torch.obs``): phase 4's Co-Boosting run, then
    phase 5's serving run, each through its launcher with
    ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
@@ -395,6 +421,12 @@ MOE_CHECKS = {"qwen3-32b": dict(layers=8, factor=None), "mixtral-8x7b": dict(lay
 MIXTRAL_SERVED_LAYERS = 4  # the timed bf16 mixtral-8x7b run through launch.serve
 DISPATCH = dict(batch=8, seq=128)  # one prefill-shaped input for the dispatch check
 REMAT_MIXTRAL = dict(layers=2, batch=2, seq=256)
+# phase 5f: the recurrent families. xlstm-125m training at batch 8 x 256 (two
+# scan chunks of 128) and the chunk-checkpoint check at batch 2; jamba's f32
+# engine check cut to one interleave group of 8 layers (13.3 B parameters,
+# 53.2 GB), at an ample capacity factor (E / k) on ragged prompts
+RECURRENT_TRAIN = dict(batch=8, seq=256, steps=3, check_batch=2)
+RECURRENT_JAMBA = dict(layers=8, factor=8.0, lens=(128, 97, 113, 77))
 
 
 def fail(msg: str) -> None:
@@ -1623,7 +1655,7 @@ def bank_path(coboost_counts):
 # phase 5
 
 
-def _engine_vs_static(where, cfg, params, n, gen, prompt, seed=1, gated=False):
+def _engine_vs_static(where, cfg, params, n, gen, prompt, seed=1, gated=False, attention=True):
     """The paged engine's greedy tokens against the static dense-cache
     path's (``static_generate``; the same prefill kernel, decode
     through the plain small-SDPA) for ``n`` requests x ``gen`` tokens, in
@@ -1631,8 +1663,10 @@ def _engine_vs_static(where, cfg, params, n, gen, prompt, seed=1, gated=False):
     top-2 margin must exceed 1e-3, so that no near-tie decides a token;
     ``gated``: each request's tokens are compared before its first
     near-tie instead (as phase 5c does), and at least half of all positions
-    must be compared. Returns the smallest margin compared, the count of
-    positions compared, the engine's launches and its stats."""
+    must be compared. ``attention=False``: an arch without attention (its
+    launches are checked by the caller). Returns the smallest margin
+    compared, the count of positions compared, the engine's launches and
+    its stats."""
     import numpy as np
     import torch
 
@@ -1652,7 +1686,8 @@ def _engine_vs_static(where, cfg, params, n, gen, prompt, seed=1, gated=False):
     counts = launch_counts()
     prompts = torch.as_tensor(tokens, device=dev)
     want = static_generate(params, cfg, {"tokens": prompts}, gen)
-    _check_variants(where, launch_counts(), "float32")
+    if attention:
+        _check_variants(where, launch_counts(), "float32")
     with torch.inference_mode():  # the logits behind each static token, teacher-forced
         logits, _ = lm_forward(params, cfg, {"tokens": torch.cat([prompts, want[:, :-1].to(prompts.dtype)], 1)})
     top2 = logits[:, prompt - 1 :].topk(2, dim=-1).values
@@ -2423,6 +2458,325 @@ def moe_qk_norm_path(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 5f
+
+
+def _attn_layers(cfg) -> int:
+    """The attention layers of ``cfg`` (#5 launches once each a prefill)."""
+    from repro_torch.models.transformer import layer_kinds
+
+    return sum(1 for mixer, _ in layer_kinds(cfg) if mixer == "attn")
+
+
+def _no_attention_launches(where, counts):
+    if counts["flash_attention_fwd"] or counts["flash_decode"]:
+        fail(f"{where}: an arch without attention launched #5 {counts['flash_attention_fwd']} and #8 "
+             f"{counts['flash_decode']} times")
+
+
+def _ragged_engine_vs_static(where, cfg, params, lens, gen, seed=1):
+    """The paged engine's greedy tokens on prompts of lengths ``lens`` (a
+    recurrent arch prefills each at its exact length, so #5 runs unpadded)
+    against ``static_generate`` of each prompt alone, each request compared
+    before its first near-tie (the static path's teacher-forced top-2
+    margin at or below 1e-3); at least half of all positions compared.
+    Returns the smallest margin compared, the positions compared, the
+    engine's launches and its stats."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine, static_generate
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+    max_seq = -(-(max(lens) + gen) // SERVE["page"]) * SERVE["page"]
+    ecfg = EngineConfig(max_slots=len(lens), max_seq=max_seq, max_new=gen, page_size=SERVE["page"], kv_layout="paged")
+    eng = ServeEngine(cfg, params, ecfg)
+    reset_launch_counts()
+    comps = ContinuousScheduler(eng, clock=ManualClock()).run(
+        [Request(rid=i, tokens=p, max_new_tokens=gen) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    gates, smallest = [], float("inf")
+    for c, p in zip(sorted(comps, key=lambda c: c.rid), prompts):
+        tok = torch.as_tensor(p[None], device=dev)
+        want = static_generate(params, cfg, {"tokens": tok}, gen)
+        with torch.inference_mode():
+            logits, _ = lm_forward(params, cfg, {"tokens": torch.cat([tok, want[:, :-1].to(tok.dtype)], 1)})
+        top2 = logits[0, len(p) - 1:].topk(2, dim=-1).values
+        m = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        del logits
+        g = int(np.flatnonzero(m <= NEAR_TIE)[0]) if (m <= NEAR_TIE).any() else gen
+        want = want[0].cpu().numpy()
+        if not np.array_equal(c.tokens[:g], want[:g]):
+            fail(f"{where}: request {c.rid} (prompt {len(p)}): engine tokens {c.tokens.tolist()} != static "
+                 f"{want.tolist()} before position {g}")
+        gates.append(g)
+        if g:
+            smallest = min(smallest, float(m[:g].min()))
+    if sum(gates) < len(lens) * gen / 2:
+        fail(f"{where}: near-ties leave {sum(gates)} of {len(lens) * gen} positions to compare (gates {gates})")
+    return smallest, sum(gates), counts, dict(eng.stats)
+
+
+def _recurrent_served(argv, cfg, params=None):
+    """``launch.serve`` at phase 5's settings in bf16 (``params``: weights
+    made by the caller, through ``run_continuous``), the counters reset
+    when the timed run starts: every request returns its tokens; #5 once an
+    attention layer for every prefill dispatch, #8 in the decode chunks
+    (both never for an arch without attention). Returns the result, the
+    launches and the peak memory."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    undo = _counted_runs()
+    try:
+        if params is None:
+            result = serve.main(argv)
+        else:
+            obs.configure(metrics=False, trace=False, profile_dir=None, device=torch.device("cuda"))
+            result = serve.run_continuous(serve.build_parser().parse_args(argv), cfg, params)
+        torch.cuda.synchronize()
+        counts = {n: launch_counts()[n] for n in ATTN_KERNELS}
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    where = f"{cfg.name} bf16, {cfg.num_layers} layers"
+    _served_in_full(where, result, cfg.vocab_size)
+    layers = _attn_layers(cfg)
+    if layers:
+        _launch_rule(where, launch_counts(), result["stats"], 0, False, "bfloat16", layers)
+    else:
+        _no_attention_launches(where, counts)
+    return result, counts, peak
+
+
+def _prefill_cost(cfg, params, batch):
+    """Host clock around one ``lm_prefill`` of ``batch`` prompts of phase
+    5's length (after a warm-up call), and the same call under the
+    profiler: ms per prompt token of the step loop, and the device's idle
+    share."""
+    import torch
+
+    from repro_torch.models.transformer import init_lm_state, lm_prefill
+    from repro_torch.utils.device import profiled
+    from repro_torch.utils.logging import get_logger
+
+    dev = torch.device("cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, SERVE["prompt"]), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(4))
+
+    def run():
+        with torch.inference_mode():
+            state = init_lm_state(cfg, batch, SERVE["prompt"] + SERVE["gen"], device=dev)
+            lm_prefill(params, cfg, {"tokens": tokens}, state)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    _, busy, pwall = profiled(run, get_logger("chip_smoke"))
+    return {"batch": batch, "ms": wall * 1e3, "ms_per_prompt_token": wall * 1e3 / SERVE["prompt"],
+            "device_busy_ms": busy * 1e3, "idle_share": 1 - busy / pwall}
+
+
+def _chunk_checkpoint_check(cfg):
+    """One f32 ``lm_loss`` step of xlstm-125m at full width (batch
+    RECURRENT_TRAIN["check_batch"] x seq: two scan chunks), with the chunk
+    checkpoint of ``chunked_scan`` on (the model's) and off (``xlstm``'s
+    scan patched to ``use_checkpoint=False``), layer remat off in both: the
+    same loss, every gradient within 1e-6 of its leaf's largest; each arm's
+    peak memory above the step's start."""
+    import functools
+
+    import torch
+
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.models import xlstm
+    from repro_torch.models.transformer import init_lm
+
+    dev = torch.device("cuda")
+    cfg = cfg.replace(dtype="float32", remat=False)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(6))
+    b = RECURRENT_TRAIN["check_batch"]
+    batch = {n: torch.as_tensor(a, device=dev)
+             for n, a in make_token_stream(6, cfg.vocab_size, b, RECURRENT_TRAIN["seq"]).items()}
+    scan = xlstm.chunked_scan
+    runs = {}
+    try:
+        for on in (True, False):
+            xlstm.chunked_scan = scan if on else functools.partial(scan, use_checkpoint=False)
+            _free()
+            base = torch.cuda.memory_allocated()
+            loss, grads = _loss_and_grads(cfg, params, batch)
+            torch.cuda.synchronize()
+            runs[on] = (loss, grads, torch.cuda.max_memory_allocated() - base)
+            del grads
+    finally:
+        xlstm.chunked_scan = scan
+    (loss_c, grads_c, peak_c), (loss_p, grads_p, peak_p) = runs[True], runs[False]
+    rel = {n: float((grads_c[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30) for n, g in grads_p.items()}
+    worst = max(rel, key=rel.get)
+    if not torch.equal(loss_c, loss_p) or rel[worst] > 1e-6:
+        fail(f"chunk checkpoint: loss {float(loss_c)!r} vs {float(loss_p)!r}, largest gradient gap {rel[worst]:.3e} "
+             f"({worst})")
+    print(f"chunked_scan checkpoint, xlstm-125m f32 at full width, batch {b} x {RECURRENT_TRAIN['seq']} "
+          f"({RECURRENT_TRAIN['seq'] // cfg.ssm_chunk} chunks of {cfg.ssm_chunk}): loss {float(loss_c):.6f} equal "
+          f"on and off; largest gradient gap relative to the leaf's largest {rel[worst]:.3e} ({worst}); peak memory "
+          f"above the step's start: checkpointed {peak_c} bytes, plain {peak_p} bytes ({peak_c / peak_p:.3f})",
+          flush=True)
+
+
+def _xlstm_path(card):
+    """xlstm-125m: the f32 engine against the static generator at full
+    width and depth, the bf16 launcher at phase 5's settings with the
+    prefill's cost, ``launch.train`` and the chunk checkpoint."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import cast_weights, init_lm
+    from repro_torch.utils.trees import tree_leaves
+
+    dev = torch.device("cuda")
+    full = get_arch("xlstm-125m")
+    f32 = full.replace(dtype="float32")
+    params = init_lm(f32, torch.Generator(device=dev).manual_seed(1))
+    params["embed"]["table"] *= 10.0  # tied: wide top-2 margins
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    t0 = time.perf_counter()
+    margin, compared, counts, stats = _engine_vs_static("xlstm-125m f32", f32, params, 4, 16, SERVE["prompt"],
+                                                        gated=True, attention=False)
+    _no_attention_launches("xlstm-125m f32", counts)
+    print(f"xlstm-125m f32 at full width and depth ({full.num_layers} layers, {n_params} parameters): the engine "
+          f"(paged requested, dense run) == static generator on {compared} of 4x16 positions (those before each "
+          f"request's first near-tie), smallest top-2 margin compared {margin:.3e}, {stats['prefill_dispatches']} "
+          f"prefills, {time.perf_counter() - t0:.1f} s; launches {json.dumps({n: counts[n] for n in ATTN_KERNELS})}",
+          flush=True)
+    del params
+    _free()
+    argv = [a if a != "smollm-135m" else full.name for a in SERVE_ARGV]
+    result, counts, peak = _recurrent_served(argv, full)
+    bf16 = cast_weights(init_lm(full, torch.Generator(device=dev).manual_seed(0)), full)
+    cost = [_prefill_cost(full, bf16, b) for b in (1, SERVE["slots"])]
+    del bf16
+    print(f"xlstm-125m bf16, launch.serve at phase 5's settings ({card}): {json.dumps(_serve_summary(result))}; "
+          f"max_memory_allocated {peak} bytes; prefills {result['stats']['prefill_dispatches']}; launches "
+          f"{json.dumps(counts)}; one lm_prefill of {SERVE['prompt']} tokens (host clock; profiled idle share) "
+          f"{json.dumps(cost)}", flush=True)
+    _free()
+    argv = ["--arch", full.name, "--batch", str(RECURRENT_TRAIN["batch"]), "--seq", str(RECURRENT_TRAIN["seq"]),
+            "--steps", str(RECURRENT_TRAIN["steps"]), "--optimizer", "adamw", "--device", "cuda",
+            "--log-every", "1"]
+    reset_launch_counts()
+    result = train.main(argv)
+    torch.cuda.synchronize()
+    _no_attention_launches("xlstm-125m training", launch_counts())
+    if not all(math.isfinite(x) for x in result["losses"]):
+        fail(f"xlstm-125m training: non-finite loss in {result['losses']}")
+    summary = {k: result[k] for k in ("s_per_step", "tok_per_s", "max_memory_bytes", "params")}
+    print(f"xlstm-125m training, launch.train in bf16 under remat, batch {RECURRENT_TRAIN['batch']} x "
+          f"{RECURRENT_TRAIN['seq']} ({RECURRENT_TRAIN['seq'] // full.ssm_chunk} scan chunks of {full.ssm_chunk}), "
+          f"{RECURRENT_TRAIN['steps']} steps ({card}): {json.dumps(summary)}; losses "
+          f"{[round(x, 4) for x in result['losses']]}", flush=True)
+    _free()
+    _chunk_checkpoint_check(full)
+    _free()
+    return float(np.mean(result["losses"]))
+
+
+def _jamba_path(card):
+    """jamba-v0.1-52b: the f32 paged engine with recurrent rows against the
+    static generator at full width, RECURRENT_JAMBA["layers"] layers, on
+    ragged prompts; then the deepest multiple of 8 layers that fits in
+    bf16 through the launcher's engine. Returns the launches of both."""
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.utils.trees import tree_leaves
+
+    dev = torch.device("cuda")
+    full = get_arch("jamba-v0.1-52b")
+    j = RECURRENT_JAMBA
+    cfg = full.replace(dtype="float32", num_layers=j["layers"], moe_capacity_factor=j["factor"])
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    params["lm_head"]["kernel"] *= 10.0  # untied: wide top-2 margins
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    where = "jamba-v0.1-52b f32"
+    margin, compared, counts, stats = _ragged_engine_vs_static(where, cfg, params, j["lens"], 16)
+    _launch_rule(where, counts, stats, 0, False, "float32", _attn_layers(cfg))
+    f32_counts = {n: counts[n] for n in ATTN_KERNELS}
+    print(f"{where} at full width, {cfg.num_layers} of {full.num_layers} layers ({n_params} parameters, capacity "
+          f"factor {cfg.moe_capacity_factor}), ragged prompts {list(j['lens'])}: the paged engine with recurrent "
+          f"rows == static generator on {compared} of {len(j['lens'])}x16 positions (those before each request's "
+          f"first near-tie), smallest top-2 margin compared {margin:.3e}; #5 = {_attn_layers(cfg)} attention "
+          f"layer(s) x {stats['prefill_dispatches']} prefills, at the prompts' own lengths; "
+          f"{time.perf_counter() - t0:.1f} s; max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
+          f"launches {json.dumps(f32_counts)}", flush=True)
+    # the parameters of a group of 8 layers, from the f32 check's count: a
+    # depth whose bf16 weights alone exceed the card is not tried
+    outside = sum(t.numel() for k, v in params.items() if k != "layers" for t in tree_leaves(v))
+    per_group = (n_params - outside) // (cfg.num_layers // 8)
+    del params
+    argv = [a if a != "smollm-135m" else full.name for a in SERVE_ARGV]
+    seed = serve.build_parser().parse_args(argv).seed
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    for layers in range(full.num_layers, 0, -8):
+        if 2 * (outside + per_group * layers // 8) > card_bytes:
+            print(f"jamba-v0.1-52b bf16 at {layers} layers: {2 * (outside + per_group * layers // 8)} bytes of "
+                  f"weights exceed the card's {card_bytes}; cutting 8 layers", flush=True)
+            continue
+        cfg = full.replace(num_layers=layers)
+        params = None
+        _free()
+        try:
+            params = init_lm(cfg, torch.Generator(device=dev).manual_seed(seed), param_dtype="bfloat16")
+            n_params = sum(t.numel() for t in tree_leaves(params))
+            result, counts, peak = _recurrent_served(argv, cfg, params)
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"jamba-v0.1-52b bf16 at {layers} layers does not fit: max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()} bytes at the failure; cutting 8 layers", flush=True)
+            params = None
+    else:
+        fail("jamba-v0.1-52b bf16: no depth fits the card")
+    print(f"jamba-v0.1-52b bf16, {layers} of {full.num_layers} layers ({n_params} parameters made in bf16), the "
+          f"paged engine on phase 5's stream ({card}): {json.dumps(_serve_summary(result))}; max_memory_allocated "
+          f"{peak} bytes; prefills {result['stats']['prefill_dispatches']}; launches {json.dumps(counts)} "
+          f"(#5 = {_attn_layers(cfg)} attention layers x prefills)", flush=True)
+    cost = _prefill_cost(cfg, params, SERVE["slots"])
+    print(f"jamba-v0.1-52b bf16, {layers} layers: one lm_prefill of {SERVE['slots']} x {SERVE['prompt']} tokens "
+          f"(host clock; profiled idle share) {json.dumps(cost)}", flush=True)
+    del params, result
+    return f32_counts, counts
+
+
+def recurrent_path(card):
+    """Phase 5f: xlstm-125m and jamba-v0.1-52b."""
+    t0 = time.perf_counter()
+    _xlstm_path(card)
+    _free()
+    f32_counts, bf16_counts = _jamba_path(card)
+    _free()
+    print(f"recurrent phase (5f): {time.perf_counter() - t0:.1f} s", flush=True)
+    return bf16_counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5b
 
 
@@ -2683,6 +3037,7 @@ def main() -> None:
     prefix_spec_path()
     granite = rest_of_serving_path(card)
     moe_qk_norm_path(card)
+    recurrent_path(card)
     telemetry_path({n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
     counts.update(lm_training_path())

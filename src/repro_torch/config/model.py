@@ -1,10 +1,11 @@
 """Model configuration of the distilled server LM (the port's copy of
-``repro.config.model``, dense and MoE families).
+``repro.config.model``: the dense, MoE, SSM and hybrid families).
 
 The port serves the dense and MoE decoder families, with or without
-qk-norm: every field they use keeps its JAX name and default. The other
-families (SSM, hybrid, audio, VLM) are not ported yet;
-:meth:`ModelConfig.validate` refuses them. The reference's
+qk-norm, the recurrent SSM family (xLSTM's mLSTM/sLSTM blocks, Mamba) and
+the hybrid one (Mamba with one attention layer per ``attn_every``): every
+field they use keeps its JAX name and default. The other families (audio,
+VLM) are not ported yet; :meth:`ModelConfig.validate` refuses them. The reference's
 ``scan_layers`` is left out on purpose: it bounds the size of a compiled
 XLA program, and the eager port has no such program.
 A :class:`~repro_torch.kernels.dispatch.BackendPolicy` in ``backend``
@@ -20,7 +21,8 @@ from dataclasses import dataclass
 
 from repro_torch.kernels.dispatch import BackendPolicy, as_policy
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SSM_KINDS = ("mamba", "xlstm")
 MOE_IMPLS = ("einsum", "scatter")
 
 
@@ -59,6 +61,18 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     moe_group_size: int = 0  # tokens per dispatch group; 0 => one group per sequence
 
+    # SSM / hybrid -----------------------------------------------------------
+    ssm_kind: str = ""  # "" | mamba | xlstm
+    ssm_state_dim: int = 16  # mamba N
+    ssm_conv_dim: int = 4  # mamba depthwise conv width
+    ssm_expand: int = 2  # mamba / xLSTM inner expansion
+    ssm_chunk: int = 128  # scan chunk length (checkpoint unit; mamba's parallel block)
+    dt_rank: int = 0  # mamba dt low-rank; 0 => ceil(d_model / 16)
+    attn_every: int = 0  # hybrid: one attention layer per this many (jamba=8)
+    moe_every: int = 0  # hybrid: MoE MLP every this many layers (jamba=2)
+    slstm_every: int = 0  # xlstm: one sLSTM block per this many (rest mLSTM)
+    xlstm_heads: int = 4
+
     # backend policy for the dispatched ops this model touches ("attn":
     # train/prefill flash attention; "decode": paged Sq=1 decode); a string
     # is coerced to BackendPolicy(default=s)
@@ -85,6 +99,14 @@ class ModelConfig:
     def expert_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
+    @property
+    def dt_rank_(self) -> int:
+        return self.dt_rank or max(1, -(-self.d_model // 16))
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
     def validate(self) -> None:
         if self.family not in PORTED_FAMILIES:
             raise NotImplementedError(
@@ -96,6 +118,10 @@ class ModelConfig:
             raise NotImplementedError(f"{self.name}: act {self.act!r} is not ported yet (the port has SwiGLU)")
         if self.family == "moe" and not (self.num_experts > 0 and self.experts_per_token > 0):
             raise ValueError(f"{self.name}: a moe config needs num_experts > 0 and experts_per_token > 0")
+        if self.family == "hybrid" and not (self.ssm_kind and self.attn_every > 0):
+            raise ValueError(f"{self.name}: a hybrid config needs ssm_kind and attn_every > 0")
+        if self.family == "ssm" and self.ssm_kind not in SSM_KINDS:
+            raise ValueError(f"{self.name}: ssm_kind {self.ssm_kind!r} is not one of {SSM_KINDS}")
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"{self.name}: moe_impl {self.moe_impl!r} is not one of {MOE_IMPLS}")
 
@@ -104,14 +130,16 @@ class ModelConfig:
 
 
 def reduced_variant(cfg: ModelConfig) -> ModelConfig:
-    """The CPU-smoke-test variant: 2 layers, d_model <= 128, <= 4 heads,
-    head_dim 32, <= 4 experts, top <= 2, no remat — the same code paths
+    """The CPU-smoke-test variant: 2 layers (one interleave group of
+    ``attn_every`` layers for a hybrid, ``max(2, slstm_every)`` for xLSTM,
+    with at most 4 xLSTM heads), d_model <= 128, <= 4 heads, head_dim 32,
+    <= 4 experts, top <= 2, scan chunk 16, no remat — the same code paths
     (the JAX ``reduced_variant``, on the fields the port has)."""
     heads = min(cfg.num_heads, 4)
     kv = max(1, min(cfg.num_kv_heads, heads))
     while heads % kv:
         kv -= 1
-    return cfg.replace(
+    kw = dict(
         num_layers=2,
         d_model=min(cfg.d_model, 128),
         num_heads=heads,
@@ -123,7 +151,13 @@ def reduced_variant(cfg: ModelConfig) -> ModelConfig:
         experts_per_token=min(cfg.experts_per_token, 2) if cfg.experts_per_token else 0,
         moe_d_ff=min(cfg.moe_d_ff, 128) if cfg.moe_d_ff else 0,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        ssm_chunk=16,
         moe_group_size=0,
         remat=False,
         name=cfg.name + "-smoke",
     )
+    if cfg.family == "hybrid":
+        kw.update(num_layers=cfg.attn_every, attn_every=cfg.attn_every, moe_every=cfg.moe_every)
+    if cfg.family == "ssm" and cfg.ssm_kind == "xlstm" and cfg.slstm_every:
+        kw.update(num_layers=max(2, cfg.slstm_every), xlstm_heads=min(cfg.xlstm_heads, 4))
+    return cfg.replace(**kw)

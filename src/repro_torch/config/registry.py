@@ -15,12 +15,7 @@ from repro_torch.config.model import ModelConfig
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 #: Architectures of the JAX package that the port does not serve yet.
-NOT_PORTED = (
-    "hubert-xlarge",
-    "jamba-v0.1-52b",
-    "phi-3-vision-4.2b",
-    "xlstm-125m",
-)
+NOT_PORTED = ("hubert-xlarge", "phi-3-vision-4.2b")
 
 
 def register_arch(cfg: ModelConfig) -> ModelConfig:

@@ -2,8 +2,10 @@
 from repro_torch.configs import (  # noqa: F401
     granite_3_2b,
     internlm2_20b,
+    jamba_v0_1_52b,
     mixtral_8x7b,
     qwen3_32b,
     qwen3_moe_235b_a22b,
     smollm_135m,
+    xlstm_125m,
 )

@@ -127,15 +127,17 @@ def params_to_jax(arch: str, params: Dict[str, Any]) -> Dict[str, Any]:
 # ``layers``. Weights keep the einsum layouts on both sides (``wq``/``wk``/
 # ``wv`` (d, H, hd), ``wo`` (H, hd, d), qk-norm ``q_norm``/``k_norm`` (hd,),
 # MLP ``wi``/``wg`` (d, f) and ``wo`` (f, d), MoE ``router`` (d, E),
-# ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d), the embedding (V, d)), so
-# the conversion is bitwise.
+# ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d), the embedding (V, d),
+# xLSTM's ``xlstm`` subtree and Mamba's ``mamba`` one as the reference
+# lays them out), so the conversion is bitwise. An xLSTM block has no
+# ``mlp`` and no ``norm2``.
 
 
 def lm_params_from_jax(cfg, tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """JAX ``init_lm`` params (numpy arrays) → the port's LM params."""
-    from repro_torch.models.transformer import group_pattern
+    from repro_torch.models.transformer import group_period
 
-    period = len(group_pattern(cfg))
+    period = group_period(cfg)
     flat = {p: np.asarray(a) for p, a in flatten_dict(tree).items()}
     out: Dict[str, Any] = {}
     for path, a in flat.items():
@@ -157,10 +159,10 @@ def lm_params_from_jax(cfg, tree: Dict[str, Any], device="cpu") -> Dict[str, Any
 def lm_params_to_jax(cfg, params: Dict[str, Any]) -> Dict[str, Any]:
     """The inverse of :func:`lm_params_from_jax`: nested numpy arrays with
     the layers stacked by group."""
-    from repro_torch.models.transformer import group_pattern
+    from repro_torch.models.transformer import group_period
 
     _check_lm_tree(cfg, params)
-    period = len(group_pattern(cfg))
+    period = group_period(cfg)
     out: Dict[str, Any] = {}
     for path, leaf in flatten_dict({k: v for k, v in params.items() if k != "layers"}).items():
         out[path] = leaf.detach().cpu().numpy()
@@ -173,22 +175,26 @@ def lm_params_to_jax(cfg, params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _check_lm_tree(cfg, params: Dict[str, Any]) -> None:
-    """Every leaf the port's LM reads is there, and nothing else."""
-    from repro_torch.models.transformer import init_lm
+    """Every leaf the port's LM reads is there, and nothing else: layer
+    ``i`` has the leaves of its kind (the template's layer ``i % period``)."""
+    from repro_torch.models.transformer import group_period, init_lm
 
-    # a one-layer template at toy widths, with the config's family, qk-norm
-    # and tied head: the leaves' names are what is compared
-    tiny = dict(num_layers=1, d_model=2, num_heads=1, num_kv_heads=1, head_dim=2, d_ff=2, vocab_size=2)
+    # one group of layers at toy widths, with the config's families, qk-norm
+    # and tied head: the leaves' names are what is compared. d_model keeps
+    # the xLSTM heads dividing d_model and the inner width.
+    period = group_period(cfg)
+    tiny = dict(num_layers=period, d_model=2 * max(cfg.xlstm_heads, 1), num_heads=1, num_kv_heads=1, head_dim=2,
+                d_ff=2, vocab_size=2)
     if cfg.num_experts:
         tiny.update(num_experts=2, experts_per_token=1, moe_d_ff=2)
     want = init_lm(cfg.replace(**tiny), torch.Generator().manual_seed(0))
-    layer_keys = set(flatten_dict(want["layers"][0]))
+    layer_keys = [set(flatten_dict(layer)) for layer in want["layers"]]
     top_keys = set(flatten_dict({k: v for k, v in want.items() if k != "layers"}))
     if len(params["layers"]) != cfg.num_layers:
         raise ValueError(f"expected {cfg.num_layers} layers, got {len(params['layers'])}")
     for i, layer in enumerate(params["layers"]):
-        if set(flatten_dict(layer)) != layer_keys:
-            raise ValueError(f"layer {i}: leaves {sorted(flatten_dict(layer))} != {sorted(layer_keys)}")
+        if set(flatten_dict(layer)) != layer_keys[i % period]:
+            raise ValueError(f"layer {i}: leaves {sorted(flatten_dict(layer))} != {sorted(layer_keys[i % period])}")
     got_top = set(flatten_dict({k: v for k, v in params.items() if k != "layers"}))
     if got_top != top_keys:
         raise ValueError(f"top-level leaves {sorted(got_top)} != {sorted(top_keys)}")

@@ -54,7 +54,7 @@ from repro_torch.config.model import reduced_variant
 from repro_torch.config.registry import get_arch
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels.dispatch import KERNEL_BACKENDS
-from repro_torch.models.transformer import cast_weights, init_lm
+from repro_torch.models.transformer import cast_weights, group_pattern, init_lm
 from repro_torch.serve import (
     ContinuousScheduler,
     EngineConfig,
@@ -66,6 +66,7 @@ from repro_torch.serve import (
     latency_summary,
     static_generate,
 )
+from repro_torch.serve.engine import check_accelerations, engine_layout
 from repro_torch.utils.device import disable_tf32, get_device, profiled
 from repro_torch.utils.logging import get_logger
 
@@ -221,10 +222,23 @@ def validate_args(args, cfg) -> None:
                 "--spec-decode requires --temperature 0: the accept-longest-greedy-run "
                 "verify is a greedy parity contract."
             )
+    try:
+        # the engine's own refusals (a recurrent arch has no attention KV to
+        # splice or roll back), before the drafter's
+        check_accelerations(cfg, continuous_engine_config(args))
+    except ValueError as ex:
+        raise SystemExit(str(ex))
+    if args.spec_decode:
         try:
             dcfg = drafter_config(args)
         except (KeyError, NotImplementedError) as ex:
             raise SystemExit(f"--drafter: {ex.args[0]}")
+        non_attn = sorted({m for m, _ in group_pattern(dcfg) if m != "attn"})
+        if non_attn:
+            raise SystemExit(
+                f"--drafter {dcfg.name} has {non_attn} mixers: a recurrent carry cannot roll "
+                "back past a rejected draft. Draft with an attention-only arch."
+            )
         if dcfg.sliding_window > 0:
             raise SystemExit(
                 f"--drafter {dcfg.name} uses a sliding window ({dcfg.sliding_window}): the "
@@ -239,7 +253,7 @@ def validate_args(args, cfg) -> None:
             )
     try:
         ecfg = continuous_engine_config(args)
-        if args.kv_layout == "paged":
+        if engine_layout(cfg, ecfg) == "paged":  # an arch without attention runs dense
             KVPool(cfg, ecfg)
     except ValueError as ex:
         raise SystemExit(str(ex))

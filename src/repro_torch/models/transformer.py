@@ -1,29 +1,42 @@
-"""The decoder LM, dense and MoE families (the port's copy of
-``repro.models.transformer``: the training and serving paths).
+"""The decoder LM (the port's copy of ``repro.models.transformer``: the
+training and serving paths), for the dense, MoE, SSM and hybrid families.
 
-A model is a stack of blocks ``(attn, ffn)``: pre-norm attention and a
-pre-norm FFN, each with a residual. The FFN is the SwiGLU ``mlp`` of a
-dense model or the ``moe`` of a MoE model (:mod:`repro_torch.models.moe`),
-whose router loss every block returns and the stack sums. The JAX package
-stacks layers by group (``params["groups"]``, leading axis the layer) and
-scans over them; the port keeps one dict per layer in ``params["layers"]``
-and loops (:mod:`repro_torch.convert` moves weights between the two).
-Weights keep the JAX einsum layouts.
+A model is a stack of blocks ``(mixer, ffn)``: a pre-norm mixer and a
+pre-norm FFN, each with a residual. The mixer is attention, Mamba
+(:mod:`repro_torch.models.mamba`) or an xLSTM block, mLSTM or sLSTM
+(:mod:`repro_torch.models.xlstm`); the FFN is the SwiGLU ``mlp``, the
+``moe`` of :mod:`repro_torch.models.moe` (whose router loss every block
+returns and the stack sums), or none (an xLSTM block carries its own
+projections, and has no ``norm2``). :func:`layer_kinds` derives the
+per-layer pattern from the config; it repeats every
+:func:`group_period` layers (jamba's attention layer sits at
+``i % attn_every == attn_every // 2``). The JAX package stacks layers by
+group (``params["groups"]``, leading axis the group) and scans over them;
+the port keeps one dict per layer in ``params["layers"]`` and loops
+(:mod:`repro_torch.convert` moves weights between the two). Weights keep
+the JAX einsum layouts.
 
 Training (:func:`lm_loss`) differentiates the f32 parameter leaves
 directly: weights are cast to the activation dtype where they are used,
 and nothing autograd saved is written in place. With ``cfg.remat`` (the
 reference's default) each layer of a training forward runs under
 ``torch.utils.checkpoint`` when gradients are on, so the backward pass
-recomputes it instead of keeping its activations. :func:`cast_weights` is
-for serving only.
+recomputes it instead of keeping its activations; the recurrent mixers
+also checkpoint each scan chunk inside it. :func:`cast_weights` is for
+serving only.
 
-The decode state stacks every layer's cache on a leading axis, as the JAX
-state does: ``{"k", "v"}`` of shape ``(L, B, cache_len, KH, hd)`` for the
-dense per-slot layout, or ``{"k_pages", "v_pages"}`` of shape
-``(L, P, page_size, KH, hd)`` for the paged one. Prefill and decode write
-the state **in place** (layer ``l`` works on the views ``state[...][l]``)
-and return it.
+The decode state keeps one entry per leaf kind, stacked on a leading axis
+over the layers of that kind, with the slot axis at dim 1: the attention
+caches over the attention layers only, ``{"k", "v"}`` of shape
+``(L_attn, B, cache_len, KH, hd)`` for the dense per-slot layout or
+``{"k_pages", "v_pages"}`` of shape ``(L_attn, P, page_size, KH, hd)`` for
+the paged one; each recurrent carry over the layers of its mixer,
+``"mlstm.C"``, ``"mlstm.n"``, ``"mlstm.m"``, ``"slstm.h"``, ``"slstm.c"``,
+``"slstm.n"``, ``"slstm.m"``, ``"mamba.conv"`` and ``"mamba.h"``, each
+``(L_mixer, B, ...)`` and per slot in either layout. Prefill and decode
+write the state **in place** (layer ``l`` works on views of its rows) and
+return it. Prefill starts every recurrent carry from zeros, never from the
+rows it overwrites.
 """
 from __future__ import annotations
 
@@ -33,7 +46,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import apply_mlp, dense_init, embed_init, init_mlp, rms_norm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -43,12 +58,68 @@ def dtype_of(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else DTYPES[name]
 
 
-def group_pattern(cfg) -> List[Tuple[str, Optional[str]]]:
-    """Per-group (mixer, ffn) pattern; a dense or MoE model repeats every
-    layer. Refuses, through ``cfg.validate``, what the port does not run
-    yet."""
+def layer_kinds(cfg) -> List[Tuple[str, Optional[str]]]:
+    """Per-layer (mixer, ffn) pattern of the whole network. Refuses,
+    through ``cfg.validate``, what the port does not run yet."""
     cfg.validate()
-    return [("attn", "moe" if cfg.family == "moe" else "mlp")]
+    kinds: List[Tuple[str, Optional[str]]] = []
+    for i in range(cfg.num_layers):
+        if cfg.family == "ssm":
+            if cfg.ssm_kind == "mamba":
+                kinds.append(("mamba", None))
+            elif cfg.slstm_every and i % cfg.slstm_every == cfg.slstm_every - 1:
+                kinds.append(("slstm", None))  # xlstm: sLSTM every `slstm_every`, the rest mLSTM
+            else:
+                kinds.append(("mlstm", None))
+        elif cfg.family == "hybrid":
+            mixer = "attn" if i % cfg.attn_every == cfg.attn_every // 2 else "mamba"
+            moe = cfg.moe_every and i % cfg.moe_every == cfg.moe_every - 1 and cfg.num_experts
+            kinds.append((mixer, "moe" if moe else "mlp"))
+        elif cfg.family == "moe":
+            kinds.append(("attn", "moe"))
+        else:
+            kinds.append(("attn", "mlp"))
+    return kinds
+
+
+def group_period(cfg) -> int:
+    """The pattern's period: 1 for dense and MoE models, ``attn_every``
+    (grown to a multiple of ``moe_every``) for a hybrid, ``slstm_every``
+    for xLSTM."""
+    if cfg.family == "hybrid":
+        period = cfg.attn_every
+        if cfg.moe_every:
+            while period % cfg.moe_every:
+                period += cfg.attn_every
+        return period
+    if cfg.family == "ssm" and cfg.ssm_kind == "xlstm" and cfg.slstm_every:
+        return cfg.slstm_every
+    return 1
+
+
+def group_pattern(cfg) -> List[Tuple[str, Optional[str]]]:
+    """The (mixer, ffn) pattern of one group of :func:`group_period` layers."""
+    return layer_kinds(cfg)[: group_period(cfg)]
+
+
+def num_groups(cfg) -> int:
+    p = group_period(cfg)
+    if cfg.num_layers % p:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a whole number of groups of {p}")
+    return cfg.num_layers // p
+
+
+_MIXER_KEY = {"attn": "attn", "mamba": "mamba", "mlstm": "xlstm", "slstm": "xlstm"}
+_MIXER_INIT = {
+    "attn": attn_lib.init_attention,
+    "mamba": mamba_lib.init_mamba,
+    "mlstm": xlstm_lib.init_mlstm,
+    "slstm": xlstm_lib.init_slstm,
+}
+#: Leaves kept in their own dtype by :func:`cast_weights`: those the model
+#: uses without a cast (the f32 router, xLSTM gates and recurrence, Mamba's
+#: dt bias, A and skip), beside the norm scales.
+_KEEP_DTYPE = ("router", "gates", "r", "dt_bias", "A_log", "D")
 
 
 # ---------------------------------------------------------------------------
@@ -56,19 +127,19 @@ def group_pattern(cfg) -> List[Tuple[str, Optional[str]]]:
 
 
 def init_lm(cfg, gen: torch.Generator, param_dtype=None) -> Dict:
-    """Random weights from ``gen`` (on the device the params live on)."""
+    """Random weights from ``gen`` (on the device the params live on): one
+    dict a layer, by its kind."""
     dtype = dtype_of(param_dtype or cfg.param_dtype)
-    ((_, ffn),) = group_pattern(cfg)
-    init_ffn = moe_lib.init_moe if ffn == "moe" else init_mlp
+    kinds = layer_kinds(cfg)
+    num_groups(cfg)
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)
     layers = []
-    for _ in range(cfg.num_layers):
-        zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)
-        layers.append({
-            "attn": attn_lib.init_attention(gen, cfg, dtype),
-            "norm1": {"scale": zeros()},
-            ffn: init_ffn(gen, cfg, dtype),
-            "norm2": {"scale": zeros()},
-        })
+    for mixer, ffn in kinds:
+        layer = {_MIXER_KEY[mixer]: _MIXER_INIT[mixer](gen, cfg, dtype), "norm1": {"scale": zeros()}}
+        if ffn is not None:
+            layer[ffn] = (moe_lib.init_moe if ffn == "moe" else init_mlp)(gen, cfg, dtype)
+            layer["norm2"] = {"scale": zeros()}
+        layers.append(layer)
     params = {
         "layers": layers,
         "final_norm": {"scale": torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)},
@@ -81,11 +152,12 @@ def init_lm(cfg, gen: torch.Generator, param_dtype=None) -> Dict:
 
 def cast_weights(params, cfg) -> Dict:
     """``params`` with every weight the model casts to the activation dtype
-    where it uses it (the attention, MLP and expert projections, the
-    embedding, the head) cast once, ahead of time; norm scales (the qk-norm
-    ``q_norm``/``k_norm`` too) and the MoE router, which runs in f32, keep
-    their dtype. The model computes the same values either way; a serving
-    loop saves a cast of every weight at every step."""
+    where it uses it (the attention, MLP, expert, xLSTM and Mamba
+    projections, the conv, the embedding, the head) cast once, ahead of
+    time; norm scales (the qk-norm ``q_norm``/``k_norm`` too) and the leaves
+    of ``_KEEP_DTYPE`` keep their dtype. The model computes the same values
+    either way; a serving loop saves a cast of every weight at every
+    step."""
     dtype = dtype_of(cfg.dtype)
     out = {k: v for k, v in params.items() if k != "layers"}
     out["embed"] = {"table": params["embed"]["table"].to(dtype)}
@@ -93,10 +165,11 @@ def cast_weights(params, cfg) -> Dict:
         out["lm_head"] = {"kernel": params["lm_head"]["kernel"].to(dtype)}
 
     def cast(leaves):
-        return {k: (w if k.endswith("_norm") or k == "router" else w.to(dtype)) for k, w in leaves.items()}
+        return {k: (w if k.endswith("_norm") or k in _KEEP_DTYPE else w.to(dtype)) for k, w in leaves.items()}
 
     out["layers"] = [
-        {**layer, **{n: cast(layer[n]) for n in ("attn", "mlp", "moe") if n in layer}} for layer in params["layers"]
+        {**layer, **{n: cast(layer[n]) for n in ("attn", "mlp", "moe", "xlstm", "mamba") if n in layer}}
+        for layer in params["layers"]
     ]
     return out
 
@@ -138,23 +211,64 @@ def lm_logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
 # blocks
 
 
-def _layer_cache(state, i: int):
-    return {name: leaf[i] for name, leaf in state.items()}
+#: The carry leaves of each recurrent mixer, in the decode state as
+#: ``"{mixer}.{leaf}"``.
+RECURRENT_LEAVES = {"mlstm": ("C", "n", "m"), "slstm": ("h", "c", "n", "m"), "mamba": ("conv", "h")}
+_ATTN_LEAVES = ("k", "v", "k_pages", "v_pages")
 
 
-def _apply_block(p, x, cfg, mode: str, cache, pos, page_table):
-    """One block; returns ``(x, aux)``, aux the block's router loss (None
-    for an MLP block)."""
-    h = rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
-    if mode == "train":
-        y = attn_lib.attn_train(p["attn"], h, cfg)
-    elif mode == "prefill":
-        y, _ = attn_lib.attn_prefill(p["attn"], h, cfg, cache)
-    elif mode == "extend":
-        y, _ = attn_lib.attn_extend(p["attn"], h, cfg, cache, pos, page_table)
+def layer_slots(cfg) -> List[Tuple[str, Optional[str], int]]:
+    """Per layer: its mixer, its ffn and its index among the layers of that
+    mixer (the row of the decode state's leaves it owns)."""
+    seen: Dict[str, int] = {}
+    out = []
+    for mixer, ffn in layer_kinds(cfg):
+        out.append((mixer, ffn, seen.get(mixer, 0)))
+        seen[mixer] = seen.get(mixer, 0) + 1
+    return out
+
+
+def _layer_cache(state, mixer: str, j: int):
+    """Layer ``j`` of ``mixer``'s views of the decode state."""
+    if mixer == "attn":
+        return {name: state[name][j] for name in _ATTN_LEAVES if name in state}
+    return {leaf: state[f"{mixer}.{leaf}"][j] for leaf in RECURRENT_LEAVES[mixer]}
+
+
+def _apply_mixer(p, h, cfg, mixer: str, mode: str, cache, pos, page_table):
+    """mode: train | prefill | decode | extend. A recurrent mixer writes its
+    final carry into ``cache`` (prefill from zeros, decode from ``cache``)."""
+    if mixer == "attn":
+        if mode == "train":
+            return attn_lib.attn_train(p["attn"], h, cfg)
+        if mode == "prefill":
+            return attn_lib.attn_prefill(p["attn"], h, cfg, cache)[0]
+        if mode == "extend":
+            return attn_lib.attn_extend(p["attn"], h, cfg, cache, pos, page_table)[0]
+        return attn_lib.attn_decode(p["attn"], h, cfg, cache, pos, page_table=page_table)[0]
+    if mode == "extend":
+        # a recurrent carry has no per-position cache to continue from: the
+        # engine keeps ssm and hybrid archs off the prefix-cache and
+        # speculative paths
+        raise ValueError(f"extend mode requires attention mixers, got {mixer!r}")
+    if mixer == "mamba":
+        fwd, wp = mamba_lib.mamba_forward, p["mamba"]
     else:
-        y, _ = attn_lib.attn_decode(p["attn"], h, cfg, cache, pos, page_table=page_table)
-    x = x + y
+        fwd, wp = (xlstm_lib.mlstm_forward if mixer == "mlstm" else xlstm_lib.slstm_forward), p["xlstm"]
+    if mode == "train":
+        return fwd(wp, h, cfg)
+    y, new = fwd(wp, h, cfg, state=cache if mode == "decode" else None, return_state=True)
+    for leaf, t in new.items():
+        cache[leaf].copy_(t)
+    return y
+
+
+def _apply_block(p, x, cfg, mixer: str, mode: str, cache, pos, page_table):
+    """One block; returns ``(x, aux)``, aux the block's router loss (None
+    for a block without a MoE)."""
+    x = x + _apply_mixer(p, rms_norm(x, p["norm1"]["scale"], cfg.norm_eps), cfg, mixer, mode, cache, pos, page_table)
+    if "norm2" not in p:
+        return x, None
     h = rms_norm(x, p["norm2"]["scale"], cfg.norm_eps)
     if "moe" in p:
         y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
@@ -168,16 +282,16 @@ def _run_blocks(params, cfg, x, mode: str, state=None, pos=None, page_table=None
     ``cfg.remat`` and gradients on checkpoints each layer (its router loss
     among the checkpointed outputs; the blocks draw no random numbers, so
     no RNG state is kept); the serving modes never do, since they write the
-    cache in place."""
+    state in place."""
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     aux = None
-    for i, p in enumerate(params["layers"]):
+    for p, (mixer, _, j) in zip(params["layers"], layer_slots(cfg)):
         if remat:
-            x, a = checkpoint(_apply_block, p, x, cfg, mode, None, pos, page_table,
+            x, a = checkpoint(_apply_block, p, x, cfg, mixer, mode, None, pos, page_table,
                               use_reentrant=False, preserve_rng_state=False)
         else:
-            cache = None if state is None else _layer_cache(state, i)
-            x, a = _apply_block(p, x, cfg, mode, cache, pos, page_table)
+            cache = None if state is None else _layer_cache(state, mixer, j)
+            x, a = _apply_block(p, x, cfg, mixer, mode, cache, pos, page_table)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
@@ -229,24 +343,39 @@ def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
 
 
 def init_lm_state(cfg, batch: int, max_seq: int, dtype=None, *, kv_pages: int = 0, kv_page_size: int = 0, device="cpu"):
-    """Every layer's cache stacked on a leading axis: the dense per-slot
-    layout, or with ``kv_pages > 0`` a shared pool of that many
-    ``kv_page_size``-token pages (the engine's paged layout; decode then
-    needs the engine's page table)."""
+    """The decode state: the attention caches stacked over the attention
+    layers (the dense per-slot layout, or with ``kv_pages > 0`` a shared
+    pool of that many ``kv_page_size``-token pages: the engine's paged
+    layout, whose decode needs the engine's page table), and each
+    recurrent carry stacked over the layers of its mixer, ``batch`` rows a
+    layer in either layout."""
     dtype = dtype_of(dtype or cfg.dtype)
-    group_pattern(cfg)
-    if kv_pages > 0:
-        one = attn_lib.init_paged_cache(cfg, kv_pages, kv_page_size, dtype, device)
-    else:
-        one = attn_lib.init_cache(cfg, batch, max_seq, dtype, device)
-    return {name: leaf[None].repeat(cfg.num_layers, *([1] * leaf.dim())) for name, leaf in one.items()}
+    counts: Dict[str, int] = {}
+    for mixer, _ in layer_kinds(cfg):
+        counts[mixer] = counts.get(mixer, 0) + 1
+    state: Dict[str, torch.Tensor] = {}
+    for mixer, n in counts.items():
+        if mixer == "attn":
+            if kv_pages > 0:
+                one = attn_lib.init_paged_cache(cfg, kv_pages, kv_page_size, dtype, device)
+            else:
+                one = attn_lib.init_cache(cfg, batch, max_seq, dtype, device)
+        elif mixer == "mamba":
+            one = {f"mamba.{k}": v for k, v in mamba_lib.init_mamba_state(cfg, batch, dtype, device).items()}
+        else:
+            init = xlstm_lib.init_mlstm_state if mixer == "mlstm" else xlstm_lib.init_slstm_state
+            one = {f"{mixer}.{k}": v for k, v in init(cfg, batch, device).items()}
+        state.update({name: leaf[None].repeat(n, *([1] * leaf.dim())) for name, leaf in one.items()})
+    return state
 
 
 def lm_prefill(params, cfg, batch, state, last_index=None):
     """Consume the whole prompt, fill ``state`` (in place), return the
     logits (B, 1, V) of position ``last_index`` — an int or a per-row (B,)
     vector (the engine pads ragged prompts to a bucket and needs each row's
-    true last prompt token) — or of the last position when ``None``."""
+    true last prompt token) — or of the last position when ``None``. A
+    recurrent carry absorbs every position it is fed, pad included: the
+    engine prefills a recurrent arch to its exact prompt length."""
     x, _ = _run_blocks(params, cfg, embed_tokens(params, cfg, batch["tokens"]), "prefill", state=state)
     if last_index is None:
         x_last = x[:, -1:]

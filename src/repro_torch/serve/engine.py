@@ -9,8 +9,11 @@ handoff.
   it), samples each row's first token from its true last prompt position,
   and seals the result into a :class:`KVHandoff`: the attention KV re-viewed
   as page units ``(L, N, n_alloc, page, KH, hd)`` (paged layout) or the
-  dense rows. A staging :class:`~repro_torch.serve.kv_pool.KVPool` accounts
-  the in-flight handoff pages.
+  dense rows, and every recurrent carry's rows. A recurrent arch (SSM,
+  hybrid) prefills to its exact prompt length, since a carry absorbs pad
+  tokens; an arch without attention runs the dense layout. A staging
+  :class:`~repro_torch.serve.kv_pool.KVPool` accounts the in-flight
+  handoff pages.
 * :class:`DecodeWorker` — owns the device-resident per-slot
   :class:`DecodeState` (each request lives in one of ``max_slots`` slots
   with its own position), ``adopt``s handoffs (pool ids from its pool, the
@@ -82,7 +85,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.models.transformer import init_lm_state, lm_decode, lm_extend, lm_prefill
+from repro_torch.models.transformer import group_pattern, init_lm_state, lm_decode, lm_extend, lm_prefill
 from repro_torch.obs import KV_GAUGES, SERVE_ENGINE_METRICS, MetricsRegistry, StatsView
 from repro_torch.serve.kv_pool import KVPool
 from repro_torch.utils.trees import tree_map
@@ -181,7 +184,9 @@ class KVHandoff(NamedTuple):
     decode worker. Page ids are pool-local and never travel: the adopting
     pool assigns its own."""
 
-    sealed: Dict[str, torch.Tensor]  # paged: (L, N, n_alloc, page, KH, hd); dense: (L, N, cl, KH, hd)
+    # paged: k_pages/v_pages (L_attn, N, n_alloc, page, KH, hd); dense: k/v
+    # (L_attn, N, cl, KH, hd); either: every recurrent carry's rows (L_mixer, N, ...)
+    sealed: Dict[str, torch.Tensor]
     first_tok: torch.Tensor  # (N,) int32 — first sampled token per row
     true_lens: np.ndarray  # (N,) host — true prompt lengths
     budgets: np.ndarray  # (N,) host — generation budgets
@@ -199,6 +204,12 @@ class KVHandoff(NamedTuple):
 
 def bucket_len(cfg, ecfg: EngineConfig, prompt_len: int) -> int:
     """The padded prefill length of a prompt."""
+    if cfg.family in ("ssm", "hybrid"):
+        # a recurrent carry (Mamba or xLSTM state) absorbs pad tokens: the
+        # prefill must stop exactly at the prompt's end. Attention caches
+        # are position-addressed: the pad tail is overwritten before it is
+        # ever attended, so bucketing is safe for them.
+        return prompt_len
     b = ecfg.prefill_bucket
     lb = min(-(-prompt_len // b) * b, ecfg.max_seq)
     if cfg.sliding_window > 0:
@@ -210,15 +221,29 @@ def bucket_len(cfg, ecfg: EngineConfig, prompt_len: int) -> int:
     return lb
 
 
+def engine_layout(cfg, ecfg: EngineConfig) -> str:
+    """The layout the engine runs: ``ecfg.kv_layout``, except that an arch
+    without attention layers has no KV to page and runs the dense layout
+    (its recurrent carries are per slot either way)."""
+    has_attn = any(mixer == "attn" for mixer, _ in group_pattern(cfg))
+    return ecfg.kv_layout if has_attn else "dense"
+
+
 def _require_extend_capable(cfg, ecfg: EngineConfig, feature: str) -> None:
     """Both prefix sharing and speculative verify run :func:`lm_extend` —
-    "prefill semantics starting mid-cache" — which only a full attention
-    cache supports: an SWA ring wraps writes into pages another request may
-    share. (A recurrent carry could neither start mid-sequence nor roll
-    back; the port's configs are attention-only, ``group_pattern`` refuses
-    the other families.) Fails fast, before the device."""
+    "prefill semantics starting mid-cache" — which only attention caches
+    support: a recurrent carry can neither start mid-sequence (splice) nor
+    roll back rejected positions (verify), and an SWA ring wraps writes
+    into pages another request may share. Fails fast, before the device."""
     from repro_torch.models.attention import cache_len
 
+    non_attn = [m for m, _ in group_pattern(cfg) if m != "attn"]
+    if non_attn:
+        raise ValueError(
+            f"{cfg.name}: {feature} requires attention-only mixers, found "
+            f"{sorted(set(non_attn))} — a recurrent carry cannot be spliced "
+            "mid-sequence or rolled back after a rejected draft"
+        )
     if cache_len(cfg, ecfg.max_seq) != ecfg.max_seq:
         raise ValueError(
             f"{cfg.name}: {feature} requires a full (non-ring) KV cache, but "
@@ -226,6 +251,34 @@ def _require_extend_capable(cfg, ecfg: EngineConfig, feature: str) -> None:
             "makes decode writes wrap into earlier pages — a wrapped write "
             "would land in a page another request shares"
         )
+
+
+def check_accelerations(cfg, ecfg: EngineConfig, has_drafter: bool = True) -> None:
+    """The decode worker's refusals of the prefix cache and speculative
+    decoding (``has_drafter``: whether a drafter was given) for this arch,
+    raised before any device work; the launcher turns them into its exit
+    message."""
+    layout = engine_layout(cfg, ecfg)
+    if ecfg.prefix_cache:
+        if layout != "paged":
+            raise ValueError(
+                f"{cfg.name}: prefix_cache requires the paged layout, but this "
+                "arch has no attention KV to page (it degrades to dense)"
+            )
+        _require_extend_capable(cfg, ecfg, "prefix_cache")
+    if ecfg.spec_k > 0:
+        if not has_drafter:
+            raise ValueError(
+                "spec_k > 0 but no drafter: pass drafter=(cfg, params) — any "
+                "registry config with attention-only mixers (e.g. a reduced "
+                "smollm-135m) can draft"
+            )
+        if layout != "paged":
+            raise ValueError(
+                f"{cfg.name}: spec_decode requires the paged layout — the "
+                "batched verify is an lm_extend over the page-table view"
+            )
+        _require_extend_capable(cfg, ecfg, "spec_decode")
 
 
 def _fresh_stats(registry: Optional[MetricsRegistry] = None, replica: int = 0) -> StatsView:
@@ -253,7 +306,7 @@ class PrefillWorker:
         self.ecfg = ecfg
         self.params = params
         self.device = _device_of(params)
-        self.layout = ecfg.kv_layout
+        self.layout = engine_layout(cfg, ecfg)
         self.replica = replica
         self.staging: Optional[KVPool] = KVPool(cfg, ecfg) if self.layout == "paged" else None
         self.stats = stats if stats is not None else _fresh_stats(registry, replica)
@@ -279,9 +332,10 @@ class PrefillWorker:
             return st1, toks0
         ps = self.staging.page_size
         n_alloc = self.staging.required_pages(tokens.shape[1])
-        sealed = {}
+        # recurrent carries travel as their dense rows
+        sealed = {name: leaf for name, leaf in st1.items() if name not in ("k", "v")}
         for pages_name, dense_name in (("k_pages", "k"), ("v_pages", "v")):
-            one = st1[dense_name]  # (L, N, cl, KH, hd)
+            one = st1[dense_name]  # (L_attn, N, cl, KH, hd)
             pad = (-one.shape[2]) % ps
             if pad:
                 one = torch.nn.functional.pad(one, (0, 0, 0, 0, 0, pad))
@@ -340,30 +394,18 @@ class DecodeWorker:
         self.ecfg = ecfg
         self.params = params
         self.device = _device_of(params)
-        self.layout = ecfg.kv_layout
+        self.layout = engine_layout(cfg, ecfg)
         self.replica = replica
         self.pool: Optional[KVPool] = KVPool(cfg, ecfg) if self.layout == "paged" else None
         self.stats = stats if stats is not None else _fresh_stats(registry, replica)
+        check_accelerations(cfg, ecfg, drafter is not None)
         self.prefix = None
         if ecfg.prefix_cache:
-            _require_extend_capable(cfg, ecfg, "prefix_cache")
             from repro_torch.serve.prefix_cache import PrefixCache
 
             self.prefix = PrefixCache(self.pool)
         self._spec = None
         if ecfg.spec_k > 0:
-            if drafter is None:
-                raise ValueError(
-                    "spec_k > 0 but no drafter: pass drafter=(cfg, params) — any "
-                    "registry config with attention-only mixers (e.g. a reduced "
-                    "smollm-135m) can draft"
-                )
-            if self.layout != "paged":
-                raise ValueError(
-                    f"{cfg.name}: spec_decode requires the paged layout — the "
-                    "batched verify is an lm_extend over the page-table view"
-                )
-            _require_extend_capable(cfg, ecfg, "spec_decode")
             from repro_torch.serve.spec_decode import SpecDecoder
 
             self._spec = SpecDecoder(self, drafter[0], drafter[1], ecfg.spec_k)
@@ -411,16 +453,18 @@ class DecodeWorker:
         """Ingest one sealed burst: data movement only. Paged: the sealed
         page units land in this worker's pool at the ids its pool assigned
         (one copy per leaf for the whole burst; ids are disjoint across
-        rows). Dense: the rows land on their slots."""
+        rows). Dense, and every recurrent carry in either layout: the rows
+        land on their slots, overwriting whatever the slot's carries held
+        (an idle slot's carries keep stepping in decode chunks)."""
         ds = self._state
+        for name, rows in sealed.items():
+            big = ds.kv[name]
+            if name in ("k_pages", "v_pages"):
+                big[:, page_ids] = rows.to(big.dtype)  # (L_attn, P, ps, KH, hd)
+            else:
+                big[:, slots] = rows.to(big.dtype)
         if self.layout == "paged":
-            for name in ("k_pages", "v_pages"):
-                big = ds.kv[name]  # (L, P, ps, KH, hd)
-                big[:, page_ids] = sealed[name].to(big.dtype)
             ds.page_table[slots] = table_rows
-        else:
-            for name in ("k", "v"):
-                ds.kv[name][:, slots] = sealed[name].to(ds.kv[name].dtype)
         ds.last_tok[slots, 0] = toks0
         ds.pos[slots] = true_lens
         ds.active[slots] = budgets > 1
@@ -906,12 +950,18 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
-        self.layout = ecfg.kv_layout
+        self.layout = engine_layout(cfg, ecfg)
         self.replica = replica
         self.stats: StatsView = _fresh_stats(registry, replica)
         prefill_params = params
         if prefill_device is not None:
-            if ecfg.kv_layout != "paged":
+            if self.layout != "paged" and ecfg.kv_layout == "paged":
+                raise ValueError(
+                    f"{cfg.name} has no attention layers: its serving state degrades "
+                    "to the dense layout, which has no page units to hand off — a "
+                    "disaggregated prefill/decode pair is paged-only."
+                )
+            if self.layout != "paged":
                 raise ValueError(
                     'prefill_device requires kv_layout="paged": the prefill->decode '
                     "handoff moves sealed KV PAGES between worker pools, and the "

@@ -53,10 +53,13 @@ class SpecDecoder:
     every admission so the drafter can prefill its own cache."""
 
     def __init__(self, worker, dcfg, dparams, k: int):
-        # the port's configs are attention-only: group_pattern refuses
-        # every family it does not run (a recurrent carry could not roll
-        # back past a rejected draft)
-        group_pattern(dcfg)
+        non_attn = sorted({m for m, _ in group_pattern(dcfg) if m != "attn"})
+        if non_attn:
+            raise ValueError(
+                f"drafter {dcfg.name}: speculative drafting requires attention-"
+                f"only mixers, found {non_attn} — a recurrent carry cannot roll "
+                "back past a rejected draft"
+            )
         if dcfg.sliding_window > 0:
             raise ValueError(
                 f"drafter {dcfg.name}: sliding_window={dcfg.sliding_window} makes "

@@ -7,7 +7,8 @@ bitwise equal, one full-width training step, one small epoch of each
 distilling Table 1 baseline, the grouped client bank against the looped
 ensemble, a paged decode run that telemetry adds no device sync to, the
 prefix cache with speculative decoding on hot-prefix traffic, and the MoE
-dispatches, qk-norm prefill and ``remat``. These tests need a CUDA device (marker
+dispatches, qk-norm prefill, ``remat`` and the recurrent archs' engine
+(jamba through #5/#8 against the plain attention). These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -1102,3 +1103,45 @@ def test_remat_step_equals_plain_step_on_card(device):
     for path, g, w in pairs:
         assert torch.isfinite(g).all(), path
         assert float((g - w).abs().max()) <= 1e-6 * max(float(w.abs().max()), 1e-30), path
+
+
+def test_recurrent_engine_on_card_matches_ref_backend(device):
+    """A reduced f32 jamba-v0.1-52b (Mamba, attention at layer 4 of 8, MoE)
+    served on the card, paged, on ragged prompts (a recurrent arch prefills
+    at each prompt's exact length, so #5 runs unpadded): the same greedy
+    tokens through #5/#8 (backend "cuda") as through the plain attention
+    (backend "ref"); #5 once for each prefill dispatch (one attention
+    layer), #8 every decode step, and never with "ref". A reduced
+    xlstm-125m launches neither."""
+    import numpy as np
+
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine
+
+    ecfg = EngineConfig(max_slots=3, max_seq=48, max_new=8, decode_chunk=4, page_size=8)
+    for arch in ("jamba-v0.1-52b", "xlstm-125m"):
+        cfg = reduced_variant(get_arch(arch)).replace(dtype="float32", param_dtype="float32")
+        params = init_lm(cfg, torch.Generator(device=device).manual_seed(0))
+        head = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]["kernel"]
+        head *= 10.0  # wide logit margins for greedy parity
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 37, 13, 37, 21)]
+        out = {}
+        for backend in ("cuda", "ref"):
+            eng = ServeEngine(cfg.replace(backend=backend), params, ecfg)
+            reset_launch_counts()
+            comps = ContinuousScheduler(eng, clock=ManualClock()).run(
+                [Request(rid=i, tokens=p, max_new_tokens=8) for i, p in enumerate(prompts)])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            out[backend] = ({c.rid: c.tokens.tolist() for c in comps}, dict(eng.stats),
+                            counts["flash_attention_fwd"], counts["flash_decode"])
+        assert out["cuda"][:2] == out["ref"][:2]
+        assert out["ref"][2:] == (0, 0)
+        if arch == "xlstm-125m":
+            assert eng.layout == "dense" and out["cuda"][2:] == (0, 0)
+        else:
+            assert out["cuda"][2] == out["cuda"][1]["prefill_dispatches"] >= len(set(map(len, prompts)))
+            assert out["cuda"][3] > 0

@@ -138,12 +138,18 @@ def test_disagg_requires_paged_layout(model):
 
 
 def test_disagg_pure_ssm_has_no_port_family(model):
-    """The reference refuses a disaggregated pure-SSM engine (its state
-    degrades to the dense layout). The port has no SSM family: the engine
-    refuses the family before the layout matters."""
-    cfg, params = model[2:]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServeEngine(cfg.replace(family="ssm"), params, EngineConfig(**ECFG), prefill_device="cpu")
+    """A disaggregated pure-SSM engine is refused, as the reference refuses
+    it: its state degrades to the dense layout, which has no page units to
+    hand off. Colocated, the same engine runs the dense layout."""
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
+
+    cfg = reduced_variant(get_arch("xlstm-125m")).replace(dtype="float32")
+    params = init_lm(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="no attention layers"):
+        ServeEngine(cfg, params, EngineConfig(**ECFG), prefill_device="cpu")
+    assert ServeEngine(cfg, params, EngineConfig(**ECFG)).layout == "dense"
 
 
 def test_router_needs_engines():

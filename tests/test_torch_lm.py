@@ -77,15 +77,20 @@ def test_config_and_tokens_match_jax():
     for k, v in jax_make_token_stream(3, 512, 4, 17).items():
         np.testing.assert_array_equal(make_token_stream(3, 512, 4, 17)[k], v)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_arch("xlstm-125m")
+        get_arch("hubert-xlarge")
 
 
-@pytest.mark.parametrize("option", [dict(act="gelu"), dict(family="ssm")], ids=["gelu", "ssm"])
-def test_unported_dense_options_refuse(option):
+@pytest.mark.parametrize("option,error,match", [
+    (dict(act="gelu"), NotImplementedError, "not ported yet"),
+    (dict(family="ssm"), ValueError, "ssm_kind"),
+    (dict(family="audio"), NotImplementedError, "not ported yet"),
+    (dict(family="hybrid"), ValueError, "attn_every"),
+], ids=["gelu", "ssm", "audio", "hybrid"])
+def test_unported_dense_options_refuse(option, error, match):
     """An option or a family that no ported config uses is refused, never
-    ignored."""
+    ignored; so is an SSM or hybrid family without its recurrent fields."""
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(error, match=match):
         init_lm(cfg.replace(**option), torch.Generator().manual_seed(0))
 
 

@@ -56,7 +56,7 @@ from repro.serve.traffic import with_arrivals as jax_with_arrivals
 from repro_torch.config.model import reduced_variant
 from repro_torch.config.registry import get_arch
 from repro_torch.convert import lm_params_from_jax
-from repro_torch.models.transformer import init_lm_state, lm_extend, lm_forward
+from repro_torch.models.transformer import init_lm, init_lm_state, lm_extend, lm_forward
 from repro_torch.serve import (
     ContinuousScheduler,
     EngineConfig,
@@ -473,9 +473,10 @@ def test_prefix_spec_config_fail_fast(model):
         ServeEngine(cfg, params, spec_cfg, drafter=(cfg.replace(sliding_window=8), params))
     with pytest.raises(ValueError, match="vocab"):
         ServeEngine(cfg, params, spec_cfg, drafter=(cfg.replace(vocab_size=256), params))
-    # the port's configs are dense only: a recurrent drafter cannot be built
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServeEngine(cfg, params, spec_cfg, drafter=(cfg.replace(family="ssm"), params))
+    # a recurrent drafter cannot roll back past a rejected draft
+    xcfg = reduced_variant(get_arch("xlstm-125m")).replace(dtype="float32")
+    with pytest.raises(ValueError, match="attention-only"):
+        ServeEngine(cfg, params, spec_cfg, drafter=(xcfg, init_lm(xcfg, torch.Generator().manual_seed(0))))
     # the target itself: a ring cache cannot be spliced or rolled back
     swa = cfg.replace(sliding_window=16)
     for knobs in (dict(prefix_cache=True), dict(spec_k=2)):
@@ -494,7 +495,8 @@ def test_serve_args_fail_fast():
         (["--spec-decode", "--spec-k", "0"], "spec-k"),
         (["--spec-decode", "--temperature", "0.7"], "temperature"),
         (["--spec-decode", "--kv-layout", "dense"], "paged"),
-        (["--spec-decode", "--drafter", "xlstm-125m"], "not ported yet"),
+        (["--spec-decode", "--drafter", "xlstm-125m"], "recurrent carry"),
+        (["--spec-decode", "--drafter", "hubert-xlarge"], "not ported yet"),
         (["--spec-decode", "--drafter", "nope"], "unknown arch"),
     ):
         with pytest.raises(SystemExit, match=match):
