@@ -38,7 +38,12 @@ result line):
    internlm2-20b (48 over 8, hd 128), qwen3-32b (64 over 8, hd 128),
    mixtral-8x7b (32 over 8, hd 128, window 4096) and qwen3-moe-235b-a22b
    (64 over 4, hd 128): the forward at 8 prompts × 128 tokens, decode at 8
-   slots with ragged positions, each timed in bf16.
+   slots with ragged positions, each timed in bf16; and at the head dims
+   of the modality configs: hubert-xlarge (16 over 16, hd 80, non-causal)
+   at 4 × 500 frames and a ragged 37, phi-3-vision-4.2b (32 over 32, hd
+   96, causal) at its prefill of 8 × (576 + 128), the forward and both
+   backward passes, and decode at both head dims in f32 and bf16, each
+   timed in bf16 beside SDPA.
    ``flash_decode`` (the split kernel and its combine) also at ragged
    positions from 0 to the last slot, at hd 128 with one query head per kv
    head, and with a table far wider than the live pages; a second call
@@ -249,6 +254,27 @@ result line):
    5's stream (``launch.serve.run_continuous``): every request returns its
    tokens, #5 = attention layers x prefills; tok/s, p50/p95, TTFT, peak
    memory, and one prefill of 8 x 128 tokens timed as above.
+5g. The audio-encoder and VLM families (phase budget 150 s).
+   hubert-xlarge at full width and depth in f32 (48 layers, 0.95 B
+   parameters, 16 heads at hd 80, non-causal, GELU MLP, 504-way codebook
+   head): one ``lm_loss`` step on 4 × 500 frames (10 s of audio at 20 ms a
+   frame, features from a seed) through the kernels against plain
+   autograd: the loss within 1e-5 relative, every gradient within 1e-3
+   of its leaf's largest; #5 twice a layer (remat), #6 and #7 once. Then
+   10 AdamW steps with bf16 activations on 8 × 500 frames through
+   ``runtime.steps``' train step under remat (s/step, frames/s, peak
+   memory, launches; finite losses). phi-3-vision-4.2b at full width and
+   depth in f32 (3.82 B parameters, 15.3 GB; head ×10): ``static_generate``
+   on 4 prompts of 128 tokens after the seeded 576-patch prefix, 64
+   greedy tokens, through #5 against the plain attention, each prompt
+   compared before its first near-tie (as in phase 5c); #5 once a layer,
+   #8 never (the static path decodes densely). Then ``launch.serve
+   --engine static --batch 8 --prompt-len 128 --gen 64`` in bf16 (tok/s,
+   peak memory, #5 = 32 × 2 runs) and one bf16 prefill of 8 × 704
+   positions (ms, host clock). Last ``launch.train`` at full width in bf16
+   with AdamW, 8 × 256 text tokens after 576 patches, 5 steps, at the
+   deepest multiple of 8 layers that fits AdamW's f32 state (the depth is
+   printed): finite losses, #5 twice a layer a step, #6 and #7 once.
 5b. Telemetry (``repro_torch.obs``): phase 4's Co-Boosting run, then
    phase 5's serving run, each through its launcher with
    ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
@@ -427,6 +453,13 @@ REMAT_MIXTRAL = dict(layers=2, batch=2, seq=256)
 # 53.2 GB), at an ample capacity factor (E / k) on ragged prompts
 RECURRENT_TRAIN = dict(batch=8, seq=256, steps=3, check_batch=2)
 RECURRENT_JAMBA = dict(layers=8, factor=8.0, lens=(128, 97, 113, 77))
+# phase 5g and its phase-2 shapes: hubert-xlarge (16/16 heads, hd 80, non-causal) at the f32 check's
+# 4 x 500 frames (10 s of audio at 20 ms a frame), phi-3-vision-4.2b (32/32, hd 96, causal) at the
+# launcher's prefill of 8 x (576 patches + 128 tokens)
+MODALITY_ATTN = {"hubert-xlarge": dict(name="4x500 frames", shape=(4, 500, 500, 16, 16, 80), causal=False),
+                 "phi-3-vision-4.2b": dict(name="prefill 8x704", shape=(8, 704, 704, 32, 32, 96), causal=True)}
+HUBERT = dict(batch=4, frames=500, train_batch=8, steps=10)
+PHI = dict(prompts=4, prompt=128, gen=64, batch=8, train_batch=8, train_seq=256, train_steps=5)
 
 
 def fail(msg: str) -> None:
@@ -885,21 +918,22 @@ def _lse_err(name, got, want):
     return _err(name, got[keep], want[keep]) if bool(keep.any()) else 0.0
 
 
-def _sdpa(q, k, v):
+def _sdpa(q, k, v, causal=True):
     """PyTorch's fused attention on the same inputs, in its (B, H, S, hd)
-    layout (transposed views), causal, GQA."""
+    layout (transposed views), GQA."""
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
-def _attn_fwd_bound(q, k, v, shape, peak):
+def _attn_fwd_bound(q, k, v, shape, peak, causal=True):
     """The forward's bound: bytes (q, k, v read once, out written once, lse
-    f32) and the causal half of the QK^T and PV products."""
+    f32) and the QK^T and PV products over the visible pairs (the causal
+    half, or all of them)."""
     b, sq, sk, h, kh, hd = shape
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + 4 * b * sq * h
-    flops = 4 * b * h * sq * sk * hd // 2
+    flops = 4 * b * h * sq * sk * hd // (2 if causal else 1)
     return _bound_ms(nbytes, flops, peak)
 
 
@@ -922,7 +956,8 @@ def attention_kernels_vs_plain():
     errs = {n: 0.0 for n in ATTN_KERNELS}
     timing = {}
     n_pre, lb = SERVE["slots"], SERVE["prompt"]
-    timed = {"smollm prefill": "prefill", "smollm train": "train", **{f"{a} prefill": f"{a} prefill" for a in ARCH_HEADS}}
+    timed = {"smollm prefill": "prefill", "smollm train": "train", **{f"{a} prefill": f"{a} prefill" for a in ARCH_HEADS},
+             **{f"{a} {m['name']}": f"{a} {m['name']}" for a, m in MODALITY_ATTN.items()}}
     attn_cases = [
         ("smollm prefill", (n_pre, lb, lb, 9, 3, 64), dict(causal=True)),
         ("smollm train", (TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], 9, 3, 64), dict(causal=True)),
@@ -932,7 +967,10 @@ def attention_kernels_vs_plain():
         ("cross hd128 window", (1, 70, 33, 4, 1, 128), dict(causal=False, window=16)),
         # the prefill shapes of the other served configs (ARCH_HEADS), mixtral's with its window
     ] + [(f"{a} prefill", (n_pre, lb, lb) + heads, dict(causal=True, window=ARCH_WINDOW.get(a, 0)))
-         for a, heads in ARCH_HEADS.items()]
+         for a, heads in ARCH_HEADS.items()
+    # hubert-xlarge (hd 80, non-causal) at its batch and at a ragged 37, phi-3-vision-4.2b (hd 96) at its prefill
+    ] + [(f"{a} {m['name']}", m["shape"], dict(causal=m["causal"])) for a, m in MODALITY_ATTN.items()] + [
+        ("hubert-xlarge ragged 37", (2, 37, 37) + MODALITY_ATTN["hubert-xlarge"]["shape"][3:], dict(causal=False))]
     w_pages = (SERVE["prompt"] + SERVE["gen"]) // SERVE["page"]
     mid = SERVE["prompt"] + SERVE["gen"] // 2
     ragged = [i * (w_pages * SERVE["page"] - 1) // (SERVE["slots"] - 1) for i in range(SERVE["slots"])]  # 0 .. max_seq-1
@@ -944,8 +982,12 @@ def attention_kernels_vs_plain():
         # max_seq far beyond the positions reached: 11 live entries of 256
         ("smollm decode wide table", (SERVE["slots"], 9, 3, 64, SERVE["page"], 256, 0, [mid] * SERVE["slots"])),
     ] + [(f"{a} decode", (SERVE["slots"], *heads, SERVE["page"], w_pages, ARCH_WINDOW.get(a, 0), ragged))
-         for a, heads in ARCH_HEADS.items()]
-    decode_timed = {"smollm decode": "decode", **{f"{a} decode": f"{a} decode" for a in ARCH_HEADS}}
+         for a, heads in ARCH_HEADS.items()
+    # #8 at hd 80 and 96: no path launches it (hubert has no decode, phi's static path decodes densely)
+    ] + [(f"{a} heads decode", (SERVE["slots"], *m["shape"][3:], SERVE["page"], w_pages, 0, ragged))
+         for a, m in MODALITY_ATTN.items()]
+    decode_timed = {"smollm decode": "decode", **{f"{a} decode": f"{a} decode" for a in ARCH_HEADS},
+                    **{f"{a} heads decode": f"{a} heads decode" for a in MODALITY_ATTN}}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
@@ -967,9 +1009,9 @@ def attention_kernels_vs_plain():
                 errs[name] = max(errs[name], _err(label + " out", out, want_o), _lse_err(label + " lse", lse, want_lse))
             if tag not in timed or (dtype == torch.float32 and tag != "smollm prefill"):
                 continue
-            bound, bound_by = _attn_fwd_bound(q, k, v, shape, peak)
+            bound, bound_by = _attn_fwd_bound(q, k, v, shape, peak, kw["causal"])
             plain_ms = _time_ms(lambda: flash_attention_ref_lse(q, k, v, **kw), iters=50)
-            library = _sdpa(q, k, v)
+            library = _sdpa(q, k, v, kw["causal"])
             on_device = dtype == torch.bfloat16  # device times for the main paths' dtype
             library_ms, library_dev = _time_ms(library), _graph_ms(library) if on_device else None
             for variant, name in variants.items():
@@ -1015,15 +1057,15 @@ def attention_kernels_vs_plain():
     return errs, {n: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} for n, t in table.items()}
 
 
-def _sdpa_bwd(q, k, v, dout):
-    """PyTorch's fused attention backward on the same inputs (causal, GQA):
+def _sdpa_bwd(q, k, v, dout, causal=True):
+    """PyTorch's fused attention backward on the same inputs (GQA):
     ``(forward+backward, forward)`` callables, timed only."""
     import torch
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     dt = dout.transpose(1, 2)
-    fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
     both = lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dt)
     return both, fwd
 
@@ -1054,7 +1096,12 @@ def attention_bwd_kernels_vs_plain():
         ("tail window+softcap", (2, 37, 37, 4, 2, 32), dict(causal=True, window=16, softcap=30.0)),
         ("cross hd128", (2, 70, 45, 8, 2, 128), dict(causal=False)),
         ("cross hd128 window", (1, 70, 33, 4, 1, 128), dict(causal=False, window=16)),  # fully-masked rows
-    ]
+        # hubert-xlarge (hd 80, non-causal) at its batch and at a ragged 37, phi-3-vision-4.2b (hd 96)
+    ] + [(f"{a} {m['name']}", m["shape"], dict(causal=m["causal"])) for a, m in MODALITY_ATTN.items()] + [
+        ("hubert-xlarge ragged 37", (2, 37, 37) + MODALITY_ATTN["hubert-xlarge"]["shape"][3:], dict(causal=False))]
+    # timed: the training shape in both dtypes, the modality shapes in bf16
+    timed = {"smollm train": "training shape", **{f"{a} {m['name']}": f"{a} {m['name']}"
+                                                  for a, m in MODALITY_ATTN.items()}}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
@@ -1088,10 +1135,10 @@ def attention_bwd_kernels_vs_plain():
                     again = as_tuple(kern(*args, variant=variant, **kw))
                     if not all(torch.equal(a, b) for a, b in zip(again, got)):
                         fail(f"{kname} {name}: a second call gave other bits")
-            if ci != 0:
+            if tag not in timed or (dtype == torch.float32 and ci != 0):
                 continue
             b, sq, sk, h, kh, hd = shape
-            pairs = int(_visible(sq, sk, True, 0, "cpu").sum())  # the causal (query, key) pairs
+            pairs = int(_visible(sq, sk, kw["causal"], 0, "cpu").sum())  # the visible (query, key) pairs
             its = q.element_size()
             rows = 2 * 4 * b * sq * h  # lse and delta, f32
             work = {
@@ -1100,7 +1147,7 @@ def attention_bwd_kernels_vs_plain():
                 # s, dp, dv, dk; outputs dk dv
                 "dkv": ((2 * q.numel() + 4 * k.numel()) * its + rows, 4 * 2 * b * h * pairs * hd),
             }
-            both, fwd = _sdpa_bwd(q, k, v, dout)
+            both, fwd = _sdpa_bwd(q, k, v, dout, kw["causal"])
             library = _time_ms(both, iters=50) - _time_ms(fwd, iters=50)
             on_device = dtype == torch.bfloat16  # device times for the main paths' dtype
             library_dev = _graph_ms(both) - _graph_ms(fwd) if on_device else None
@@ -1112,17 +1159,17 @@ def attention_bwd_kernels_vs_plain():
                                     lambda plain=plain: plain(*args, **kw))
             for n, (w, kern, plain) in calls.items():
                 bound, bound_by = _bound_ms(*work[w], peak)
-                timing[(n, dname)] = {
+                timing[(n, timed[tag], dname)] = {
                     "ms": _time_ms(kern, iters=50), "plain_ms": _time_ms(plain, iters=20),
                     "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
                     "device_ms": _graph_ms(kern) if on_device else None, "library_device_ms": library_dev,
                 }
         print(f"attention backward kernels agree with plain versions in {dname}, bitwise on a second call", flush=True)
-    for (name, dname), t in timing.items():
-        print(f"time {name} training shape {dname}: " + json.dumps(t), flush=True)
+    for (name, where, dname), t in timing.items():
+        print(f"time {name} {where} {dname}: " + json.dumps(t), flush=True)
     # the training path runs in bf16: its times go in the table
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return errs, {n: {k: timing[(n, "bfloat16")][k] for k in keys} for n in BWD_KERNELS}
+    return errs, {n: {k: timing[(n, "training shape", "bfloat16")][k] for k in keys} for n in BWD_KERNELS}
 
 
 def _check_variants(where, counts, dtype):
@@ -2777,6 +2824,300 @@ def recurrent_path(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 5g
+
+
+def _frames_batch(cfg, b, seed):
+    """hubert's input: ``b`` x 500 frame features (``frontend_dim`` each) and
+    codebook labels, from ``seed`` with numpy."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    frames = rng.randn(b, HUBERT["frames"], cfg.frontend_dim).astype(np.float32)
+    labels = rng.randint(0, cfg.vocab_size, size=(b, HUBERT["frames"]))
+    dev = torch.device("cuda")
+    return {"frames": torch.as_tensor(frames, device=dev), "labels": torch.as_tensor(labels, device=dev)}
+
+
+def _train_launches(where, counts, layers, steps, dtype):
+    """A training run under remat: #5 twice a layer a step (its recompute),
+    #6 and #7 once, on the kernels of ``dtype``."""
+    _check_variants(where, counts, dtype)
+    want = {"flash_attention_fwd": 2 * layers * steps, "flash_attention_bwd_dq": layers * steps,
+            "flash_attention_bwd_dkv": layers * steps, "flash_decode": 0}
+    if any(counts[n] != w for n, w in want.items()):
+        fail(f"{where}: launches {json.dumps({n: counts[n] for n in want})}, expected {json.dumps(want)}")
+
+
+def _hubert_path(card):
+    """hubert-xlarge at full width and depth: one f32 ``lm_loss`` step
+    through the kernels against plain autograd, then 10 AdamW steps with
+    bf16 activations through ``runtime.steps``' train step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.config.train import TrainConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.utils.trees import tree_leaves
+
+    dev = torch.device("cuda")
+    full = get_arch("hubert-xlarge")
+    cfg = full.replace(dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(7))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = _frames_batch(cfg, HUBERT["batch"], seed=7)
+    where = f"hubert-xlarge f32, {HUBERT['batch']} x {HUBERT['frames']} frames"
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    loss_k, got = _loss_and_grads(cfg.replace(backend="cuda"), params, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _train_launches(where, counts, cfg.num_layers, 1, "float32")
+    loss_r, want = _loss_and_grads(cfg.replace(backend="ref"), params, batch)
+    rel_loss = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
+    rel = {n: float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30) for n, w in want.items()}
+    worst = max(rel, key=rel.get)
+    if not all(bool(torch.isfinite(g).all()) for g in got.values()):
+        fail(f"{where}: a gradient through the kernels is not finite")
+    if rel_loss > 1e-5 or rel[worst] > 1e-3:
+        fail(f"{where}: loss {float(loss_k)!r} vs plain {float(loss_r)!r} ({rel_loss:.3e} relative), largest "
+             f"gradient gap {rel[worst]:.3e} of the leaf's largest ({worst})")
+    print(f"{where} at full width and depth ({cfg.num_layers} layers, {n_params} parameters), lm_loss and its "
+          f"gradients through the kernels vs plain autograd: loss {float(loss_k):.6f} vs {float(loss_r):.6f} "
+          f"({rel_loss:.3e} relative, limit 1e-5); largest gradient gap relative to the leaf's largest "
+          f"{rel[worst]:.3e} ({worst}; limit 1e-3), median {float(np.median(list(rel.values()))):.3e}; "
+          f"{time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps({n: counts[n] for n in TRAIN_KERNELS})}", flush=True)
+    del got, want
+    _free()
+    steps = HUBERT["steps"]
+    tc = TrainConfig(optimizer="adamw", learning_rate=3e-3, schedule="linear_warmup_cosine", warmup_steps=1,
+                     total_steps=steps)
+    step_fn = make_train_step(full, tc)
+    opt_state = step_fn.optimizer.init(params)
+    batches = [_frames_batch(full, HUBERT["train_batch"], seed=100 + i) for i in range(steps)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, stamps = [], []
+    for i, b in enumerate(batches):
+        params, opt_state, metrics = step_fn(params, opt_state, b, i)
+        losses.append(float(metrics["loss"]))  # a host read: the step has finished
+        stamps.append(time.perf_counter())
+    counts = launch_counts()
+    where = f"hubert-xlarge training, bf16 activations, {HUBERT['train_batch']} x {HUBERT['frames']} frames"
+    _train_launches(where, counts, full.num_layers, steps, "bfloat16")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{where}: non-finite loss in {losses}")
+    s_step = (stamps[-1] - stamps[0]) / (steps - 1)  # after the first step
+    print(f"{where}, AdamW, {steps} steps through runtime.steps under remat ({card}): {s_step:.4f} s/step, "
+          f"{HUBERT['train_batch'] * HUBERT['frames'] / s_step:.1f} frames/s after the first step, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; losses {[round(x, 4) for x in losses]}; "
+          f"launches {json.dumps({n: counts[n] for n in TRAIN_KERNELS})}", flush=True)
+    del params, opt_state, batches
+
+
+def _phi_batch(cfg, b, prompt, seed):
+    """phi's serving input as the launcher makes it: the token stream's
+    prompts and ``RandomState(seed).randn(b, P, frontend_dim) x 0.02``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import make_token_stream
+
+    dev = torch.device("cuda")
+    tokens = make_token_stream(seed, cfg.vocab_size, b, prompt)["tokens"][:, :prompt]
+    prefix = np.random.RandomState(seed).randn(b, cfg.num_prefix_tokens, cfg.frontend_dim).astype(np.float32) * 0.02
+    return {"tokens": torch.as_tensor(tokens, device=dev), "prefix": torch.as_tensor(prefix, device=dev)}
+
+
+def _phi_static_check():
+    """phi-3-vision-4.2b in f32 at full width and depth: ``static_generate``
+    through the kernels against the plain attention on the seeded prefix,
+    each prompt compared before its first near-tie (the plain route's
+    teacher-forced top-2 margin at or below 1e-3); #5 once a layer, #8
+    never (the static path decodes densely)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_lm, lm_forward
+    from repro_torch.serve import static_generate
+    from repro_torch.utils.trees import tree_leaves
+
+    dev = torch.device("cuda")
+    full = get_arch("phi-3-vision-4.2b")
+    cfg = full.replace(dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    params["lm_head"]["kernel"] *= 10.0  # untied: wide top-2 margins
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n, prompt, gen, pre = PHI["prompts"], PHI["prompt"], PHI["gen"], cfg.num_prefix_tokens
+    batch = _phi_batch(cfg, n, prompt, seed=1)
+    where = f"phi-3-vision-4.2b f32, {n} prompts of {prompt} tokens after {pre} patches"
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    got = static_generate(params, cfg.replace(backend="auto"), batch, gen)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = static_generate(params, cfg.replace(backend="ref"), batch, gen)
+    _check_variants(where, counts, "float32")
+    if (counts["flash_attention_fwd"], counts["flash_decode"]) != (cfg.num_layers, 0):
+        fail(f"{where}: #5 launched {counts['flash_attention_fwd']} times and #8 {counts['flash_decode']}, expected "
+             f"{cfg.num_layers} (one prefill) and 0")
+    with torch.inference_mode():  # the logits behind each plain token, teacher-forced
+        logits, _ = lm_forward(params, cfg.replace(backend="ref"),
+                               {"tokens": torch.cat([batch["tokens"], want[:, :-1].to(batch["tokens"].dtype)], 1),
+                                "prefix": batch["prefix"]})
+    top2 = logits[:, pre + prompt - 1:].topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    del logits
+    gates = [int(np.flatnonzero(m <= NEAR_TIE)[0]) if (m <= NEAR_TIE).any() else gen for m in margins]
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if not all(np.array_equal(a[:g], b[:g]) for a, b, g in zip(got, want, gates)):
+        fail(f"{where}: kernel route tokens {got.tolist()} != plain route {want.tolist()} (compared before "
+             f"positions {gates})")
+    if sum(gates) < n * gen / 2:
+        fail(f"{where}: near-ties leave {sum(gates)} of {n * gen} positions to compare (gates {gates})")
+    margin = float(min(m[:g].min() for m, g in zip(margins, gates) if g))
+    print(f"{where} at full width and depth ({cfg.num_layers} layers, {n_params} parameters, head x10): "
+          f"static_generate through #5 == the plain route on {sum(gates)} of {n}x{gen} positions (those before each "
+          f"prompt's first near-tie), smallest top-2 margin compared {margin:.3e}; {time.perf_counter() - t0:.1f} s; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; launches "
+          f"{json.dumps({n: counts[n] for n in ATTN_KERNELS})}", flush=True)
+    del params
+
+
+def _phi_served(card):
+    """phi-3-vision-4.2b in bf16 through ``launch.serve --engine static``
+    (8 prompts of 128 tokens, 64 new; the launcher runs the batch twice,
+    a warm-up and the timed run): #5 once a layer a run, #8 never; then
+    one ``lm_prefill`` of the same 8 x (576 + 128) positions, its weights
+    made in bf16, timed on the host clock (median of 3), and one
+    ``static_generate`` of that batch under the profiler (the device's busy
+    and idle share)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_lm, init_lm_state, lm_prefill
+    from repro_torch.serve import static_generate
+    from repro_torch.utils.device import profiled
+    from repro_torch.utils.logging import get_logger
+
+    dev = torch.device("cuda")
+    full = get_arch("phi-3-vision-4.2b")
+    b, prompt, gen = PHI["batch"], PHI["prompt"], PHI["gen"]
+    argv = ["--arch", full.name, "--engine", "static", "--batch", str(b), "--prompt-len", str(prompt), "--gen",
+            str(gen), "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    result = serve.main(argv)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    where = f"phi-3-vision-4.2b bf16, launch.serve --engine static --batch {b} --prompt-len {prompt} --gen {gen}"
+    _check_variants(where, counts, "bfloat16")
+    if (counts["flash_attention_fwd"], counts["flash_decode"]) != (2 * full.num_layers, 0):
+        fail(f"{where}: #5 launched {counts['flash_attention_fwd']} times and #8 {counts['flash_decode']}, expected "
+             f"{2 * full.num_layers} (a warm-up and a timed prefill) and 0")
+    if len(result["sample"]) != gen or not all(0 <= t < full.vocab_size for t in result["sample"]):
+        fail(f"{where}: sample continuation {result['sample']}")
+    _free()
+    params = init_lm(full, torch.Generator(device=dev).manual_seed(0), param_dtype="bfloat16")
+    batch = _phi_batch(full, b, prompt, seed=0)
+    sq = full.num_prefix_tokens + prompt
+    walls = []
+    for _ in range(4):  # a warm-up, then three timed
+        with torch.inference_mode():
+            state = init_lm_state(full, b, sq + gen, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm_prefill(params, full, batch, state)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        del state
+    prefill_ms = float(np.median(walls[1:])) * 1e3
+    _, busy, pwall = profiled(lambda: static_generate(params, full, batch, gen).cpu(), get_logger("chip_smoke"))
+    print(f"{where} ({card}): {result['tok_per_s']:.1f} tok/s ({result['tokens']:.0f} tokens in "
+          f"{result['wall_s']:.3f} s, prefill and decode); max_memory_allocated {peak} bytes (the f32 init and its "
+          f"bf16 cast included); launches {json.dumps({n: counts[n] for n in ATTN_KERNELS})}; one lm_prefill of "
+          f"{b} x {sq} positions (Sq = {sq}), weights made in bf16: {prefill_ms:.3f} ms (host clock, median of 3; "
+          f"{[round(w * 1e3, 3) for w in walls[1:]]}); static_generate of that batch profiled: device busy "
+          f"{busy:.4f} s of {pwall:.4f} s wall (idle share {1 - busy / pwall:.3f})", flush=True)
+    del params, batch
+
+
+def _phi_training(card):
+    """phi-3-vision-4.2b through ``launch.train`` at full width in bf16 with
+    AdamW (f32 params and state), 8 x 256 text tokens after 576 patches, 5
+    steps, at the deepest multiple of 8 layers whose estimated peak (8 f32
+    copies of the parameters while AdamW updates them, and 8 GB of
+    activations) fits the card, cut by 8 more on an out-of-memory error; the
+    depth is printed."""
+    import torch
+
+    from repro_torch.config.registry import get_arch, register_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+
+    full = get_arch("phi-3-vision-4.2b")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    steps = PHI["train_steps"]
+    for layers in range(full.num_layers, 0, -8):
+        cfg = full.replace(name=f"phi-3-vision-4.2b-{layers}l", num_layers=layers)
+        estimate = 8 * 4 * cfg.param_count() + 8e9
+        if estimate > card_bytes:
+            print(f"phi-3-vision-4.2b training at {layers} layers: an estimated peak of {estimate:.4g} bytes exceeds "
+                  f"the card's {card_bytes}; cutting 8 layers", flush=True)
+            continue
+        register_arch(cfg)  # under its own name in this process, as phase 6 registers its variant
+        _free()
+        reset_launch_counts()
+        try:
+            result = train.main(["--arch", cfg.name, "--batch", str(PHI["train_batch"]), "--seq",
+                                 str(PHI["train_seq"]), "--steps", str(steps), "--optimizer", "adamw", "--device",
+                                 "cuda", "--log-every", "1"])
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"phi-3-vision-4.2b training at {layers} layers does not fit: max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()} bytes at the failure; cutting 8 layers", flush=True)
+    else:
+        fail("phi-3-vision-4.2b training: no depth fits the card")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    where = f"phi-3-vision-4.2b training, {layers} of {full.num_layers} layers"
+    _train_launches(where, counts, layers, steps, "bfloat16")
+    if not all(math.isfinite(x) for x in result["losses"]):
+        fail(f"{where}: non-finite loss in {result['losses']}")
+    summary = {k: result[k] for k in ("s_per_step", "tok_per_s", "max_memory_bytes", "params")}
+    print(f"{where} (depth cut to fit AdamW's f32 state), launch.train in bf16 under remat, "
+          f"{PHI['train_batch']} x {PHI['train_seq']} text tokens after {full.num_prefix_tokens} patches, {steps} "
+          f"steps ({card}): {json.dumps(summary)} (tok/s counts text tokens); losses "
+          f"{[round(x, 4) for x in result['losses']]}; launches {json.dumps({n: counts[n] for n in TRAIN_KERNELS})}",
+          flush=True)
+
+
+def modality_path(card):
+    """Phase 5g: hubert-xlarge and phi-3-vision-4.2b."""
+    t0 = time.perf_counter()
+    _hubert_path(card)
+    _free()
+    _phi_static_check()
+    _free()
+    _phi_served(card)
+    _free()
+    _phi_training(card)
+    _free()
+    print(f"modality phase (5g): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 5b
 
 
@@ -3038,6 +3379,7 @@ def main() -> None:
     granite = rest_of_serving_path(card)
     moe_qk_norm_path(card)
     recurrent_path(card)
+    modality_path(card)
     telemetry_path({n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
     counts.update(lm_training_path())

@@ -1,9 +1,10 @@
 """Architecture registry (the port's copy of ``repro.config.registry``).
 
 Configs register themselves at import; :func:`get_arch` imports
-:mod:`repro_torch.configs` on first use. Arch ids use dashes. An
-architecture the JAX package registers but the port has not ported yet
-raises; nothing falls back to another architecture.
+:mod:`repro_torch.configs` on first use. Arch ids use dashes. Every
+architecture the JAX package registers is ported; one named in
+``NOT_PORTED`` would raise ``NotImplementedError``, an unknown one raises
+``KeyError``. Nothing falls back to another architecture.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from repro_torch.config.model import ModelConfig
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 #: Architectures of the JAX package that the port does not serve yet.
-NOT_PORTED = ("hubert-xlarge", "phi-3-vision-4.2b")
+NOT_PORTED: tuple = ()
 
 
 def register_arch(cfg: ModelConfig) -> ModelConfig:

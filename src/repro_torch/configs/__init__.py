@@ -1,9 +1,11 @@
 """Registered model configurations (each module registers one)."""
 from repro_torch.configs import (  # noqa: F401
     granite_3_2b,
+    hubert_xlarge,
     internlm2_20b,
     jamba_v0_1_52b,
     mixtral_8x7b,
+    phi_3_vision_4_2b,
     qwen3_32b,
     qwen3_moe_235b_a22b,
     smollm_135m,

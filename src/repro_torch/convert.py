@@ -130,7 +130,10 @@ def params_to_jax(arch: str, params: Dict[str, Any]) -> Dict[str, Any]:
 # ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d), the embedding (V, d),
 # xLSTM's ``xlstm`` subtree and Mamba's ``mamba`` one as the reference
 # lays them out), so the conversion is bitwise. An xLSTM block has no
-# ``mlp`` and no ``norm2``.
+# ``mlp`` and no ``norm2``; a GELU MLP has no ``wg``. Outside the layers,
+# an encoder has ``frames_proj/projector/kernel`` (frontend_dim, d) and
+# ``pred_head/kernel`` (d, V) in place of ``embed`` and ``lm_head``, and a
+# VLM adds ``prefix_proj/projector/kernel`` (frontend_dim, d).
 
 
 def lm_params_from_jax(cfg, tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
@@ -184,7 +187,7 @@ def _check_lm_tree(cfg, params: Dict[str, Any]) -> None:
     # the xLSTM heads dividing d_model and the inner width.
     period = group_period(cfg)
     tiny = dict(num_layers=period, d_model=2 * max(cfg.xlstm_heads, 1), num_heads=1, num_kv_heads=1, head_dim=2,
-                d_ff=2, vocab_size=2)
+                d_ff=2, vocab_size=2, frontend_dim=min(cfg.frontend_dim, 2))
     if cfg.num_experts:
         tiny.update(num_experts=2, experts_per_token=1, moe_d_ff=2)
     want = init_lm(cfg.replace(**tiny), torch.Generator().manual_seed(0))

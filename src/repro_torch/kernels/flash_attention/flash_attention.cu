@@ -15,7 +15,9 @@
 // by all G query heads of its kv head (GQA). Each of the 8 warps owns 8
 // rows and keeps their (m, l, acc) statistics in registers across the kv
 // sweep; a tile is BK = 32 keys, one per lane for the scores, and the P·V
-// product puts the head dim across the lanes. Tiles that no row of the
+// product puts the head dim across the lanes: ceil(hd / 32) entries a
+// lane, the last of them guarded where 32 does not divide hd (hd 80: lanes
+// 16-31 hold none of the third). Tiles that no row of the
 // block can see (causal upper edge, window lower edge) are skipped. Tails
 // in Sq and Sk are masked, nothing is padded.
 //
@@ -52,12 +54,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Whether entry c of this lane (column lane + 32 c) lies inside HD: all
+// entries but the last always do, the last only in the low HD % 32 lanes
+// where 32 does not divide HD.
+template <int HD>
+__device__ __forceinline__ bool has_entry(int c, int lane) {
+  return c < HD / 32 || lane < HD % 32;
+}
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H, int KH, int BQ,
                  int causal, int window, float softcap, float scale) {
-  constexpr int DPL = HD / 32;  // head-dim entries per lane in the P·V product
+  constexpr int DPL = (HD + 31) / 32;  // head-dim entries per lane in the P·V product
   extern __shared__ float smem[];
   float* qs = smem;                  // [ROWS][HD], pre-scaled
   float* ks = qs + ROWS * HD;        // [BK][HD + 1], padded: lanes read rows
@@ -132,7 +142,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const float pj = __shfl_sync(0xffffffffu, p, j);
         const float* vr = vs + j * HD + lane;
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[i][c] = fmaf(pj, vr[32 * c], acc[i][c]);
+        for (int c = 0; c < DPL; ++c)
+          if (has_entry<HD>(c, lane)) acc[i][c] = fmaf(pj, vr[32 * c], acc[i][c]);
       }
     }
   }
@@ -145,7 +156,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const size_t row = (size_t)(b * Sq + qp) * H + kh * G + g;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) out[row * HD + lane + 32 * c] = from_f<T>(acc[i][c] * inv);
+    for (int c = 0; c < DPL; ++c)
+      if (has_entry<HD>(c, lane)) out[row * HD + lane + 32 * c] = from_f<T>(acc[i][c] * inv);
     if (lane == 0) lse[row] = l[i] > 0.f ? m[i] + logf(l[i]) : 1e30f;
   }
 }
@@ -174,6 +186,8 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* out, fl
   switch (hd) {
     case 32: return launch<T, 32>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, stream);
     case 64: return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, stream);
+    case 80: return launch<T, 80>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, stream);
+    case 96: return launch<T, 96>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, stream);
     case 128: return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, stream);
     default: return -1;
   }
@@ -182,7 +196,8 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* out, fl
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns 0, a CUDA error code, or -1
-// for a shape the kernel does not take (hd not in {32, 64, 128}, G > 64).
+// for a shape the kernel does not take (hd not in {32, 64, 80, 96, 128},
+// G > 64).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                                    int B, int Sq, int Sk, int H, int KH, int hd, int causal, int window,
                                    float softcap, int dtype, void* stream) {

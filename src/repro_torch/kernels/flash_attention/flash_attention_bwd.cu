@@ -43,7 +43,10 @@
 // directly; every output element has one owner and one fixed summation
 // order, with no atomics: two runs give the same bits.
 //
-// Tails in Sq and Sk are masked; nothing is padded.
+// Tails in Sq and Sk are masked; nothing is padded. The head dim lies
+// across the lanes, ceil(hd / 32) entries a lane; where 32 does not divide
+// hd (hd 80) the last entry exists only in the low lanes, and every load,
+// store and product of it is guarded.
 //
 // Bound. At the training shape of smollm-135m (B = 8, S = 256, 9 heads
 // over 3 kv heads, hd 64, causal) the dq pass is 0.9 GFLOP (3 products
@@ -96,6 +99,12 @@ __device__ __forceinline__ void probs(float u, float dp, float lse, float delta,
   du = p * (dp - delta) * dact;
 }
 
+// Whether entry c of this lane (column lane + 32 c) lies inside HD.
+template <int HD>
+__device__ __forceinline__ bool has_entry(int c, int lane) {
+  return c < HD / 32 || lane < HD % 32;
+}
+
 __device__ __forceinline__ bool visible(int qp, int key, int Sq, int Sk, int causal, int window) {
   bool ok = qp < Sq && key < Sk;
   if (causal) ok = ok && key <= qp;
@@ -109,7 +118,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int Sq, int Sk, int H, int KH, int BQ, int causal, int window,
                     float softcap, float scale) {
-  constexpr int DPL = HD / 32;  // head-dim entries per lane in the du k product
+  constexpr int DPL = (HD + 31) / 32;  // head-dim entries per lane in the du k product
   extern __shared__ float smem[];
   float* qs = smem;                // [ROWS][HD], pre-scaled
   float* dos = qs + ROWS * HD;     // [ROWS][HD]
@@ -193,7 +202,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const float duj = __shfl_sync(0xffffffffu, du, j);
         const float* kj = ks + j * (HD + 1) + lane;
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[i][c] = fmaf(duj, kj[32 * c], acc[i][c]);
+        for (int c = 0; c < DPL; ++c)
+          if (has_entry<HD>(c, lane)) acc[i][c] = fmaf(duj, kj[32 * c], acc[i][c]);
       }
     }
   }
@@ -205,7 +215,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (g >= G || qp >= Sq) continue;
     const size_t row = (size_t)(b * Sq + qp) * H + kh * G + g;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) dq[row * HD + lane + 32 * c] = from_f<T>(acc[i][c] * scale);
+    for (int c = 0; c < DPL; ++c)
+      if (has_entry<HD>(c, lane)) dq[row * HD + lane + 32 * c] = from_f<T>(acc[i][c] * scale);
   }
 }
 
@@ -215,7 +226,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int KH, int causal,
                      int window, float softcap, float scale) {
-  constexpr int DPL = HD / 32;
+  constexpr int DPL = (HD + 31) / 32;
   extern __shared__ float smem[];
   float* ks = smem;                  // [BKV][HD]: read as broadcasts
   float* vs = ks + BKV * HD;         // [BKV][HD]
@@ -301,6 +312,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
           const float* dj = dos + jj * (HD + 1) + lane;
 #pragma unroll
           for (int c = 0; c < DPL; ++c) {
+            if (!has_entry<HD>(c, lane)) continue;
             dva[i][c] = fmaf(pj, dj[32 * c], dva[i][c]);
             dka[i][c] = fmaf(duj, qj[32 * c], dka[i][c]);
           }
@@ -316,6 +328,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const size_t row = (size_t)(b * Sk + key) * KH + kh;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
+      if (!has_entry<HD>(c, lane)) continue;
       dk[row * HD + lane + 32 * c] = from_f<T>(dka[i][c]);
       dv[row * HD + lane + 32 * c] = from_f<T>(dva[i][c]);
     }
@@ -368,12 +381,14 @@ bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
   switch (hd) {                                        \
     case 32: return FN<T, 32>(__VA_ARGS__);            \
     case 64: return FN<T, 64>(__VA_ARGS__);            \
+    case 80: return FN<T, 80>(__VA_ARGS__);            \
+    case 96: return FN<T, 96>(__VA_ARGS__);            \
     case 128: return FN<T, 128>(__VA_ARGS__);          \
     default: return -1;                                \
   }
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns 0, a CUDA error code, or
-// -1 for a shape the kernel does not take (hd not in {32, 64, 128}; in the
+// -1 for a shape the kernel does not take (hd not in {32, 64, 80, 96, 128}; in the
 // dq pass also G = H / KH > 64).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                       const float* lse, const float* delta, void* dq, int B, int Sq, int Sk,

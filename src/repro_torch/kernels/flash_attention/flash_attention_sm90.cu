@@ -18,7 +18,7 @@
 // Head h = kh * G + g, G = H / KH. Positions of queries and keys both count
 // from 0. Masks: k < Sk; causal k <= q; window k > q - window; softcap
 // cap * tanh(s / cap) on the scaled scores before masking. hd in
-// {32, 64, 128}. The forward writes out (bf16) and lse (f32); a
+// {32, 64, 80, 96, 128}. The forward writes out (bf16) and lse (f32); a
 // fully-masked row gets out = 0 and lse = 1e30. The backward passes
 // rebuild p = exp(s - lse) and du = p (dp - delta) dact from the forward's
 // lse (a fully-masked row's p is exactly 0, so its dq is 0). The dq pass
@@ -51,9 +51,16 @@
 //   a 4-D map addresses and a flat bulk copy cannot) into a 2-stage ring;
 //   each stage has a full and an empty mbarrier, so the next tile loads
 //   while the current one computes. The maps swizzle the tiles as wgmma's
-//   descriptors expect: 128-byte swizzle for 64-column boxes (hd 64; hd 128
-//   is two boxes), 64-byte swizzle for hd 32. Out-of-range rows come in as
-//   zeros and are masked by position.
+//   descriptors expect. A box is the widest of 64, 32 and 16 columns that
+//   divides hd, with the swizzle of that row width: 128-byte for 64-column
+//   boxes (hd 64; hd 128 is two boxes), 64-byte for 32 (hd 32; hd 96 is
+//   three boxes), 32-byte for 16 (hd 80, five boxes). So every head dim is
+//   tiled exactly, with no padded column: no product, copy or register
+//   is spent on columns past hd, at the price of more TMA copies a tile
+//   (five at hd 80). The products whose N is hd (P V, dS K, dS^T Q, P^T
+//   dout) run as one m64n80k16 or m64n96k16 wgmma a step, 40 or 48
+//   accumulators a thread. Out-of-range rows come in as zeros and are
+//   masked by position.
 // * Softmax in registers. A row's 64 scores of a tile lie in the 4 threads
 //   of a quad, so its max and sum take 2 shuffles each. Only tiles that
 //   cross the causal diagonal, the window edge or a sequence end are
@@ -66,16 +73,17 @@
 // 1.5 MB against 50 MB of L2), which keeps each row's position equal to its
 // row index. The dq pass loads its Q and dout tiles once, streams K and V
 // through the ring, and keeps dq in the warpgroup's registers over the
-// sweep beside S and dP (64 + 64 f32 a thread, and at hd 128 another 64 for
-// dq; ptxas reports no spill at any hd). Its lse and delta (two rows a
+// sweep beside S and dP (32 + 32 f32 a thread, and hd / 2 more for dq: 64
+// at hd 128). Its lse and delta (two rows a
 // thread) sit in registers. dS is rounded to bf16 for dS K, as P is for
 // P V; the f32 CUDA-core pass stays for f32 inputs.
 // dk/dv pass: one block per (64 keys, kv head,
 // batch row); the K and V tiles are loaded once, and the block walks the
 // G heads and, for each, the 64-row q tiles that can see its keys (causal:
 // from its first key; window: below its last key + window), with dk and
-// dv accumulated in the warpgroup's registers throughout (at hd 128 they
-// take 128 of a thread's registers, and the pass spills a few). At the
+// dv accumulated in the warpgroup's registers throughout (hd / 2 each a
+// thread: 80 in all at hd 80, 96 at hd 96, 128 at hd 128, where the pass
+// spills a few; ptxas -v's counts for each hd are in PERF.md). At the
 // training shape that is 96
 // blocks on 132 SMs: splitting the sweep over a second warpgroup is later
 // work.
@@ -165,7 +173,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle mode (1 = 128B, 2 = 64B).
+// offsets (16-byte units) and the swizzle mode (1 = 128B, 2 = 64B, 3 = 32B).
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint32_t swizzle) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (static_cast<uint64_t>(swizzle) << 62);
@@ -173,13 +181,18 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
 
 // A tile of 64 rows by HD bf16 columns, as TMA leaves it in shared memory:
 // HD / CW boxes of 64 rows by CW columns, each row CW * 2 bytes, swizzled
-// in 8-row atoms (1024 bytes at CW = 64, 512 at CW = 32).
+// in 8-row atoms (1024 bytes at CW = 64, 512 at CW = 32, 256 at CW = 16).
+// CW is the widest of 64, 32 and 16 columns that divides HD, so the boxes
+// cover the head dim exactly: hd 32 one box of 32, hd 64 one of 64, hd 80
+// five of 16, hd 96 three of 32, hd 128 two of 64.
 template <int HD>
 struct Tile {
-  static constexpr int CW = HD < 64 ? HD : 64;       // columns per box
+  static_assert(HD % 16 == 0 && HD <= 256, "the head dim is a multiple of 16 up to 256");
+  static constexpr int CW = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;  // columns per box
   static constexpr int BOX = 64 * CW * 2;             // bytes per box
   static constexpr int BYTES = 64 * HD * 2;           // bytes per tile
-  static constexpr uint32_t SWIZZLE = CW == 64 ? 1 : 2;
+  // the descriptors' swizzle mode: 1 = 128B, 2 = 64B, 3 = 32B (a row of a box)
+  static constexpr uint32_t SWIZZLE = CW == 64 ? 1 : CW == 32 ? 2 : 3;
   static constexpr uint32_t ATOM = 8 * CW * 2;        // bytes of 8 rows
 
   // Rows of the tile are the product's M or N, its columns the K (16 per
@@ -256,6 +269,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 80, f32) += A (64 x 16 bf16, in registers) * B (16 x 80, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 96, f32) += A (64 x 16 bf16, in registers) * B (16 x 96, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -795,9 +852,12 @@ int make_map(CUtensorMap* map, const void* ptr, int heads, int seq, int B) {
   const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)heads * HD * 2, (cuuint64_t)seq * heads * HD * 2};
   const cuuint32_t box[4] = {(cuuint32_t)T::CW, 1, 64, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = T::CW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : T::CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, T::CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE - (int)r;
 }
 
@@ -874,7 +934,7 @@ bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
 }  // namespace
 
 // bf16 only. Each returns 0, a CUDA error code, -1 for a shape the kernels
-// do not take (hd not in {32, 64, 128}), -2 when the CUDA driver offers no
+// do not take (hd not in {32, 64, 80, 96, 128}), -2 when the CUDA driver offers no
 // tensor-map encoder, or -1000 - r when encoding a map failed with CUresult r.
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                                         int Sq, int Sk, int H, int KH, int hd, int causal, int window,
@@ -884,6 +944,8 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void
   switch (hd) {
     case 32: return launch_fwd<32>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, s);
     case 64: return launch_fwd<64>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, s);
+    case 80: return launch_fwd<80>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, s);
+    case 96: return launch_fwd<96>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, s);
     case 128: return launch_fwd<128>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal, window, softcap, s);
     default: return ERR_SHAPE;
   }
@@ -898,6 +960,8 @@ extern "C" int flash_attention_bwd_dkv_sm90(const void* q, const void* k, const 
   switch (hd) {
     case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, KH, causal, window, softcap, s);
     case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, KH, causal, window, softcap, s);
+    case 80: return launch_dkv<80>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, KH, causal, window, softcap, s);
+    case 96: return launch_dkv<96>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, KH, causal, window, softcap, s);
     case 128:
       return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, KH, causal, window, softcap, s);
     default: return ERR_SHAPE;
@@ -913,6 +977,8 @@ extern "C" int flash_attention_bwd_dq_sm90(const void* q, const void* k, const v
   switch (hd) {
     case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KH, causal, window, softcap, s);
     case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KH, causal, window, softcap, s);
+    case 80: return launch_dq<80>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KH, causal, window, softcap, s);
+    case 96: return launch_dq<96>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KH, causal, window, softcap, s);
     case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KH, causal, window, softcap, s);
     default: return ERR_SHAPE;
   }

@@ -43,7 +43,7 @@ SOURCE = Path(__file__).with_name("flash_attention.cu")
 BWD_SOURCE = Path(__file__).with_name("flash_attention_bwd.cu")
 SM90_SOURCE = Path(__file__).with_name("flash_attention_sm90.cu")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 MAX_GROUP = 64  # query heads per kv head one block holds
 VARIANTS = ("sm90", "cuda_core")
 

@@ -37,11 +37,17 @@
 //   entry that points at the engine's scratch page contributes nothing and
 //   is never read. A split with more pages than fit the staging buffer
 //   (about 64 KB) walks them in chunks of that size.
-// * No idle lanes. HD * sizeof(T) / 16 lanes share one key (8 at hd 64 in
-//   bf16, 16 in f32), each holding a 16-byte piece, so a warp scores 4 keys
-//   (2 in f32) at once and a 128-thread block a 16-token page; the G query
-//   heads of the kv head reuse each key's registers; a 3-step shuffle sums
-//   a score. The softmax runs one warp per head over the chunk's scores in
+// * Few idle lanes. HD * sizeof(T) / 16 pieces of 16 bytes make a key row
+//   (8 at hd 64 in bf16, 16 in f32); the lanes of a key are that count
+//   rounded up to a power of two, so a key's lanes sit in one aligned group
+//   of a warp and a log-step shuffle sums its score. Where the pieces are a
+//   power of two (hd 32, 64, 128) no lane idles: a warp scores 4 keys (2
+//   in f32) at once at hd 64 and a 128-thread block a 16-token page. At hd
+//   80 and 96 (10 and 12 pieces in bf16, 20 and 24 in f32) the extra lanes
+//   of a key's group (6 and 4 of 16, 12 and 8 of 32) hold zero pieces and
+//   issue no copy. The staging rows stay HD * sizeof(T) bytes, a multiple
+//   of 16 at every hd. The G query heads of the kv head reuse each key's
+//   registers. The softmax runs one warp per head over the chunk's scores in
 //   shared memory, and P V gives each thread one (head, dim) output, read
 //   across the staged V rows. At G = 3 query rows the tensor cores would
 //   idle: a wgmma tile has 64 rows.
@@ -153,8 +159,10 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, con
                           float* __restrict__ part, int H, int KH, int ps, int W, int cache_len, int window,
                           float softcap, float scale, int chunk_pages) {
   constexpr int VN = Piece<T>::N;  // elements of a 16-byte piece
-  constexpr int LPK = HD / VN;     // lanes (pieces) per key row
-  constexpr int KPP = THREADS / LPK;  // keys scored per pass of the block
+  constexpr int LPK = HD / VN;     // pieces of a key row
+  static_assert(HD % VN == 0 && LPK <= 32, "a key row is at most 32 whole 16-byte pieces");
+  constexpr int LANES = LPK <= 1 ? 1 : LPK <= 2 ? 2 : LPK <= 4 ? 4 : LPK <= 8 ? 8 : LPK <= 16 ? 16 : 32;
+  constexpr int KPP = THREADS / LANES;  // keys scored per pass of the block
   extern __shared__ __align__(16) uint8_t smem[];
   const int G = H / KH;
   const Layout<T, HD> L(G, chunk_pages, ps);
@@ -202,13 +210,15 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, con
     cp_async_wait_all();
     __syncthreads();
 
-    // scores: LPK lanes per key, every head of the group against it
-    const int sub = tid % LPK, slot = tid / LPK;
+    // scores: LANES lanes per key (the first LPK hold its pieces), every
+    // head of the group against it
+    const int sub = tid % LANES, slot = tid / LANES;
     for (int t0 = 0; t0 < n_tok; t0 += KPP) {  // uniform bound: every lane takes part in the shuffles
       const int t = t0 + slot;
       const bool in = t < n_tok;
+      const bool holds = sub < LPK;  // this lane holds a piece of the key
       float kx[VN];
-      if (in) {
+      if (in && holds) {
         Piece<T>::load(ks + t * HD + sub * VN, kx);
       } else {
 #pragma unroll
@@ -216,12 +226,14 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp, con
       }
       const bool ok = in && valid_index((c0 + t / ps) * ps + t % ps, p, cache_len, window);
       for (int g = 0; g < G; ++g) {
-        const float* qr = qs + g * HD + sub * VN;
         float s = 0.f;
+        if (holds) {
+          const float* qr = qs + g * HD + sub * VN;
 #pragma unroll
-        for (int e = 0; e < VN; ++e) s = fmaf(qr[e], kx[e], s);
+          for (int e = 0; e < VN; ++e) s = fmaf(qr[e], kx[e], s);
+        }
 #pragma unroll
-        for (int o = LPK / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        for (int o = LANES / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
         if (in && sub == 0) {
           if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
           sc[g * tokens_cap + t] = ok ? s : -INFINITY;
@@ -336,6 +348,8 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp, const int* 
   switch (hd) {
     case 32: return launch<T, 32>(q, kp, vp, table, pos, out, part, B, H, KH, ps, W, cache_len, window, softcap, S, stream);
     case 64: return launch<T, 64>(q, kp, vp, table, pos, out, part, B, H, KH, ps, W, cache_len, window, softcap, S, stream);
+    case 80: return launch<T, 80>(q, kp, vp, table, pos, out, part, B, H, KH, ps, W, cache_len, window, softcap, S, stream);
+    case 96: return launch<T, 96>(q, kp, vp, table, pos, out, part, B, H, KH, ps, W, cache_len, window, softcap, S, stream);
     case 128:
       return launch<T, 128>(q, kp, vp, table, pos, out, part, B, H, KH, ps, W, cache_len, window, softcap, S, stream);
     default: return -1;
@@ -346,7 +360,7 @@ int launch_hd(int hd, const void* q, const void* kp, const void* vp, const int* 
 
 // dtype: 0 = float32, 1 = bfloat16. splits: S >= 1 (part: B H S (hd + 2)
 // f32 of scratch when S > 1, else unused). Returns 0, a CUDA error code, or
-// -1 for a shape the kernel does not take (hd not in {32, 64, 128},
+// -1 for a shape the kernel does not take (hd not in {32, 64, 80, 96, 128},
 // G > 32, a grid past its limits).
 extern "C" int flash_decode(const void* q, const void* kp, const void* vp, const int* table, const int* pos,
                             void* out, float* part, int B, int H, int KH, int hd, int ps, int W, int cache_len,

@@ -34,7 +34,7 @@ from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 SOURCE = Path(__file__).with_name("flash_decode.cu")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 MAX_GROUP = 32  # query heads per kv head one block holds
 
 

@@ -25,9 +25,17 @@ engine (default) or the static-batch baseline, on the GPU.
     python -m repro_torch.launch.serve --reduced --device cpu --engine static \\
         --batch 3 --prompt-len 24 --gen 12
 
+    # a VLM (phi-3-vision-4.2b) serves through the static path only, with
+    # a seeded prefix of 576 patch embeddings before each prompt
+    python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --engine static \
+        --batch 8 --prompt-len 128 --gen 64
+
 Weights are random, made from ``--seed`` (the drafter's from ``--seed``
 + 1: a different random model, so its drafts are rarely accepted; the
-tokens are the target's either way). Full width serves in the
+tokens are the target's either way), and so is a VLM's prefix
+(``RandomState(seed).randn(B, P, frontend_dim) · 0.02``, as the reference
+makes it). An encoder-only arch (hubert-xlarge) has nothing to decode and
+is refused. Full width serves in the
 config's bf16 activations with f32 params; ``--reduced`` runs the reduced
 variant in f32, as the JAX launcher does. Runs on ``cuda`` unless
 ``--device cpu`` is given. Arguments are checked, and the engine and KV
@@ -181,6 +189,11 @@ def drafter_config(args):
 
 def validate_args(args, cfg) -> None:
     """Fail fast, with a clear message, before any device allocation."""
+    if cfg.is_encoder_only:
+        raise SystemExit(
+            f"{cfg.name} is encoder-only: no autoregressive decode, nothing to "
+            "serve. Pick a decoder arch."
+        )
     if args.prompt_len < 1 or args.gen < 1:
         raise SystemExit(f"--prompt-len ({args.prompt_len}) and --gen ({args.gen}) must be >= 1")
     if args.profile and args.profile_dir:
@@ -196,6 +209,12 @@ def validate_args(args, cfg) -> None:
         if args.batch < 1:
             raise SystemExit(f"--batch must be >= 1, got {args.batch}")
         return
+    if cfg.frontend == "vision":
+        raise SystemExit(
+            f"{cfg.name} is a vlm: the continuous engine does not thread "
+            "per-request vision prefix embeddings through admission yet — "
+            "use --engine static (which feeds the prefix at prefill)."
+        )
     for flag, value, low in (("--max-slots", args.max_slots, 1), ("--requests", args.requests, 1),
                              ("--decode-chunk", args.decode_chunk, 1), ("--pool-pages", args.pool_pages, 0)):
         if value < low:
@@ -262,6 +281,10 @@ def validate_args(args, cfg) -> None:
 def run_static(args, cfg, params, device) -> dict:
     data = make_token_stream(args.seed, cfg.vocab_size, args.batch, args.prompt_len)
     batch = {"tokens": torch.as_tensor(data["tokens"][:, : args.prompt_len], device=device)}
+    if cfg.family == "vlm":
+        rng = np.random.RandomState(args.seed)
+        prefix = rng.randn(args.batch, cfg.num_prefix_tokens, cfg.frontend_dim).astype(np.float32) * 0.02
+        batch["prefix"] = torch.as_tensor(prefix, device=device)
     gen = torch.Generator(device=device)
     run = lambda: static_generate(
         params, cfg, batch, args.gen, temperature=args.temperature, generator=gen.manual_seed(args.seed)

@@ -15,7 +15,12 @@ steps and a cosine decay, weight decay 0, as the reference configures it.
 Attention runs through the flash-attention op (forward and both backward
 passes as CUDA kernels on the card; ``--backend ref`` is plain autograd).
 Runs on ``cuda`` unless ``--device cpu`` is given. Only the single-device
-``host`` mesh is ported.
+``host`` mesh is ported. A VLM (phi-3-vision-4.2b) trains on the same text
+with a prefix of patch embeddings for step ``i`` from
+``RandomState(i).randn(batch, P, frontend_dim) · 0.02``, as the reference
+makes it (made with the token batches, before the first step); the loss is
+on the text positions. The audio encoder is refused,
+as the reference refuses it: hubert trains through ``lm_loss`` on frames.
 """
 from __future__ import annotations
 
@@ -74,6 +79,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced_variant(cfg).replace(dtype="float32", param_dtype="float32")
+    if cfg.is_encoder_only:
+        raise SystemExit("use launch.train for LM archs; hubert trains via lm_loss on frames")
     cfg = cfg.replace(backend=args.backend)
     tc = TrainConfig(
         optimizer=args.optimizer,
@@ -86,6 +93,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = get_device(args.device)
     disable_tf32()
     data = [make_token_stream(args.seed * 10_000 + i, cfg.vocab_size, args.batch, args.seq) for i in range(args.steps)]
+    if cfg.family == "vlm":  # the reference's prefix of step i
+        for i, d in enumerate(data):
+            d["prefix"] = np.random.RandomState(i).randn(args.batch, cfg.num_prefix_tokens, cfg.frontend_dim).astype(
+                np.float32) * 0.02
 
     params = init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed))
     step_fn = make_train_step(cfg, tc)

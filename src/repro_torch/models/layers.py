@@ -4,6 +4,12 @@ Params are nested dicts of tensors in the JAX package's einsum layouts:
 an MLP's ``wi``/``wg`` are ``(d, f)`` and its ``wo`` is ``(f, d)``, so a
 weight crosses from JAX without a transpose. Weights are cast to the
 activation dtype where they are used, as the reference does.
+
+The MLP is SwiGLU (``act="silu"``: ``wi``, ``wg``, ``wo``) or, for
+``act="gelu"`` (hubert), two matrices around a GELU in its tanh form, the
+default of the reference's ``jax.nn.gelu`` (``F.gelu``'s default is the
+exact erf form, up to about 1e-3 away); :func:`apply_mlp` tells them apart
+by the presence of ``wg``, as the reference does.
 """
 from __future__ import annotations
 
@@ -59,14 +65,24 @@ def swiglu(x, wi, wg, wo):
     return (h * F.silu(g)) @ wo.to(x.dtype)
 
 
+def gelu_mlp(x, wi, wo):
+    return F.gelu(x @ wi.to(x.dtype), approximate="tanh") @ wo.to(x.dtype)
+
+
 def init_mlp(gen: torch.Generator, cfg, dtype):
+    """SwiGLU's three matrices, or GELU's two (``wi`` then ``wo``, in the
+    reference's draw order, which skips the gate's key)."""
     d, f = cfg.d_model, cfg.d_ff
-    return {
-        "wi": dense_init(gen, d, (f,), dtype),
-        "wg": dense_init(gen, d, (f,), dtype),
-        "wo": dense_init(gen, f, (d,), dtype),
-    }
+    if cfg.act == "silu":
+        return {
+            "wi": dense_init(gen, d, (f,), dtype),
+            "wg": dense_init(gen, d, (f,), dtype),
+            "wo": dense_init(gen, f, (d,), dtype),
+        }
+    return {"wi": dense_init(gen, d, (f,), dtype), "wo": dense_init(gen, f, (d,), dtype)}
 
 
 def apply_mlp(params, x, cfg):
-    return swiglu(x, params["wi"], params["wg"], params["wo"])
+    if "wg" in params:
+        return swiglu(x, params["wi"], params["wg"], params["wo"])
+    return gelu_mlp(x, params["wi"], params["wo"])

@@ -1,5 +1,6 @@
-"""The decoder LM (the port's copy of ``repro.models.transformer``: the
-training and serving paths), for the dense, MoE, SSM and hybrid families.
+"""The LM (the port's copy of ``repro.models.transformer``: the training
+and serving paths), for all six families of the reference: the dense,
+MoE, SSM and hybrid decoders, the audio encoder and the VLM decoder.
 
 A model is a stack of blocks ``(mixer, ffn)``: a pre-norm mixer and a
 pre-norm FFN, each with a residual. The mixer is attention, Mamba
@@ -15,6 +16,16 @@ group (``params["groups"]``, leading axis the group) and scans over them;
 the port keeps one dict per layer in ``params["layers"]`` and loops
 (:mod:`repro_torch.convert` moves weights between the two). Weights keep
 the JAX einsum layouts.
+
+The input of the trunk (:func:`_embed_inputs`) is the embedded
+``batch["tokens"]`` for a decoder; for the encoder-only audio family
+(hubert) ``batch["frames"]`` (B, S, frontend_dim), projected to d_model by
+``frames_proj`` (the stub frontend: frame features come precomputed), with
+a codebook head ``pred_head`` in place of the embedding and ``lm_head``;
+for the VLM family a ``batch["prefix"]`` (B, P, frontend_dim) of patch
+embeddings, projected by ``prefix_proj`` and put before the tokens. Prefill
+feeds the prefix too (decode positions then start at the prompt's length
+plus P), and :func:`lm_loss` drops the prefix positions' logits.
 
 Training (:func:`lm_loss`) differentiates the f32 parameter leaves
 directly: weights are cast to the activation dtype where they are used,
@@ -143,26 +154,37 @@ def init_lm(cfg, gen: torch.Generator, param_dtype=None) -> Dict:
     params = {
         "layers": layers,
         "final_norm": {"scale": torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)},
-        "embed": {"table": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)},
     }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = {"kernel": dense_init(gen, cfg.d_model, (cfg.vocab_size,), dtype)}
+    if cfg.is_encoder_only:
+        params["frames_proj"] = {"projector": {"kernel": dense_init(gen, cfg.frontend_dim, (cfg.d_model,), dtype)}}
+        params["pred_head"] = {"kernel": dense_init(gen, cfg.d_model, (cfg.vocab_size,), dtype)}
+    else:
+        params["embed"] = {"table": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = {"kernel": dense_init(gen, cfg.d_model, (cfg.vocab_size,), dtype)}
+    if cfg.frontend == "vision":
+        params["prefix_proj"] = {"projector": {"kernel": dense_init(gen, cfg.frontend_dim, (cfg.d_model,), dtype)}}
     return params
 
 
 def cast_weights(params, cfg) -> Dict:
     """``params`` with every weight the model casts to the activation dtype
     where it uses it (the attention, MLP, expert, xLSTM and Mamba
-    projections, the conv, the embedding, the head) cast once, ahead of
-    time; norm scales (the qk-norm ``q_norm``/``k_norm`` too) and the leaves
-    of ``_KEEP_DTYPE`` keep their dtype. The model computes the same values
-    either way; a serving loop saves a cast of every weight at every
-    step."""
+    projections, the conv, the embedding, the heads, the frontend
+    projectors) cast once, ahead of time; norm scales (the qk-norm
+    ``q_norm``/``k_norm`` too) and the leaves of ``_KEEP_DTYPE`` keep their
+    dtype. The model computes the same values either way; a serving loop
+    saves a cast of every weight at every step."""
     dtype = dtype_of(cfg.dtype)
     out = {k: v for k, v in params.items() if k != "layers"}
-    out["embed"] = {"table": params["embed"]["table"].to(dtype)}
-    if "lm_head" in params:
-        out["lm_head"] = {"kernel": params["lm_head"]["kernel"].to(dtype)}
+    if "embed" in params:
+        out["embed"] = {"table": params["embed"]["table"].to(dtype)}
+    for name in ("lm_head", "pred_head"):
+        if name in params:
+            out[name] = {"kernel": params[name]["kernel"].to(dtype)}
+    for name in ("frames_proj", "prefix_proj"):
+        if name in params:
+            out[name] = {"projector": {"kernel": params[name]["projector"]["kernel"].to(dtype)}}
 
     def cast(leaves):
         return {k: (w if k.endswith("_norm") or k in _KEEP_DTYPE else w.to(dtype)) for k, w in leaves.items()}
@@ -183,18 +205,33 @@ def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"]["table"][tokens].to(dtype_of(cfg.dtype))
 
 
+def _project(x, proj, dtype) -> torch.Tensor:
+    """A frontend projector: ``einsum("bsf,fd->bsd")`` in the activation dtype."""
+    return x.to(dtype) @ proj["projector"]["kernel"].to(dtype)
+
+
 def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     """The trunk's input: ``batch["embeds"]`` (B, S, d), synthetic
     embedding-space sequences of the LM-scale Co-Boosting generator path,
-    cast to the activation dtype with no token embedding; else the embedded
-    ``batch["tokens"]``."""
+    cast to the activation dtype with no token embedding; for an encoder,
+    the projected ``batch["frames"]``; else the embedded
+    ``batch["tokens"]``, after the projected ``batch["prefix"]`` where a
+    vision config is given one."""
+    dtype = dtype_of(cfg.dtype)
     if "embeds" in batch:
-        return batch["embeds"].to(dtype_of(cfg.dtype))
-    return embed_tokens(params, cfg, batch["tokens"])
+        return batch["embeds"].to(dtype)
+    if cfg.is_encoder_only:
+        return _project(batch["frames"], params["frames_proj"], dtype)
+    x = embed_tokens(params, cfg, batch["tokens"])
+    if cfg.frontend == "vision" and "prefix" in batch:
+        x = torch.cat([_project(batch["prefix"], params["prefix_proj"], dtype), x], dim=1)
+    return x
 
 
 def head_matrix(params, cfg) -> torch.Tensor:
-    """The (d, V) output projection."""
+    """The (d, V) output projection (an encoder's codebook head)."""
+    if cfg.is_encoder_only:
+        return params["pred_head"]["kernel"]
     if cfg.tie_embeddings:
         return params["embed"]["table"].T
     return params["lm_head"]["kernel"]
@@ -332,8 +369,11 @@ def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``(ce + router_aux_coef · aux, {"ce", "moe_aux"})``: CE of the
     logits against ``batch["labels"]`` (masked by ``batch["mask"]`` where
     given) plus the weighted router loss; a dense model's aux is 0, so its
-    total is its CE."""
+    total is its CE. A VLM's loss is on the text positions only: the
+    prefix positions' logits are dropped."""
     logits, aux = lm_forward(params, cfg, batch)
+    if cfg.frontend == "vision" and "prefix" in batch:
+        logits = logits[:, batch["prefix"].shape[1]:]
     loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
     return loss + cfg.router_aux_coef * aux, {"ce": loss, "moe_aux": aux}
 
@@ -370,13 +410,14 @@ def init_lm_state(cfg, batch: int, max_seq: int, dtype=None, *, kv_pages: int = 
 
 
 def lm_prefill(params, cfg, batch, state, last_index=None):
-    """Consume the whole prompt, fill ``state`` (in place), return the
-    logits (B, 1, V) of position ``last_index`` — an int or a per-row (B,)
-    vector (the engine pads ragged prompts to a bucket and needs each row's
-    true last prompt token) — or of the last position when ``None``. A
-    recurrent carry absorbs every position it is fed, pad included: the
-    engine prefills a recurrent arch to its exact prompt length."""
-    x, _ = _run_blocks(params, cfg, embed_tokens(params, cfg, batch["tokens"]), "prefill", state=state)
+    """Consume the whole prompt (a VLM's prefix before its tokens), fill
+    ``state`` (in place), return the logits (B, 1, V) of position
+    ``last_index`` — an int or a per-row (B,) vector (the engine pads
+    ragged prompts to a bucket and needs each row's true last prompt
+    token) — or of the last position when ``None``. A recurrent carry
+    absorbs every position it is fed, pad included: the engine prefills a
+    recurrent arch to its exact prompt length."""
+    x, _ = _run_blocks(params, cfg, _embed_inputs(params, cfg, batch), "prefill", state=state)
     if last_index is None:
         x_last = x[:, -1:]
     else:

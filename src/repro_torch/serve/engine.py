@@ -947,6 +947,14 @@ class ServeEngine:
 
     def __init__(self, cfg, params, ecfg: EngineConfig, *, prefill_device=None, drafter=None,
                  registry: Optional[MetricsRegistry] = None, replica: int = 0):
+        if cfg.is_encoder_only:
+            raise ValueError(f"{cfg.name} is encoder-only: nothing to decode")
+        if cfg.frontend == "vision":
+            raise ValueError(
+                f"{cfg.name} needs per-request vision prefix embeddings, which "
+                "the slot engine does not thread through admission yet; serve "
+                "vlm archs with the static batch path"
+            )
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg

@@ -5,6 +5,9 @@ Prefill, then ``gen - 1`` decode steps with on-device sampling; the tokens
 cross to the host once at the end. The static path always decodes against
 the dense per-slot cache (scalar positions, small-SDPA attention), so it is
 the cross-layout parity oracle the paged engine's tokens are held against.
+It is also the path a VLM is served by (the engine refuses one): its
+``batch["prefix"]`` is fed at prefill, so the cache holds P more
+positions and decode positions start at the prompt's length plus P.
 """
 from __future__ import annotations
 
@@ -27,16 +30,18 @@ def static_generate(
     max_seq: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """``batch["tokens"]``: (B, L) int. Returns (B, gen) int32 on the
-    tokens' device."""
+    """``batch["tokens"]``: (B, L) int; a VLM's ``batch["prefix"]``: (B, P,
+    frontend_dim). Returns (B, gen) int32 on the tokens' device."""
     tokens = batch["tokens"]
     b, prompt_len = tokens.shape
-    state = init_lm_state(cfg, b, max_seq or (prompt_len + gen), device=tokens.device)
+    prefix = batch["prefix"].shape[1] if "prefix" in batch else 0
+    base = prompt_len + prefix  # the first decode position
+    state = init_lm_state(cfg, b, (max_seq or (prompt_len + gen)) + prefix, device=tokens.device)
     logits, state = lm_prefill(params, cfg, batch, state)
     tok = sample_tokens(logits[:, -1], generator, temperature)
     out = [tok]
     for i in range(gen - 1):
-        logits, state = lm_decode(params, cfg, tok[:, None], state, prompt_len + i)
+        logits, state = lm_decode(params, cfg, tok[:, None], state, base + i)
         tok = sample_tokens(logits[:, -1], generator, temperature)
         out.append(tok)
     return torch.stack(out, dim=1)

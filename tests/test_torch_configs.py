@@ -1,8 +1,10 @@
 """The configs granite-3-2b, internlm2-20b (dense), qwen3-32b (dense,
 qk-norm), mixtral-8x7b (MoE, sliding window), qwen3-moe-235b-a22b (MoE,
-qk-norm), xlstm-125m (SSM: mLSTM and sLSTM blocks) and jamba-v0.1-52b
-(hybrid: Mamba, one attention layer in 8, MoE every other layer) in the
-port, against the JAX package on the CPU.
+qk-norm), xlstm-125m (SSM: mLSTM and sLSTM blocks), jamba-v0.1-52b
+(hybrid: Mamba, one attention layer in 8, MoE every other layer),
+hubert-xlarge (audio encoder, hd 80) and phi-3-vision-4.2b (VLM, hd 96) in
+the port, against the JAX package on the CPU. Every arch the reference
+registers is ported (``NOT_PORTED`` is empty).
 
 * Every field of the port's ``ModelConfig`` equals the JAX config's (the
   backend through ``backend_for`` per op: the port's field is always a
@@ -22,7 +24,9 @@ port, against the JAX package on the CPU.
   size about 1). The two recurrent archs are held to 1e-5 of the larger
   of 1 and the largest |logit|: jamba's untied head gives logits up to
   about 4, and its 8 layers (Mamba, MoE) add f32 rounding that the
-  2-layer attention configs do not have."""
+  2-layer attention configs do not have. The encoder and the VLM take
+  frames or a prefix, not tokens alone: their forward, loss, gradients and
+  serving are in ``tests/test_torch_modality.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -35,6 +39,7 @@ import torch
 
 from repro.config import ModelConfig as JaxModelConfig
 from repro.config import get_arch as jax_get_arch
+from repro.config import list_archs as jax_list_archs
 from repro.config import reduced_variant as jax_reduced_variant
 from repro.models import group_pattern as jax_group_pattern
 from repro.models import init_lm as jax_init_lm
@@ -50,14 +55,17 @@ from repro_torch.models.transformer import init_lm_state, lm_decode, lm_forward,
 pytestmark = pytest.mark.tier1
 
 ARCHS = ("granite-3-2b", "internlm2-20b", "qwen3-32b", "mixtral-8x7b", "qwen3-moe-235b-a22b", "xlstm-125m",
-         "jamba-v0.1-52b")
+         "jamba-v0.1-52b", "hubert-xlarge", "phi-3-vision-4.2b")
 NO_ATTENTION = ("xlstm-125m",)  # no GQA group to vary, no KV to page
+# frames or a prefix in, not tokens alone (tests/test_torch_modality.py)
+MODALITY = ("hubert-xlarge", "phi-3-vision-4.2b")
 # JAX fields the port's config leaves out on purpose: scan_layers bounds the
 # size of a compiled XLA program, and the eager port has no such program
 NOT_YET = ("scan_layers",)
 # (head_dim, GQA group) of each arch
 HEADS = {"granite-3-2b": (64, 4), "internlm2-20b": (128, 6), "qwen3-32b": (128, 8), "mixtral-8x7b": (128, 4),
-         "qwen3-moe-235b-a22b": (128, 16), "xlstm-125m": (192, 1), "jamba-v0.1-52b": (128, 4)}
+         "qwen3-moe-235b-a22b": (128, 16), "xlstm-125m": (192, 1), "jamba-v0.1-52b": (128, 4),
+         "hubert-xlarge": (80, 1), "phi-3-vision-4.2b": (96, 1)}
 B, PROMPT, MAX_SEQ, PS, STEPS = 2, 12, 24, 8, 4
 LENS = np.array([12, 7], np.int32)
 TOL = 1e-5
@@ -83,6 +91,14 @@ def test_config_fields_match_jax(arch):
         assert getattr(red, name) == getattr(jred, name), name
 
 
+def test_every_jax_arch_is_ported():
+    assert NOT_PORTED == ()
+    for arch in jax_list_archs():
+        assert get_arch(arch).name == jax_get_arch(arch).name == arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")
+
+
 def _variants(arch):
     """The reduced variant and the reduced variant with the arch's GQA
     group, each as (jax cfg, port cfg), f32."""
@@ -94,7 +110,7 @@ def _variants(arch):
 
 
 @pytest.fixture(scope="module", params=[(a, v) for a in ARCHS for v in ("reduced", "grouped")
-                                        if a not in NO_ATTENTION or v == "reduced"],
+                                        if a not in MODALITY and (a not in NO_ATTENTION or v == "reduced")],
                 ids=lambda p: f"{p[0]}-{p[1]}")
 def model(request):
     arch, variant = request.param

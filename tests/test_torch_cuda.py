@@ -7,8 +7,9 @@ bitwise equal, one full-width training step, one small epoch of each
 distilling Table 1 baseline, the grouped client bank against the looped
 ensemble, a paged decode run that telemetry adds no device sync to, the
 prefix cache with speculative decoding on hot-prefix traffic, and the MoE
-dispatches, qk-norm prefill, ``remat`` and the recurrent archs' engine
-(jamba through #5/#8 against the plain attention). These tests need a CUDA device (marker
+dispatches, qk-norm prefill, ``remat``, the recurrent archs' engine
+(jamba through #5/#8 against the plain attention) and the modality archs
+(hubert at hd 80, phi with its prefix at hd 96). These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -374,7 +375,12 @@ def test_wrappers_reject_bad_inputs(device):
 
 # (B, Sq, Sk, H, KH, hd): the smollm-135m prefill shape, a masked tail,
 # Sq > Sk (fully-masked rows under a window), and hd = 128
-ATTN_SHAPES = [(2, 128, 128, 9, 3, 64), (2, 37, 37, 4, 2, 32), (1, 70, 33, 4, 1, 128)]
+# (B, Sq, Sk, H, KH, hd): the smollm-135m prefill shape, a tail at hd 32,
+# Sq > Sk at hd 128; hd 80 (hubert-xlarge) with a tail that is not a
+# multiple of 64 and a GQA group of 1, hd 96 (phi-3-vision-4.2b) with
+# Sq > Sk and a group of 4
+ATTN_SHAPES = [(2, 128, 128, 9, 3, 64), (2, 37, 37, 4, 2, 32), (1, 70, 33, 4, 1, 128), (1, 100, 100, 16, 16, 80),
+               (2, 70, 45, 8, 2, 96)]
 
 
 def _attn_inputs(b, sq, sk, h, kh, hd, dtype, device, seed=0):
@@ -407,7 +413,8 @@ def test_flash_attention_kernel_matches_plain(device, shape, dtype, causal, wind
 # (B, Sq, Sk, H, KH, hd) of the backward: the smollm-135m training shape,
 # a masked tail with hd 32, Sq > Sk (fully-masked rows under a window) with
 # hd 128, and Sq < Sk with G = 8
-BWD_SHAPES = [(2, 256, 256, 9, 3, 64), (2, 37, 37, 4, 2, 32), (1, 70, 33, 4, 1, 128), (2, 20, 45, 8, 1, 64)]
+BWD_SHAPES = [(2, 256, 256, 9, 3, 64), (2, 37, 37, 4, 2, 32), (1, 70, 33, 4, 1, 128), (2, 20, 45, 8, 1, 64),
+              (1, 100, 100, 16, 16, 80), (2, 70, 45, 8, 2, 96)]
 BWD_MASKS = [(True, 0, 0.0), (True, 16, 30.0), (False, 0, 0.0), (False, 16, 30.0), (True, 8, 0.0)]
 
 
@@ -702,8 +709,11 @@ def _decode_inputs(b, h, kh, hd, ps, w, window, dtype, device, seed=0, pos=None,
 
 
 # (B, H, KH, hd, page size, table width): the smollm-135m serving shape, a
-# small one with hd 32, and hd 128 with 64-token pages
-DECODE_SHAPES = [(8, 9, 3, 64, 16, 12), (3, 4, 2, 32, 8, 5), (2, 8, 8, 128, 64, 3)]
+# small one with hd 32, hd 128 with 64-token pages, hd 80 with one query
+# head a kv head, and hd 96 with 4 (their key rows are 10 and 12 pieces of
+# 16 bytes in bf16, 20 and 24 in f32: not a power of two)
+DECODE_SHAPES = [(8, 9, 3, 64, 16, 12), (3, 4, 2, 32, 8, 5), (2, 8, 8, 128, 64, 3), (4, 16, 16, 80, 16, 6),
+                 (3, 8, 2, 96, 8, 5)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES)
@@ -1145,3 +1155,55 @@ def test_recurrent_engine_on_card_matches_ref_backend(device):
         else:
             assert out["cuda"][2] == out["cuda"][1]["prefill_dispatches"] >= len(set(map(len, prompts)))
             assert out["cuda"][3] > 0
+
+
+def test_modality_paths_on_card(device):
+    """Reduced hubert-xlarge at its head dim 80 (2 heads, non-causal): one
+    f32 ``lm_loss`` step through #5-#7 (backend "cuda") against plain
+    autograd (backend "ref"), the loss within 1e-5 relative and every
+    gradient within 1e-4 of its leaf's largest; #5 once a layer (no remat),
+    #6 and #7 once. Reduced phi-3-vision-4.2b at its head dim 96 with its
+    seeded prefix: ``static_generate``'s greedy tokens through #5 equal the
+    plain route's; #5 once a layer, #8 never (the static path decodes
+    densely)."""
+    import numpy as np
+
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.serve import static_generate
+    from repro_torch.utils.trees import tree_leaves, value_and_grad
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    cfg = reduced_variant(get_arch("hubert-xlarge")).replace(num_heads=2, num_kv_heads=2, head_dim=80, **f32)
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0))
+    rng = np.random.RandomState(0)
+    batch = {"frames": torch.as_tensor(rng.randn(2, 100, cfg.frontend_dim).astype(np.float32), device=device),
+             "labels": torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(2, 100)), device=device)}
+    out = {}
+    for backend in ("cuda", "ref"):
+        reset_launch_counts()
+        out[backend] = value_and_grad(lambda p: lm_loss(p, cfg.replace(backend=backend), batch)[0], params)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        n = cfg.num_layers if backend == "cuda" else 0
+        assert (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"], counts["flash_attention_bwd_dkv"]) == (n, n, n)
+    (loss_k, grads_k), (loss_r, grads_r) = out["cuda"], out["ref"]
+    assert abs(float(loss_k) - float(loss_r)) <= 1e-5 * abs(float(loss_r))
+    for g, w in zip(tree_leaves(grads_k), tree_leaves(grads_r)):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+
+    cfg = reduced_variant(get_arch("phi-3-vision-4.2b")).replace(num_heads=2, num_kv_heads=2, head_dim=96, d_model=192,
+                                                                 **f32)
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0))
+    params["lm_head"]["kernel"] *= 10.0  # wide logit margins for greedy parity
+    prefix = np.random.RandomState(0).randn(2, cfg.num_prefix_tokens, cfg.frontend_dim).astype(np.float32) * 0.02
+    batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(2, 24)), device=device),
+             "prefix": torch.as_tensor(prefix, device=device)}
+    reset_launch_counts()
+    got = static_generate(params, cfg.replace(backend="cuda"), batch, 8)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["flash_attention_fwd"], counts["flash_decode"]) == (cfg.num_layers, 0)
+    assert torch.equal(got, static_generate(params, cfg.replace(backend="ref"), batch, 8))

@@ -76,19 +76,23 @@ def test_config_and_tokens_match_jax():
     assert (full.dtype, full.param_dtype, full.num_layers, full.d_model) == (jfull.dtype, jfull.param_dtype, 30, 576)
     for k, v in jax_make_token_stream(3, 512, 4, 17).items():
         np.testing.assert_array_equal(make_token_stream(3, 512, 4, 17)[k], v)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_arch("hubert-xlarge")
+    assert get_arch("hubert-xlarge").family == "audio"  # every arch of the reference is ported
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("option,error,match", [
-    (dict(act="gelu"), NotImplementedError, "not ported yet"),
+    (dict(act="relu"), ValueError, "act"),
     (dict(family="ssm"), ValueError, "ssm_kind"),
-    (dict(family="audio"), NotImplementedError, "not ported yet"),
+    (dict(family="audio", frontend="audio"), ValueError, "num_prefix_tokens"),
     (dict(family="hybrid"), ValueError, "attn_every"),
-], ids=["gelu", "ssm", "audio", "hybrid"])
+    (dict(family="diffusion"), NotImplementedError, "not ported yet"),
+], ids=["gelu", "ssm", "audio", "hybrid", "unknown-family"])
 def test_unported_dense_options_refuse(option, error, match):
-    """An option or a family that no ported config uses is refused, never
-    ignored; so is an SSM or hybrid family without its recurrent fields."""
+    """An activation or a family that no config of the reference has is
+    refused, never ignored; so is an SSM or hybrid family without its
+    recurrent fields, and a frontend without its prefix tokens (the
+    reference's assertion)."""
     _, cfg = _configs()
     with pytest.raises(error, match=match):
         init_lm(cfg.replace(**option), torch.Generator().manual_seed(0))

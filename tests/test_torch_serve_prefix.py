@@ -496,7 +496,7 @@ def test_serve_args_fail_fast():
         (["--spec-decode", "--temperature", "0.7"], "temperature"),
         (["--spec-decode", "--kv-layout", "dense"], "paged"),
         (["--spec-decode", "--drafter", "xlstm-125m"], "recurrent carry"),
-        (["--spec-decode", "--drafter", "hubert-xlarge"], "not ported yet"),
+        (["--spec-decode", "--drafter", "hubert-xlarge"], "does not match"),  # a 504-way codebook, not a vocabulary
         (["--spec-decode", "--drafter", "nope"], "unknown arch"),
     ):
         with pytest.raises(SystemExit, match=match):
