@@ -275,6 +275,23 @@ result line):
    with AdamW, 8 × 256 text tokens after 576 patches, 5 steps, at the
    deepest multiple of 8 layers that fits AdamW's f32 state (the depth is
    printed): finite losses, #5 twice a layer a step, #6 and #7 once.
+5h. One model over a device mesh (``repro_torch.sharding``,
+   ``repro_torch.launch.mesh``), in this process as a world of one (NCCL,
+   a ``file://`` rendezvous in a temp dir): the degenerate topology on
+   one card (``make_fleet_mesh(1)``, ``replica_meshes``,
+   ``disagg_submeshes``: one (1, 1) replica, its halves the same mesh);
+   then ``ServeEngine(mesh=make_host_mesh())`` for smollm-135m at full
+   width in f32 (head ×10), 4 requests × 16 tokens: its tokens equal the
+   meshless engine's on every position, and #5 and #8 ran through the
+   ``local_map`` route (both counters and the route's calls above 0).
+   Then bf16 through ``launch.serve.run_continuous`` at phase 5's
+   settings, meshless and sharded in turns (meshless, sharded, sharded,
+   meshless): tok/s of each, printed, not gated. Last the train step at
+   full width under the 1×1 mesh: 3 AdamW steps in f32 on 8 × 256
+   tokens, its losses within 1e-5 relative of the meshless step's; then
+   bf16 s/step in turns with the meshless step, #5–#7 launched through
+   the route. DTensor places every leaf whole on one card, so the phase
+   shows the route's host cost, not a split.
 5b. Telemetry (``repro_torch.obs``): phase 4's Co-Boosting run, then
    phase 5's serving run, each through its launcher with
    ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
@@ -293,7 +310,7 @@ result line):
    Printed, not fatal: s/epoch (the ``ofl.epoch`` spans after the first)
    with telemetry on, unprofiled against profiled (the profiler's cost),
    and serving tok/s with telemetry off and on (metrics and spans, no
-   profiler) in turns off, on, on, off, twice, with each side's median.
+   profiler) in turns off, on, on, off, with each side's median.
 6. LM training path: one step of smollm-135m at full width, whose
    gradients through the kernels are held against plain autograd: in f32
    through the CUDA-core kernels (the largest gap relative to each leaf's
@@ -331,10 +348,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 
 MAIN = dict(k=5, b=128, v=10)
 WIDE = dict(k=5, b=37, v=32003)
@@ -431,9 +444,13 @@ INTERNLM2_LAYERS = 4
 # the smallest share of the device time launched inside the ofl.epoch spans
 # that the three Algorithm 1 phase ranges must cover (phase 5b)
 PHASE_COVERAGE = 0.9
+# phase 5h: the sharded engine and train step under the 1x1 mesh
+MESH_TURNS = ("meshless", "sharded", "sharded", "meshless")
+MESH_TRAIN = dict(batch=8, seq=256, steps=3)
 # phase 5b's serving runs with telemetry off and on (metrics and spans), in
-# turns: host-bound tok/s spreads between runs, so each side runs four times
-SERVE_TURNS = ("off", "on", "on", "off", "off", "on", "on", "off")
+# turns: host-bound tok/s spreads between runs, so each side runs twice (not
+# more: the whole script has to stay inside its time limit)
+SERVE_TURNS = ("off", "on", "on", "off")
 # LM training: smollm-135m at full width, under remat (the config's default:
 # the attention forward launches twice a layer a step, its forward and its
 # recompute in the backward pass)
@@ -695,9 +712,24 @@ def check_stream_lookup():
           + json.dumps(t), flush=True)
 
 
-def _bound_ms(nbytes, flops, peak=F32_FLOPS):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / peak
+def _peak(dtype):
+    """The card's peak rate for ``dtype``'s operations: the H100 SXM figures
+    of ``repro_torch.config.mesh`` (f32 outside the tensor cores, bf16 on
+    them, dense)."""
+    import torch
+
+    from repro_torch.config.mesh import PEAK_FLOPS_BF16, PEAK_FLOPS_F32
+
+    return PEAK_FLOPS_F32 if dtype == torch.float32 else PEAK_FLOPS_BF16
+
+
+def _bound_ms(nbytes, flops, peak=None):
+    import torch
+
+    from repro_torch.config.mesh import HBM_BW
+
+    t_bytes = nbytes / HBM_BW
+    t_ops = flops / (_peak(torch.float32) if peak is None else peak)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -990,7 +1022,7 @@ def attention_kernels_vs_plain():
                     **{f"{a} heads decode": f"{a} heads decode" for a in MODALITY_ATTN}}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        peak = _peak(dtype)
         # bf16: the tensor-core kernel (picked by dtype) and the CUDA-core one (named)
         variants = {None: "flash_attention_fwd"} if dtype == torch.float32 else {
             None: "flash_attention_fwd_sm90", "cuda_core": "flash_attention_fwd"}
@@ -1104,7 +1136,7 @@ def attention_bwd_kernels_vs_plain():
                                                   for a, m in MODALITY_ATTN.items()}}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        peak = _peak(dtype)
         # bf16: the tensor-core kernels (picked by dtype) and the CUDA-core ones (named)
         passes = {"dq": {None: "flash_attention_bwd_dq"}, "dkv": {None: "flash_attention_bwd_dkv"}}
         if dtype == torch.bfloat16:
@@ -3121,6 +3153,176 @@ def modality_path(card):
 # phase 5b
 
 
+# ---------------------------------------------------------------------------
+# phase 5h
+
+
+def _mesh_engine_f32(host):
+    """Full width in f32: the sharded engine's greedy tokens against the
+    meshless engine's, every position, with #5 and #8 on the local route."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.dispatch import LOCAL_MAP_CALLS, reset_local_map_calls
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_arch("smollm-135m").replace(dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    params["embed"]["table"] *= 10.0
+    n, gen, prompt = 4, 16, SERVE["prompt"]
+    tokens = make_token_stream(1, cfg.vocab_size, n, prompt)["tokens"]
+    ecfg = EngineConfig(max_slots=n, max_seq=prompt + gen, max_new=gen, page_size=SERVE["page"], kv_layout="paged")
+
+    def run(mesh):
+        eng = ServeEngine(cfg, params, ecfg, mesh=mesh)
+        comps = ContinuousScheduler(eng, clock=ManualClock()).run(
+            [Request(rid=i, tokens=tokens[i], max_new_tokens=gen) for i in range(n)]
+        )
+        return np.stack([c.tokens for c in comps])
+
+    want = run(None)
+    reset_launch_counts()
+    reset_local_map_calls()
+    got = run(host)
+    counts, route = launch_counts(), dict(LOCAL_MAP_CALLS)
+    if not np.array_equal(got, want):
+        fail(f"sharded engine f32: tokens {got.tolist()} != meshless engine {want.tolist()}")
+    for name, key in (("flash_attention_fwd", "flash_attention"), ("flash_decode", "flash_decode")):
+        if counts[name] == 0 or route[key] == 0:
+            fail(f"sharded engine f32: {name} launched {counts[name]} times, {route[key]} calls on the local route")
+    print(f"sharded engine f32 on the 1x1 mesh: tokens equal to the meshless engine's on {n}x{gen} positions; "
+          f"launches {json.dumps({k: counts[k] for k in ATTN_KERNELS})}, local_map calls {json.dumps(route)}", flush=True)
+    del params
+
+
+def _mesh_serving_turns(host, card):
+    """bf16 at phase 5's settings through ``launch.serve.run_continuous``,
+    meshless and sharded in turns: tok/s of each (printed, not gated)."""
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import cast_weights, init_lm
+
+    args = serve.build_parser().parse_args(SERVE_ARGV)
+    cfg = get_arch(args.arch).replace(backend=args.backend)
+    params = cast_weights(init_lm(cfg, torch.Generator(device="cuda").manual_seed(args.seed)), cfg)
+    rates = {"meshless": [], "sharded": []}
+    for turn in MESH_TURNS:
+        result = serve.run_continuous(args, cfg, params, host if turn == "sharded" else None)
+        torch.cuda.synchronize()
+        if len(result["completions"]) != SERVE["requests"] or any(len(c.tokens) != SERVE["gen"] for c in result["completions"]):
+            fail(f"sharded serving bf16 ({turn}): expected {SERVE['requests']} completions of {SERVE['gen']} tokens")
+        rates[turn].append(result["tok_per_s"])
+    print(f"sharded serving bf16 at phase 5's settings, turns {'/'.join(MESH_TURNS)} ({card}): tok/s "
+          f"{json.dumps(rates)}", flush=True)
+    return rates
+
+
+def _mesh_train(host, card):
+    """The train step at full width under the 1x1 mesh: f32 losses against
+    the meshless step's, then bf16 s/step in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.config.train import TrainConfig
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.dispatch import LOCAL_MAP_CALLS, reset_local_map_calls
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.sharding import mesh_context, shard_params
+
+    dev = torch.device("cuda")
+    steps = MESH_TRAIN["steps"]
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in make_token_stream(i, 49152, MESH_TRAIN["batch"], MESH_TRAIN["seq"]).items()}
+               for i in range(steps)]
+    tc = TrainConfig(optimizer="adamw", learning_rate=3e-3, schedule="linear_warmup_cosine", warmup_steps=1,
+                     total_steps=steps)
+
+    def run(cfg, mesh):
+        step = make_train_step(cfg, tc)
+        params = init_lm(cfg, torch.Generator(device=dev).manual_seed(5))
+        if mesh is not None:
+            params = shard_params(params, mesh)
+        opt = step.optimizer.init(params)
+        losses, t0 = [], None
+        for i, batch in enumerate(batches):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            with mesh_context(mesh):
+                params, opt, metrics = step(params, opt, batch, i)
+            losses.append(float(metrics["loss"]))
+        return losses, (time.perf_counter() - t0) / (steps - 1)
+
+    cfg = get_arch("smollm-135m").replace(dtype="float32")
+    want, _ = run(cfg, None)
+    reset_launch_counts()
+    reset_local_map_calls()
+    got, _ = run(cfg, host)
+    counts, route = launch_counts(), dict(LOCAL_MAP_CALLS)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"sharded train step f32 on the 1x1 mesh: losses {got} (meshless {want}), largest relative gap {gap:.3e}; "
+          f"launches {json.dumps({k: counts[k] for k in TRAIN_KERNELS})}, local_map calls {json.dumps(route)}", flush=True)
+    if gap > 1e-5:
+        fail(f"sharded train step f32: losses {got} beyond 1e-5 relative of the meshless step's {want}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if counts[name] == 0:
+            fail(f"sharded train step f32 never launched {name}")
+    if route["flash_attention"] == 0:
+        fail("sharded train step f32: the attention kernels never ran through the local_map route")
+    bf16 = get_arch("smollm-135m")
+    s_per_step = {"meshless": [], "sharded": []}
+    for turn in MESH_TURNS:
+        reset_launch_counts()
+        losses, sps = run(bf16, host if turn == "sharded" else None)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"sharded train step bf16 ({turn}): non-finite loss in {losses}")
+        if turn == "sharded":
+            _check_variants("sharded train step bf16", launch_counts(), "bfloat16")
+        s_per_step[turn].append(sps)
+    print(f"sharded train step bf16, {MESH_TRAIN['batch']}x{MESH_TRAIN['seq']} tokens, turns {'/'.join(MESH_TURNS)} "
+          f"({card}): s/step after the first {json.dumps(s_per_step)}", flush=True)
+    return np.median(s_per_step["sharded"]), np.median(s_per_step["meshless"])
+
+
+def mesh_path(card):
+    """Phase 5h: the mesh modules on one card, as a world of one."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import disagg_submeshes, init_distributed, make_fleet_mesh, make_host_mesh, replica_meshes
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        if init_distributed("cuda", init_method=f"file://{tmp}/rendezvous") != 1:
+            fail("mesh phase: expected a world of one")
+        host = make_host_mesh("cuda")
+        subs = replica_meshes(make_fleet_mesh(1, device_type="cuda"))
+        pm, dm = disagg_submeshes(subs[0])
+        if len(subs) != 1 or tuple(subs[0].mesh.shape) != (1, 1) or not (pm is dm is subs[0]):
+            fail(f"mesh phase: degenerate topology {[tuple(m.mesh.shape) for m in subs]}, halves colocated {pm is dm}")
+        print("mesh topology on one card: make_fleet_mesh(1) gives one (1, 1) replica, disagg_submeshes its own "
+              "mesh twice", flush=True)
+        _mesh_engine_f32(host)
+        _free()
+        _mesh_serving_turns(host, card)
+        _free()
+        _mesh_train(host, card)
+        _free()
+        dist.destroy_process_group()
+    print(f"mesh phase (5h): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _telemetry_flags(tmp, stem, profile=True):
     flags = ["--metrics-out", f"{tmp}/{stem}.jsonl", "--trace-out", f"{tmp}/{stem}.json"]
     return flags + (["--profile-dir", f"{tmp}/{stem}_prof"] if profile else [])
@@ -3380,6 +3582,7 @@ def main() -> None:
     moe_qk_norm_path(card)
     recurrent_path(card)
     modality_path(card)
+    mesh_path(card)
     telemetry_path({n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
     counts.update(lm_training_path())

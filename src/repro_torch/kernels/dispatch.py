@@ -95,3 +95,49 @@ def resolve(op: str, backend: str, device) -> str:
             "use 'auto' or 'ref' on the CPU"
         )
     return "fused"
+
+
+# ---------------------------------------------------------------------------
+# the sharded route: kernels and strategy-less ops on local shards
+
+#: Calls of each op run on every rank's local shards through ``local_map``
+#: (the ops DTensor has no sharding strategy for, and the hand kernels),
+#: counted where the call is made; tests and ``chip_smoke.py`` read them.
+LOCAL_MAP_CALLS = {
+    "flash_attention": 0,  # kernels #5–#7 (forward and, under autograd, both backward passes)
+    "flash_decode": 0,  # kernel #8
+    "kv_scatter": 0,  # in-place cache / page-pool / carry writes
+    "page_gather": 0,  # the page-table view of a paged pool
+    "moe_dispatch": 0,  # routing, capacity positions and the index_add fill
+    "recurrent_scan": 0,  # the Mamba, mLSTM and sLSTM recurrences
+}
+
+
+def reset_local_map_calls() -> None:
+    for k in LOCAL_MAP_CALLS:
+        LOCAL_MAP_CALLS[k] = 0
+
+
+def on_local_shards(op: str, fn, args, in_placements, out_placements):
+    """``fn(*args)`` on each rank's local shards (``local_map``): every
+    DTensor argument is first redistributed to its entry of
+    ``in_placements`` (None for a plain argument, which every rank holds
+    whole), and each tensor ``fn`` returns is wrapped with its entry of
+    ``out_placements``. Differentiable: an argument replicated over a mesh
+    dim that another argument is sharded on is used by each rank only
+    against its own shard, so its gradient comes back as a partial sum
+    over that mesh dim; every other gradient takes its argument's
+    placements."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    LOCAL_MAP_CALLS[op] += 1
+    in_placements = tuple(None if p is None else tuple(p) for p in in_placements)
+    sharded = {i for p in in_placements if p is not None for i, q in enumerate(p) if isinstance(q, Shard)}
+    grad_placements = tuple(
+        None if p is None else tuple(Partial() if i in sharded and isinstance(q, Replicate) else q
+                                     for i, q in enumerate(p))
+        for p in in_placements
+    )
+    return local_map(fn, out_placements=out_placements, in_placements=in_placements,
+                     in_grad_placements=grad_placements, redistribute_inputs=True)(*args)

@@ -25,6 +25,10 @@ engine (default) or the static-batch baseline, on the GPU.
     python -m repro_torch.launch.serve --reduced --device cpu --engine static \\
         --batch 3 --prompt-len 24 --gen 12
 
+    # one engine over the 16x16 production mesh: 256 ranks under torchrun,
+    # params and KV tensor-parallel over "model" (DTensors)
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.serve --mesh production
+
     # a VLM (phi-3-vision-4.2b) serves through the static path only, with
     # a seeded prefix of 576 patch embeddings before each prompt
     python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --engine static \
@@ -35,7 +39,12 @@ Weights are random, made from ``--seed`` (the drafter's from ``--seed``
 tokens are the target's either way), and so is a VLM's prefix
 (``RandomState(seed).randn(B, P, frontend_dim) · 0.02``, as the reference
 makes it). An encoder-only arch (hubert-xlarge) has nothing to decode and
-is refused. Full width serves in the
+is refused. ``--mesh host`` (the default) serves on one device without a
+mesh; ``--mesh production`` runs one engine (or the static batch) sharded
+over the 16x16 mesh of a 256-rank ``torchrun`` world and exits, before any
+allocation, in any other world. ``--mesh multipod`` with the continuous
+engine, several replicas over a mesh, and ``--disagg`` are the fleet work
+of ROADMAP A.7b and exit with that message. Full width serves in the
 config's bf16 activations with f32 params; ``--reduced`` runs the reduced
 variant in f32, as the JAX launcher does. Runs on ``cuda`` unless
 ``--device cpu`` is given. Arguments are checked, and the engine and KV
@@ -62,6 +71,7 @@ from repro_torch.config.model import reduced_variant
 from repro_torch.config.registry import get_arch
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels.dispatch import KERNEL_BACKENDS
+from repro_torch.launch.mesh import launcher_mesh
 from repro_torch.models.transformer import cast_weights, group_pattern, init_lm
 from repro_torch.serve import (
     ContinuousScheduler,
@@ -75,6 +85,7 @@ from repro_torch.serve import (
     static_generate,
 )
 from repro_torch.serve.engine import check_accelerations, engine_layout
+from repro_torch.sharding.partition import shard_params
 from repro_torch.utils.device import disable_tf32, get_device, profiled
 from repro_torch.utils.logging import get_logger
 
@@ -104,6 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
     # fleet topology (continuous arm)
     p.add_argument("--replicas", type=int, default=1,
                    help="engine replicas behind the least-loaded router (on one device they share it)")
+    p.add_argument("--mesh", default="host", choices=("host", "production", "multipod"),
+                   help="host: one device, no mesh; production: one engine sharded over the 16x16 mesh of a "
+                        "256-rank torchrun world")
+    p.add_argument("--disagg", action="store_true",
+                   help="disaggregated prefill/decode over mesh halves (ROADMAP A.7b: not ported yet)")
     p.add_argument("--kv-layout", default="paged", choices=("paged", "dense"),
                    help="paged: KVPool + flash-decode; dense: per-slot rectangle + SDPA")
     p.add_argument("--page-size", type=int, default=16, help="tokens per KV page (power of two)")
@@ -194,6 +210,20 @@ def validate_args(args, cfg) -> None:
             f"{cfg.name} is encoder-only: no autoregressive decode, nothing to "
             "serve. Pick a decoder arch."
         )
+    if args.mesh == "multipod" and args.engine == "static":
+        raise SystemExit(
+            "--mesh multipod is not supported for static serving: the fused "
+            "static program is single-pod (the pod axis is data-parallel "
+            "replication). Use --engine continuous, which runs one engine "
+            "replica group per pod behind the fleet router."
+        )
+    if args.disagg or args.mesh == "multipod" or (args.mesh != "host" and args.replicas > 1):
+        raise SystemExit(
+            "--disagg, --mesh multipod serving and --replicas over a mesh are the sharded "
+            "fleet of ROADMAP A.7b (a router every rank shares, the cross-mesh handoff), "
+            "not ported yet: serve one engine with --mesh production, or the meshless "
+            "fleet with --mesh host"
+        )
     if args.prompt_len < 1 or args.gen < 1:
         raise SystemExit(f"--prompt-len ({args.prompt_len}) and --gen ({args.gen}) must be >= 1")
     if args.profile and args.profile_dir:
@@ -278,7 +308,7 @@ def validate_args(args, cfg) -> None:
         raise SystemExit(str(ex))
 
 
-def run_static(args, cfg, params, device) -> dict:
+def run_static(args, cfg, params, device, mesh=None) -> dict:
     data = make_token_stream(args.seed, cfg.vocab_size, args.batch, args.prompt_len)
     batch = {"tokens": torch.as_tensor(data["tokens"][:, : args.prompt_len], device=device)}
     if cfg.family == "vlm":
@@ -287,7 +317,8 @@ def run_static(args, cfg, params, device) -> dict:
         batch["prefix"] = torch.as_tensor(prefix, device=device)
     gen = torch.Generator(device=device)
     run = lambda: static_generate(
-        params, cfg, batch, args.gen, temperature=args.temperature, generator=gen.manual_seed(args.seed)
+        params, cfg, batch, args.gen, temperature=args.temperature, generator=gen.manual_seed(args.seed),
+        mesh=mesh,
     ).cpu()
     run()  # builds the kernels and warms the allocator
     t0 = time.perf_counter()
@@ -300,7 +331,7 @@ def run_static(args, cfg, params, device) -> dict:
     return {"tokens": float(toks), "wall_s": dt, "tok_per_s": toks / max(dt, 1e-9), "sample": out[0].tolist()}
 
 
-def build_fleet(args, cfg, params) -> list:
+def build_fleet(args, cfg, params, mesh=None) -> list:
     """The engine replicas, ids 0..N-1, on the parameters' device: on one
     device the replicas colocate (their own pools and slots, one device),
     as the reference's do meshless. One drafter (``--spec-decode``) serves
@@ -315,11 +346,11 @@ def build_fleet(args, cfg, params) -> list:
         gen = torch.Generator(device=device).manual_seed(args.seed + 1)
         drafter = (dcfg, cast_weights(init_lm(dcfg, gen), dcfg))
     registry = obs.registry() if args.metrics_out else None
-    return [ServeEngine(cfg, params, ecfg, drafter=drafter, registry=registry, replica=i)
+    return [ServeEngine(cfg, params, ecfg, mesh=mesh, drafter=drafter, registry=registry, replica=i)
             for i in range(args.replicas)]
 
 
-def run_continuous(args, cfg, params) -> dict:
+def run_continuous(args, cfg, params, mesh=None) -> dict:
     dt = 1.0 / args.request_rate if args.request_rate > 0 else 0.0
     if args.hot_fraction > 0:
         # every request asks for --gen tokens, so the stream's budgets go
@@ -333,7 +364,7 @@ def run_continuous(args, cfg, params) -> dict:
         data = make_token_stream(args.seed, cfg.vocab_size, args.requests, args.prompt_len)
         prompts = [data["tokens"][i, : args.prompt_len].astype(np.int32) for i in range(args.requests)]
     requests = [Request(rid=i, tokens=p, max_new_tokens=args.gen, arrival=i * dt) for i, p in enumerate(prompts)]
-    engines = build_fleet(args, cfg, params)
+    engines = build_fleet(args, cfg, params, mesh)
     sched = ContinuousScheduler(engines[0]) if len(engines) == 1 else FleetRouter(engines)
     # every admission size and the decode chunk run once on every replica
     # before timing
@@ -410,11 +441,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         profile_dir=args.profile_dir,
         device=device,
     )
+    mesh = launcher_mesh(args.mesh, device)  # None for host; exits on a wrong world first
     # weights in the activation dtype once, not at every step
     params = cast_weights(init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed)), cfg)
     if args.engine == "static":
-        return run_static(args, cfg, params, device)
-    return run_continuous(args, cfg, params)
+        if mesh is not None:
+            params = shard_params(params, mesh)
+        return run_static(args, cfg, params, device, mesh)
+    return run_continuous(args, cfg, params, mesh)
 
 
 if __name__ == "__main__":

@@ -14,8 +14,16 @@ floor log(V) within a few dozen steps. Weights are random, made from
 steps and a cosine decay, weight decay 0, as the reference configures it.
 Attention runs through the flash-attention op (forward and both backward
 passes as CUDA kernels on the card; ``--backend ref`` is plain autograd).
-Runs on ``cuda`` unless ``--device cpu`` is given. Only the single-device
-``host`` mesh is ported. A VLM (phi-3-vision-4.2b) trains on the same text
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--mesh host`` (the
+default) trains on one device without a mesh; ``--mesh production``
+(``multipod``) shards the params, the AdamW moments and the batch over the
+16x16 (2x16x16) mesh of a 256- (512-) rank ``torchrun`` world, FSDP over
+``data`` and tensor parallel over ``model``, and exits before any
+allocation in any other world::
+
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train --mesh production
+
+A VLM (phi-3-vision-4.2b) trains on the same text
 with a prefix of patch embeddings for step ``i`` from
 ``RandomState(i).randn(batch, P, frontend_dim) · 0.02``, as the reference
 makes it (made with the token batches, before the first step); the loss is
@@ -39,11 +47,13 @@ from repro_torch.config.train import TrainConfig
 from repro_torch.convert import lm_params_to_jax
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels.dispatch import KERNEL_BACKENDS
+from repro_torch.launch.mesh import launcher_mesh
 from repro_torch.models.transformer import init_lm
 from repro_torch.runtime.steps import make_train_step
+from repro_torch.sharding.partition import is_dtensor, mesh_context, shard_params
 from repro_torch.utils.device import disable_tf32, get_device, profiled
 from repro_torch.utils.logging import get_logger
-from repro_torch.utils.trees import tree_leaves
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 log = get_logger("train")
 
@@ -72,8 +82,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh} is not ported yet: the port trains on one device")
     if args.steps < 1 or args.batch < 1 or args.seq < 1:
         raise SystemExit("--steps, --batch and --seq must be >= 1")
     cfg = get_arch(args.arch)
@@ -91,6 +99,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         seed=args.seed,
     )
     device = get_device(args.device)
+    mesh = launcher_mesh(args.mesh, device)  # None for host; exits on a wrong world first
     disable_tf32()
     data = [make_token_stream(args.seed * 10_000 + i, cfg.vocab_size, args.batch, args.seq) for i in range(args.steps)]
     if cfg.family == "vlm":  # the reference's prefix of step i
@@ -99,10 +108,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 np.float32) * 0.02
 
     params = init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed))
+    if mesh is not None:
+        params = shard_params(params, mesh)
     step_fn = make_train_step(cfg, tc)
     opt_state = step_fn.optimizer.init(params)
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log.info("arch=%s params=%.1fM device=%s dtype=%s", cfg.name, n_params / 1e6, device, cfg.dtype)
+    log.info("arch=%s params=%.1fM device=%s dtype=%s mesh=%s", cfg.name, n_params / 1e6, device, cfg.dtype,
+             None if mesh is None else tuple(mesh.shape))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -114,7 +126,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         nonlocal params, opt_state, t_first
         for i in range(i0, i1):
             batch = {k: torch.as_tensor(v, device=device) for k, v in data[i].items()}
-            params, opt_state, metrics = step_fn(params, opt_state, batch, i)
+            with mesh_context(mesh):
+                params, opt_state, metrics = step_fn(params, opt_state, batch, i)
             losses.append(float(metrics["loss"]))  # a host read: the step has finished
             now = time.perf_counter()
             if i == 0:
@@ -153,7 +166,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         log.info("%.3f s/step, %.0f tok/s after the first step, peak device memory %.2f GiB",
                  result["s_per_step"], result["tok_per_s"], result["max_memory_bytes"] / 2**30)
     if args.ckpt_dir:
-        path = save_checkpoint(args.ckpt_dir, args.steps, lm_params_to_jax(cfg, params), {"arch": cfg.name})
+        whole = tree_map(lambda t: t.full_tensor() if is_dtensor(t) else t, params)  # gathered to save
+        path = save_checkpoint(args.ckpt_dir, args.steps, lm_params_to_jax(cfg, whole), {"arch": cfg.name})
         log.info("checkpoint saved: %s", path)
         result["checkpoint"] = path
     return result

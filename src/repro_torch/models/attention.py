@@ -31,9 +31,13 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.dispatch import on_local_shards
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.sharding.partition import (
+    constrain, is_dtensor, logical_placements, mesh_axes_of, replicated,
+)
 
 NEG_INF = -1e30
 
@@ -55,13 +59,14 @@ def init_attention(gen: torch.Generator, cfg, dtype):
 def _proj(x, w):
     """``einsum("bsd,dhk->bshk")`` as one matmul."""
     d, h, hd = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * hd)).unflatten(-1, (h, hd))
+    y = x @ w.to(x.dtype).reshape(d, h * hd)
+    return y.reshape(*y.shape[:-1], h, hd)
 
 
 def _out_proj(o, wo):
     """``einsum("bshk,hkd->bsd")``."""
     h, hd, d = wo.shape
-    return o.flatten(-2) @ wo.to(o.dtype).reshape(h * hd, d)
+    return o.reshape(*o.shape[:-2], h * hd) @ wo.to(o.dtype).reshape(h * hd, d)
 
 
 def _project_qkv(params, x, cfg, positions):
@@ -71,14 +76,93 @@ def _project_qkv(params, x, cfg, positions):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+    q, k = apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+    return (constrain(q, "batch", None, "heads", None), constrain(k, "batch", None, "heads", None),
+            constrain(v, "batch", None, "heads", None))
+
+
+def _gqa_placements(q, k, mesh, k_batch: bool = True):
+    """Placements of q (B, ..., H, hd) and of k/v (B, ..., KH, hd), or of a
+    page pool (P, ps, KH, hd) with ``k_batch=False``, for a kernel on local
+    shards: the batch dim as constrained, the heads dim over the model axis
+    only where BOTH H and KH divide it, so each rank keeps whole GQA groups
+    (its H/m query heads are exactly those of its KH/m kv heads); otherwise
+    the heads stay whole on every rank."""
+    m = mesh_axes_of(mesh).get("model", 1)
+    heads = "heads" if q.shape[-2] % m == 0 and k.shape[-2] % m == 0 else None
+    lead = lambda t, batch: (("batch",) if batch else (None,)) + (None,) * (t.dim() - 3)
+    return (logical_placements(q.shape, lead(q, True) + (heads, None), mesh),
+            logical_placements(k.shape, lead(k, k_batch) + (heads, None), mesh))
 
 
 def _attn_mix(q, k, v, cfg):
-    return flash_attention(
+    fn = lambda q, k, v: flash_attention(
         q, k, v, causal=cfg.causal, window=cfg.sliding_window,
         softcap=cfg.attn_logit_softcap, backend=cfg.backend_for("attn"),
     )
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    qp, kp = _gqa_placements(q, k, q.device_mesh)
+    return on_local_shards("flash_attention", fn, (q, k, v), (qp, kp, kp), [*qp])
+
+
+def _index_parts(index):
+    """A leading-dim index (slices and index tensors) as ``(index tuple,
+    its tensors, rebuild)``: ``rebuild(tensors)`` puts (local) tensors back
+    in their places, for a function run on local shards."""
+    index = index if isinstance(index, tuple) else (index,)
+
+    def rebuild(tensors):
+        it = iter(tensors)
+        return tuple(next(it) if torch.is_tensor(i) else i for i in index)
+
+    return index, [i for i in index if torch.is_tensor(i)], rebuild
+
+
+def write_rows(buf: torch.Tensor, index, values: torch.Tensor) -> None:
+    """``buf[index] = values`` in place (cast to ``buf``'s dtype). On a
+    DTensor ``buf`` every rank writes its own shard: the indexed leading
+    dims (slots, pages, positions) are never sharded, so ``values`` takes
+    ``buf``'s placements on the trailing dims they share (the heads or
+    channel dims) and the index tensors, data every rank holds, stay
+    whole."""
+    if not is_dtensor(buf):
+        buf[index] = values.to(buf.dtype)
+        return
+    from torch.distributed.tensor import Shard
+
+    index, tensors, rebuild = _index_parts(index)
+    values = replicated(values, buf.device_mesh)
+    lead = buf.dim() - values.dim()
+    vp = []
+    for p in buf.placements:
+        if isinstance(p, Shard):
+            if p.dim < len(index):
+                raise ValueError(f"cannot write rows of a buffer sharded on an indexed dim ({buf.placements})")
+            p = Shard(p.dim - lead)
+        vp.append(p)
+
+    def local(b, v, *ts):
+        b[rebuild(ts)] = v.to(b.dtype)
+        return b
+
+    on_local_shards("kv_scatter", local, (buf, values, *tensors),
+                    (buf.placements, vp, *([None] * len(tensors))), [*buf.placements])
+
+
+def take_rows(buf: torch.Tensor, index) -> torch.Tensor:
+    """``buf[index]`` for leading-dim ``index`` (slices and index tensors):
+    on a DTensor, each rank gathers from its own shard, the output sharded
+    like ``buf`` on the trailing dims."""
+    if not is_dtensor(buf):
+        return buf[index]
+    from torch.distributed.tensor import Shard
+
+    index, tensors, rebuild = _index_parts(index)
+    out_dim = buf.dim() - len(tensors) + max((t.dim() for t in tensors), default=0)
+    out_pl = [Shard(p.dim + out_dim - buf.dim()) if isinstance(p, Shard) else p for p in buf.placements]
+    return on_local_shards("page_gather", lambda b, *ts: b[rebuild(ts)], (buf, *tensors),
+                           (buf.placements, *([None] * len(tensors))), out_pl)
 
 
 def _sdpa_small(q, k, v, bias, cfg):
@@ -87,6 +171,8 @@ def _sdpa_small(q, k, v, bias, cfg):
     right-aligned broadcastable to it, like the engine's ``(B, 1, Sk)``."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
+    if is_dtensor(q):  # whole GQA groups per rank before the heads split
+        q = q.redistribute(q.device_mesh, _gqa_placements(q, k, q.device_mesh)[0])
     q = q.reshape(b, sq, kh, h // kh, hd)
     scale = 1.0 / torch.tensor(float(hd)).sqrt().to(q.dtype)
     scores = torch.einsum("bqkgh,bskh->bkgqs", q * scale, k).float()
@@ -103,7 +189,7 @@ def attn_train(params, x, cfg, positions=None):
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    return _out_proj(_attn_mix(q, k, v, cfg), params["wo"])
+    return constrain(_out_proj(_attn_mix(q, k, v, cfg), params["wo"]), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -143,14 +229,14 @@ def attn_prefill(params, x, cfg, cache):
     ck, cv = cache["k"], cache["v"]
     cl = ck.shape[1]
     if s < cl:
-        ck[:, :s] = k.to(ck.dtype)
-        cv[:, :s] = v.to(cv.dtype)
+        write_rows(ck, (slice(None), slice(0, s)), k)
+        write_rows(cv, (slice(None), slice(0, s)), v)
     else:
         tail_pos = torch.arange(s - cl, s, device=x.device)
         slots = tail_pos % cl if cfg.sliding_window > 0 else torch.arange(cl, device=x.device)
-        ck[:, slots] = k[:, -cl:].to(ck.dtype)
-        cv[:, slots] = v[:, -cl:].to(cv.dtype)
-    return out, cache
+        write_rows(ck, (slice(None), slots), k[:, -cl:])
+        write_rows(cv, (slice(None), slots), v[:, -cl:])
+    return constrain(out, "batch", None, None), cache
 
 
 def _positions(pos, b: int, device) -> torch.Tensor:
@@ -176,8 +262,10 @@ def attn_decode(params, x, cfg, cache, pos, page_table=None):
     cl = ck.shape[1]
     slot = posv % cl if cfg.sliding_window > 0 else torch.clamp(posv, max=cl - 1)
     rows = torch.arange(b, device=x.device)
-    ck[rows, slot] = k_new[:, 0].to(ck.dtype)
-    cv[rows, slot] = v_new[:, 0].to(cv.dtype)
+    write_rows(ck, (rows, slot), k_new[:, 0])
+    write_rows(cv, (rows, slot), v_new[:, 0])
+    # the attended copy of the cache is sequence-sharded, as in the reference
+    ck, cv = constrain(ck, "batch", "seq", None, None), constrain(cv, "batch", "seq", None, None)
     ring_idx = torch.arange(cl, dtype=torch.int32, device=x.device)[None, :]
     p = posv[:, None]
     if cfg.sliding_window > 0:
@@ -189,7 +277,7 @@ def attn_decode(params, x, cfg, cache, pos, page_table=None):
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     bias = torch.where(valid, zero, NEG_INF)[:, None, :]  # (B, 1, cl)
     out = _sdpa_small(q, ck, cv, bias, cfg)
-    return _out_proj(out, params["wo"]), cache
+    return constrain(_out_proj(out, params["wo"]), "batch", None, None), cache
 
 
 def attn_extend(params, x, cfg, cache, pos, page_table):
@@ -224,18 +312,18 @@ def attn_extend(params, x, cfg, cache, pos, page_table):
     pid = torch.gather(page_table, 1, torch.clamp(idx // ps, max=width - 1).long())
     pid = torch.where(idx < extent, pid, kp.shape[0] - 1).long()
     off = (idx % ps).long()
-    kp[pid, off] = k_new.to(kp.dtype)
-    vp[pid, off] = v_new.to(vp.dtype)
+    write_rows(kp, (pid, off), k_new)
+    write_rows(vp, (pid, off), v_new)
     # the logical cache through the table, attended densely (as the
     # reference does: extend runs at admission and verify cadence)
     table = page_table.long()
-    k_full = kp[table].reshape(b, extent, *kp.shape[2:])
-    v_full = vp[table].reshape(b, extent, *vp.shape[2:])
+    k_full = take_rows(kp, table).reshape(b, extent, *kp.shape[2:])
+    v_full = take_rows(vp, table).reshape(b, extent, *vp.shape[2:])
     valid = torch.arange(extent, dtype=torch.int32, device=x.device)[None, None, :] <= idx[:, :, None]
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     bias = torch.where(valid, zero, NEG_INF)  # (B, S, extent)
     out = _sdpa_small(q, k_full, v_full, bias, cfg)
-    return _out_proj(out, params["wo"]), cache
+    return constrain(_out_proj(out, params["wo"]), "batch", None, None), cache
 
 
 def _attn_decode_paged(params, q, k_new, v_new, cfg, cache, posv, page_table):
@@ -262,11 +350,17 @@ def _attn_decode_paged(params, q, k_new, v_new, cfg, cache, posv, page_table):
     off = slot % ps
     # rows re-aimed at the scratch page may write one offset together: that
     # page is never read unmasked, so the order of those writes is moot
-    kp[pid, off] = k_new[:, 0].to(kp.dtype)
-    vp[pid, off] = v_new[:, 0].to(vp.dtype)
-    out = flash_decode(
-        q[:, 0], kp, vp, page_table, posv,
+    write_rows(kp, (pid, off), k_new[:, 0])
+    write_rows(vp, (pid, off), v_new[:, 0])
+    fn = lambda q, kp, vp, table, p: flash_decode(
+        q, kp, vp, table, p,
         window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
         cache_len=cl, backend=cfg.backend_for("decode"),
     )
-    return _out_proj(out, params["wo"])[:, None], cache
+    q = q[:, 0]
+    if is_dtensor(q):
+        qp, pp = _gqa_placements(q, kp, q.device_mesh, k_batch=False)
+        out = on_local_shards("flash_decode", fn, (q, kp, vp, page_table, posv), (qp, pp, pp, None, None), [*qp])
+    else:
+        out = fn(q, kp, vp, page_table, posv)
+    return constrain(_out_proj(out, params["wo"])[:, None], "batch", None, None), cache

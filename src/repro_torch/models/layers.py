@@ -20,6 +20,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.partition import constrain
+
 
 def dense_init(gen: torch.Generator, in_dim: int, out_shape: Tuple[int, ...], dtype, scale: float = 1.0):
     """Fan-in scaled normal; ``out_shape`` may be multi-dim (``(H, hd)``)."""
@@ -62,11 +64,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def swiglu(x, wi, wg, wo):
     h = x @ wi.to(x.dtype)
     g = x @ wg.to(x.dtype)
-    return (h * F.silu(g)) @ wo.to(x.dtype)
+    return constrain(h * F.silu(g), "batch", None, "tp") @ wo.to(x.dtype)
 
 
 def gelu_mlp(x, wi, wo):
-    return F.gelu(x @ wi.to(x.dtype), approximate="tanh") @ wo.to(x.dtype)
+    return constrain(F.gelu(x @ wi.to(x.dtype), approximate="tanh"), "batch", None, "tp") @ wo.to(x.dtype)
 
 
 def init_mlp(gen: torch.Generator, cfg, dtype):

@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.partition import constrain, is_dtensor
+from repro_torch.utils.scan import local_scan
 
 
 def init_mamba(gen: torch.Generator, cfg, dtype):
@@ -119,6 +121,7 @@ def mamba_forward(params, x, cfg, state: Optional[Dict] = None, return_state: bo
     """x: (B, S, d). Returns y (B, S, d) [, the new state]."""
     b, s, _ = x.shape
     xin, z = (x @ params["in_proj"].to(x.dtype)).chunk(2, dim=-1)
+    xin = constrain(xin, "batch", None, "tp")
     conv_state = None if state is None else state["conv"]
     xc, conv_tail = _causal_conv(xin, params["conv"].to(x.dtype), conv_state)
     xc = F.silu(xc)
@@ -129,22 +132,33 @@ def mamba_forward(params, x, cfg, state: Optional[Dict] = None, return_state: bo
         dt, b_ssm, c_ssm, xc = (F.pad(t, (0, 0, 0, pad)) for t in (dt, b_ssm, c_ssm, xc))
     inner, n = a.shape
     h = torch.zeros((b, inner, n), dtype=torch.float32, device=x.device) if state is None else state["h"]
-    remat = torch.is_grad_enabled()
-    ys = []
-    for start in range(0, s + pad, q):
-        blk = tuple(t[:, start : start + q] for t in (dt, b_ssm, c_ssm))
-        xq = xc[:, start : start + q]
-        if remat:
-            # only the chunk-boundary states are kept; the backward pass
-            # recomputes one chunk's (B, Q, inner, N) tensors at a time
-            y, h = checkpoint(_chunk_scan, *blk, a, xq, h, use_reentrant=False, preserve_rng_state=False)
-        else:
-            y, h = _chunk_scan(*blk, a, xq, h)
-        ys.append(y)
-    y = torch.cat(ys, dim=1)[:, :s]
-    y = y + xc[:, :s].float() * params["D"]
+
+    def scan(dt, b_ssm, c_ssm, a, xc, h):
+        remat = torch.is_grad_enabled()
+        ys = []
+        for start in range(0, dt.shape[1], q):
+            blk = tuple(t[:, start : start + q] for t in (dt, b_ssm, c_ssm))
+            xq = xc[:, start : start + q]
+            if remat:
+                # only the chunk-boundary states are kept; the backward pass
+                # recomputes one chunk's (B, Q, inner, N) tensors at a time
+                y, h = checkpoint(_chunk_scan, *blk, a, xq, h, use_reentrant=False, preserve_rng_state=False)
+            else:
+                y, h = _chunk_scan(*blk, a, xq, h)
+            ys.append(y)
+        return torch.cat(ys, dim=1), h
+
+    if is_dtensor(xc):  # each rank scans its own channels
+        chan, row = ("batch", None, "tp"), ("batch", None, None)
+        y, h = local_scan(
+            scan, (dt, b_ssm, c_ssm, a, xc, h), (chan, row, row, ("tp", None), chan, ("batch", "tp", None)),
+            ((dt.shape, chan), (h.shape, ("batch", "tp", None))),
+        )
+    else:
+        y, h = scan(dt, b_ssm, c_ssm, a, xc, h)
+    y = y[:, :s] + xc[:, :s].float() * params["D"]
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ params["out_proj"].to(x.dtype)
+    out = constrain(y @ params["out_proj"].to(x.dtype), "batch", None, None)
     if return_state:
         return out, {"conv": conv_tail, "h": h}
     return out

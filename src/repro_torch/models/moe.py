@@ -25,7 +25,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.dispatch import on_local_shards
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.partition import constrain, is_dtensor
 
 
 def init_moe(gen: torch.Generator, cfg, dtype):
@@ -44,11 +46,25 @@ def _router(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     ``E · Σ_e mean_prob_e · mean_dispatch_e``."""
     e, k = cfg.num_experts, cfg.experts_per_token
     probs = torch.softmax(x.float() @ params["router"].float(), dim=-1)
-    gates, idx = torch.topk(probs, k, dim=-1, sorted=True)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    def route(probs):
+        gates, idx = torch.topk(probs, k, dim=-1, sorted=True)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return gates, idx, torch.bincount(idx.reshape(-1), minlength=e)
+
+    if is_dtensor(probs):
+        # top-k and the expert histogram on each rank's tokens: the counts
+        # are partial sums over the mesh dims the tokens are sharded on
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        pl = [*probs.placements]
+        counts_pl = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+        gates, idx, counts = on_local_shards("moe_dispatch", route, (probs,), (pl,), (pl, pl, counts_pl))
+    else:
+        gates, idx, counts = route(probs)
     me = probs.reshape(-1, e).mean(0)  # mean router prob per expert
     n_tokens = probs.numel() // e
-    fe = torch.bincount(idx.reshape(-1), minlength=e).float() / n_tokens  # tokens dispatched per expert
+    fe = counts.float() / n_tokens  # tokens dispatched per expert
     return gates, idx, e * torch.sum(me * fe)
 
 
@@ -65,16 +81,24 @@ def _positions_in_expert(idx, cfg) -> torch.Tensor:
     """idx (G, S, k) → each token-slot's position in its expert's capacity
     buffer: a cumsum over the S·k slots, tokens first, then their k
     choices."""
-    g, s, k = idx.shape
-    flat = idx.reshape(g, s * k)
-    counts = F.one_hot(flat, cfg.num_experts).cumsum(1)  # (G, S·k, E)
-    return (torch.gather(counts, 2, flat[..., None])[..., 0] - 1).reshape(g, s, k)
+    def positions(idx):
+        g, s, k = idx.shape
+        flat = idx.reshape(g, s * k)
+        counts = F.one_hot(flat, cfg.num_experts).cumsum(1)  # (G, S·k, E)
+        return (torch.gather(counts, 2, flat[..., None])[..., 0] - 1).reshape(g, s, k)
+
+    if is_dtensor(idx):  # per group: local to the rank that holds the group
+        return on_local_shards("moe_dispatch", positions, (idx,), (idx.placements,), [*idx.placements])
+    return positions(idx)
 
 
 def _group(x, cfg, seq_len: int):
     """(B, S, d) → (G, Sg, d) with ``Sg = min(moe_group_size or seq_len,
     B·S)``. Raises where Sg does not divide B·S (the reference's reshape
     fails there too); nothing is regrouped silently."""
+    # routing needs a group's tokens on one rank: batch over data, the
+    # sequence whole
+    x = constrain(x, "batch", None, None)
     b, s, d = x.shape
     sg = min(cfg.moe_group_size or seq_len, b * s)
     if (b * s) % sg:
@@ -111,8 +135,9 @@ def moe_apply_einsum(params, x, cfg):
     c_oh = _one_hot(pos, cap, dt) * keep[..., None]  # (G, Sg, k, C)
     dispatch = torch.einsum("gske,gskc->gsec", e_oh, c_oh)
     combine = torch.einsum("gske,gskc->gsec", e_oh * gates[..., None], c_oh)
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)
-    y = torch.einsum("gecd,gsec->gsd", _experts(params, xe), combine)
+    xe = constrain(torch.einsum("gsec,gsd->gecd", dispatch, xg), None, "experts", None, None)
+    ye = constrain(_experts(params, xe), None, "experts", None, None)
+    y = torch.einsum("gecd,gsec->gsd", ye, combine)
     return y.reshape(b, s, -1), aux
 
 
@@ -132,16 +157,32 @@ def moe_apply_scatter(params, x, cfg):
     cap = _capacity(cfg, sg)
     pos = _positions_in_expert(idx, cfg)
     keep = pos < cap
-    rows = e * cap + 1
     slot = torch.where(keep, idx * cap + pos, e * cap).reshape(g, sg * k)
-    flat = (slot + rows * torch.arange(g, device=x.device)[:, None]).reshape(-1)
-    xk = xg[:, :, None, :].expand(g, sg, k, d).reshape(g * sg * k, d)
-    buf = torch.zeros((g * rows, d), dtype=dt, device=x.device).index_add(0, flat, xk)
-    xe = buf.reshape(g, rows, d)[:, : e * cap].reshape(g, e, cap, d)
-    ye = F.pad(_experts(params, xe).reshape(g, e * cap, d), (0, 0, 0, 1))  # a zero row for the dropped slots
-    yk = torch.gather(ye, 1, slot[..., None].expand(g, sg * k, d))
-    yk = torch.where(keep.reshape(g, sg * k, 1), yk, torch.zeros((), dtype=dt, device=x.device))
-    y = torch.sum(yk.reshape(g, sg, k, d) * gates.to(dt)[..., None], dim=2)
+
+    def fill(xg, slot):
+        g = xg.shape[0]
+        rows = e * cap + 1
+        flat = (slot + rows * torch.arange(g, device=xg.device)[:, None]).reshape(-1)
+        xk = xg[:, :, None, :].expand(g, sg, k, d).reshape(g * sg * k, d)
+        buf = torch.zeros((g * rows, d), dtype=dt, device=xg.device).index_add(0, flat, xk)
+        return buf.reshape(g, rows, d)[:, : e * cap].reshape(g, e, cap, d)
+
+    def read(ye, slot, keep, gates):
+        g = ye.shape[0]
+        ye = F.pad(ye.reshape(g, e * cap, d), (0, 0, 0, 1))  # a zero row for the dropped slots
+        yk = torch.gather(ye, 1, slot[..., None].expand(g, sg * k, d))
+        yk = torch.where(keep.reshape(g, sg * k, 1), yk, torch.zeros((), dtype=dt, device=ye.device))
+        return torch.sum(yk.reshape(g, sg, k, d) * gates.to(dt)[..., None], dim=2)
+
+    if is_dtensor(xg):
+        # the index_add fill and the gather read-back on each rank's groups;
+        # the expert FFN between them runs experts-sharded
+        pl = [*xg.placements]
+        xe = on_local_shards("moe_dispatch", fill, (xg, slot), (pl, pl), pl)
+        ye = constrain(_experts(params, constrain(xe, None, "experts", None, None)), None, "experts", None, None)
+        y = on_local_shards("moe_dispatch", read, (ye, slot, keep, gates), (pl, pl, pl, pl), pl)
+    else:
+        y = read(_experts(params, fill(xg, slot)), slot, keep, gates)
     return y.reshape(b, s, d), aux
 
 

@@ -54,6 +54,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
@@ -61,6 +62,7 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import apply_mlp, dense_init, embed_init, init_mlp, rms_norm
+from repro_torch.sharding.partition import _mesh_axes, constrain, is_dtensor, replicated, whole
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -202,7 +204,9 @@ def cast_weights(params, cfg) -> Dict:
 
 def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     # gather, then cast: the same values as the reference's cast-then-gather
-    return params["embed"]["table"][tokens].to(dtype_of(cfg.dtype))
+    # (an embedding lookup, which DTensor shards by vocab rows; the ids go
+    # in whole, tiny beside the rows they select)
+    return F.embedding(whole(tokens), params["embed"]["table"]).to(dtype_of(cfg.dtype))
 
 
 def _project(x, proj, dtype) -> torch.Tensor:
@@ -219,13 +223,13 @@ def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     vision config is given one."""
     dtype = dtype_of(cfg.dtype)
     if "embeds" in batch:
-        return batch["embeds"].to(dtype)
+        return constrain(batch["embeds"].to(dtype), "batch", "seq", None)
     if cfg.is_encoder_only:
-        return _project(batch["frames"], params["frames_proj"], dtype)
+        return constrain(_project(batch["frames"], params["frames_proj"], dtype), "batch", "seq", None)
     x = embed_tokens(params, cfg, batch["tokens"])
     if cfg.frontend == "vision" and "prefix" in batch:
         x = torch.cat([_project(batch["prefix"], params["prefix_proj"], dtype), x], dim=1)
-    return x
+    return constrain(x, "batch", "seq", None)
 
 
 def head_matrix(params, cfg) -> torch.Tensor:
@@ -241,7 +245,14 @@ def lm_logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
     """Final norm and head in the activation dtype, then cast to the logit
     dtype (f32)."""
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return (x @ head_matrix(params, cfg).to(x.dtype)).to(dtype_of(cfg.logit_dtype))
+    logits = (x @ head_matrix(params, cfg).to(x.dtype)).to(dtype_of(cfg.logit_dtype))
+    # Shard the (B, S, V) logits over the model axis by vocab when it
+    # divides, else by SEQUENCE (granite's odd 49155 vocab), as the
+    # reference does.
+    model = _mesh_axes().get("model", 1)
+    if model > 1 and cfg.vocab_size % model and logits.shape[1] > 1:
+        return constrain(logits, "batch", "seq", None)
+    return constrain(logits, "batch", None, "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +307,7 @@ def _apply_mixer(p, h, cfg, mixer: str, mode: str, cache, pos, page_table):
         return fwd(wp, h, cfg)
     y, new = fwd(wp, h, cfg, state=cache if mode == "decode" else None, return_state=True)
     for leaf, t in new.items():
-        cache[leaf].copy_(t)
+        attn_lib.write_rows(cache[leaf], (slice(None),), t)
     return y
 
 
@@ -358,11 +369,33 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[tor
     labels (B, S) int; ``mask`` (B, S) weights the positions (the mean is
     over its sum, at least 1)."""
     logits = logits.float()
-    nll = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        nll = _nll_sharded(logits, labels)
+    else:
+        nll = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _nll_sharded(logits, labels) -> torch.Tensor:
+    """Per-position NLL (B, S) of DTensor logits: vocab-parallel
+    (``loss_parallel``: the log-sum-exp and the label's logit reduced across
+    the model axis, no rank holding the whole vocab) where the vocab dim is
+    sharded, DTensor's own cross-entropy otherwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.parallel import loss_parallel
+
+    b, s, v = logits.shape
+    flat = logits.reshape(b * s, v)
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in flat.placements]
+    target = replicated(labels.reshape(-1).long(), flat.device_mesh).redistribute(flat.device_mesh, rows)
+    nll = lambda: F.cross_entropy(flat, target, reduction="none")
+    if any(isinstance(p, Shard) and p.dim == 1 for p in flat.placements):
+        with loss_parallel():
+            return nll().reshape(b, s)
+    return nll().reshape(b, s)
 
 
 def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -409,6 +442,18 @@ def init_lm_state(cfg, batch: int, max_seq: int, dtype=None, *, kv_pages: int = 
     return state
 
 
+def shard_lm_state(state):
+    """Apply the decode-state sharding constraints (dense KV caches
+    sequence-sharded, as :func:`repro_torch.sharding.decode_state_specs`
+    places them) to a state's attention caches, as copies. The paged pool
+    leaves have no batch dim and keep their placement. The identity without
+    a mesh."""
+    return {
+        name: constrain(leaf, None, "batch", "seq", None, None) if name in ("k", "v") and leaf.dim() == 5 else leaf
+        for name, leaf in state.items()
+    }
+
+
 def lm_prefill(params, cfg, batch, state, last_index=None):
     """Consume the whole prompt (a VLM's prefix before its tokens), fill
     ``state`` (in place), return the logits (B, 1, V) of position
@@ -433,7 +478,8 @@ def lm_extend(params, cfg, tokens, state, pos, page_table):
     ((B, S, V)) and the state. The primitive behind prefix-cache tail
     prefill (the tokens the splice did not cover; the true last row's
     logits) and speculative verify (every draft's predecessor logits)."""
-    x, _ = _run_blocks(params, cfg, embed_tokens(params, cfg, tokens), "extend", state=state, pos=pos, page_table=page_table)
+    x = constrain(embed_tokens(params, cfg, tokens), "batch", None, None)
+    x, _ = _run_blocks(params, cfg, x, "extend", state=state, pos=pos, page_table=page_table)
     return lm_logits(params, cfg, x), state
 
 
@@ -441,5 +487,6 @@ def lm_decode(params, cfg, token, state, pos, page_table=None):
     """One decode step. token: (B, 1); ``pos``: scalar (absolute) or (B,)
     per-row positions. ``page_table`` ((B, W) int32) switches a paged state
     onto the page-table view. Returns (logits (B, 1, V), state)."""
-    x, _ = _run_blocks(params, cfg, embed_tokens(params, cfg, token), "decode", state=state, pos=pos, page_table=page_table)
+    x = constrain(embed_tokens(params, cfg, token), "batch", None, None)
+    x, _ = _run_blocks(params, cfg, x, "decode", state=state, pos=pos, page_table=page_table)
     return lm_logits(params, cfg, x), state

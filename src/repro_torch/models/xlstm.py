@@ -21,13 +21,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
-from repro_torch.utils.scan import chunked_scan
+from repro_torch.sharding.partition import constrain, is_dtensor
+from repro_torch.utils.scan import chunked_scan, local_scan
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bs i, i ... -> bs ...")``: contract x's last axis with w's
     first, in x's dtype."""
-    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    y = x @ w.to(x.dtype).reshape(w.shape[0], -1)
+    return y.reshape(*y.shape[:-1], *w.shape[1:])
 
 
 def _log_sigmoid(f_pre: torch.Tensor) -> torch.Tensor:
@@ -74,6 +76,7 @@ def mlstm_forward(params, x, cfg, state: Optional[Dict] = None, return_state: bo
     h, inner = cfg.xlstm_heads, cfg.ssm_inner
     hd = inner // h
     xin, z = _mm(x, params["in_proj"]).chunk(2, dim=-1)
+    xin = constrain(xin, "batch", None, "tp")
     scale = 1.0 / torch.tensor(float(hd), device=x.device).sqrt()
     q = _mm(xin, params["wq"]).float() * scale
     k = _mm(xin, params["wk"]).float() * scale
@@ -85,11 +88,19 @@ def mlstm_forward(params, x, cfg, state: Optional[Dict] = None, return_state: bo
     else:
         carry = (state["C"], state["n"], state["m"])
     tfirst = lambda t: t.transpose(0, 1)  # (S, B, ...)
-    (c_f, n_f, m_f), hs = chunked_scan(
-        _mlstm_cell, carry, (tfirst(q), tfirst(k), tfirst(v), tfirst(i_pre), tfirst(f_pre)), chunk=cfg.ssm_chunk
-    )
+    xs = (tfirst(q), tfirst(k), tfirst(v), tfirst(i_pre), tfirst(f_pre))
+    scan = lambda c, n, m, *xs: chunked_scan(_mlstm_cell, (c, n, m), xs, chunk=cfg.ssm_chunk)
+    if is_dtensor(q):  # each rank scans its own heads
+        step, gate = (None, "batch", "heads", None), (None, "batch", "heads")
+        carry_lg = (("batch", "heads", None, None), ("batch", "heads", None), ("batch", "heads"))
+        (c_f, n_f, m_f), hs = local_scan(
+            scan, (*carry, *xs), (*carry_lg, step, step, step, gate, gate),
+            (*((c.shape, lg) for c, lg in zip(carry, carry_lg)), (xs[0].shape, step)),
+        )
+    else:
+        (c_f, n_f, m_f), hs = scan(*carry, *xs)
     hs = hs.transpose(0, 1).reshape(b, s, inner).to(x.dtype)
-    out = (hs * F.silu(z)) @ params["out_proj"].to(x.dtype)
+    out = constrain((hs * F.silu(z)) @ params["out_proj"].to(x.dtype), "batch", None, None)
     if return_state:
         return out, {"C": c_f, "n": n_f, "m": m_f}
     return out
@@ -147,12 +158,21 @@ def slstm_forward(params, x, cfg, state: Optional[Dict] = None, return_state: bo
     if state is None:
         state = init_slstm_state(cfg, b, x.device)
     carry = (state["h"], state["c"], state["n"], state["m"])
-    r = params["r"]
-    (h_f, c_f, n_f, m_f), hs = chunked_scan(
-        lambda cr, w_t: _slstm_cell(r, cr, w_t), carry, wx.transpose(0, 1), chunk=cfg.ssm_chunk
+    scan = lambda r, wx, *carry: chunked_scan(
+        lambda cr, w_t: _slstm_cell(r, cr, w_t), carry, wx, chunk=cfg.ssm_chunk
     )
+    wx = wx.transpose(0, 1)  # (S, B, 4, H, hd)
+    if is_dtensor(wx):  # each rank scans its own heads
+        row = ("batch", "heads", None)
+        carry_lg = (row, row, row, ("batch", "heads"))
+        (h_f, c_f, n_f, m_f), hs = local_scan(
+            scan, (params["r"], wx, *carry), ((None, "heads", None, None), (None, "batch", None, "heads", None), *carry_lg),
+            (*((c.shape, lg) for c, lg in zip(carry, carry_lg)), ((s, b, h, hd), (None, "batch", "heads", None))),
+        )
+    else:
+        (h_f, c_f, n_f, m_f), hs = scan(params["r"], wx, *carry)
     hs = hs.transpose(0, 1).reshape(b, s, d).to(x.dtype)
-    out = hs @ params["out_proj"].to(x.dtype)
+    out = constrain(hs @ params["out_proj"].to(x.dtype), "batch", None, None)
     if return_state:
         return out, {"h": h_f, "c": c_f, "n": n_f, "m": m_f}
     return out

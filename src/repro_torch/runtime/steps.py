@@ -11,6 +11,18 @@ eagerly, so there is nothing to compile.
 
 Every step returns new parameter and optimizer-state trees; metrics are
 device tensors, so a step reads nothing back to the host.
+
+Under a mesh (:func:`repro_torch.sharding.mesh_context`) the train step
+takes DTensor params placed by
+:func:`repro_torch.sharding.partition.shard_params` (FSDP over
+``data``, tensor parallel over ``model``, by
+:func:`repro_torch.sharding.infer_param_specs`) and the optimizer state
+``opt.init`` makes from them, which takes the params' placements (as the
+reference's optimizer state takes its params' specs); it places the batch
+by :func:`repro_torch.sharding.batch_pspec`, brings each gradient to its
+parameter's placements (a reduce-scatter or all-reduce of the partial
+sums; no leaf is gathered whole) and returns the metrics whole on every
+rank.
 """
 from __future__ import annotations
 
@@ -22,7 +34,23 @@ from repro_torch.config.train import TrainConfig
 from repro_torch.core.distributed import coboost_distill_loss
 from repro_torch.models.transformer import lm_decode, lm_loss, lm_prefill
 from repro_torch.optim.optimizers import DTYPES, apply_updates, clip_by_global_norm, make_optimizer
+from repro_torch.sharding.partition import batch_pspec, current_mesh, is_dtensor, to_placements, whole
 from repro_torch.utils.trees import tree_map, value_and_grad
+
+
+def shard_batch(batch, mesh):
+    """Each batch array as a DTensor on ``mesh``, its leading dim over the
+    data axes where it divides (:func:`repro_torch.sharding.batch_pspec`)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return {k: distribute_tensor(v, mesh, to_placements(batch_pspec(v.shape[0], v.dim() - 1), mesh))
+            for k, v in batch.items()}
+
+
+def _as_params(grads, params):
+    """Each DTensor gradient redistributed to its parameter's placements."""
+    return tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements) else g, grads, params)
 
 
 def _finish(opt, tc: TrainConfig, params, opt_state, grads, step_idx):
@@ -53,6 +81,9 @@ def make_train_step(cfg, tc: TrainConfig) -> Callable:
         return loss, metrics, grads
 
     def step(params, opt_state, batch, step_idx):
+        mesh = current_mesh()
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         n = tc.microbatches
         if n > 1:
             if any(v.shape[0] % n for v in batch.values()):
@@ -68,8 +99,10 @@ def make_train_step(cfg, tc: TrainConfig) -> Callable:
             metrics = {"ce": loss}
         else:
             loss, metrics, grads = grads_of(params, batch)
+        if mesh is not None:
+            grads = _as_params(grads, params)
         params, opt_state = _finish(opt, tc, params, opt_state, grads, step_idx)
-        return params, opt_state, dict(metrics, loss=loss)
+        return params, opt_state, {k: whole(v) for k, v in dict(metrics, loss=loss).items()}
 
     step.optimizer = opt
     return step

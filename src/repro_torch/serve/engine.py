@@ -79,24 +79,55 @@ never force a device sync.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.models.attention import take_rows, write_rows
 from repro_torch.models.transformer import group_pattern, init_lm_state, lm_decode, lm_extend, lm_prefill
 from repro_torch.obs import KV_GAUGES, SERVE_ENGINE_METRICS, MetricsRegistry, StatsView
 from repro_torch.serve.kv_pool import KVPool
+from repro_torch.sharding.partition import (
+    mesh_axes_of, mesh_context, place, shard_engine_state, shard_params, whole,
+)
 from repro_torch.utils.trees import tree_map
 
 KV_LAYOUTS = ("paged", "dense")
 
 
+def shard_state(state, mesh):
+    """Place a model/engine state's leaves on ``mesh`` by
+    :func:`~repro_torch.sharding.shard_engine_state` (KV heads and
+    recurrent channels over the model axis); identity without a mesh."""
+    if mesh is None:
+        return state
+    return place(state, shard_engine_state(state, mesh_axes=mesh_axes_of(mesh)), mesh)
+
+
+def device_program(fn):
+    """A worker method's device work runs without autograd: under
+    ``inference_mode`` for a meshless worker, under ``no_grad`` for one on
+    a mesh (DTensor cannot take views of a state made outside inference
+    mode inside it). ``self.mesh`` (or ``self.worker.mesh``) decides."""
+
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        mesh = self.mesh if hasattr(self, "mesh") else self.worker.mesh
+        with torch.inference_mode() if mesh is None else torch.no_grad():
+            return fn(self, *args, **kwargs)
+
+    return run
+
+
 def sample_tokens(logits: torch.Tensor, gen: Optional[torch.Generator], temperature: float) -> torch.Tensor:
     """On-device sampling. logits: (B, V) -> (B,) int32. ``temperature <= 0``
     is greedy (argmax, first index on ties); otherwise temperature-scaled
-    categorical from ``gen``."""
+    categorical from ``gen``. Sharded logits are made whole first, so every
+    rank samples the same tokens."""
+    logits = whole(logits)
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
@@ -301,9 +332,10 @@ class PrefillWorker:
     a staging pool bounding in-flight handoff pages."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig, *, stats: Optional[StatsView] = None,
-                 registry: Optional[MetricsRegistry] = None, replica: int = 0):
+                 registry: Optional[MetricsRegistry] = None, replica: int = 0, mesh=None):
         self.cfg = cfg
         self.ecfg = ecfg
+        self.mesh = mesh
         self.params = params
         self.device = _device_of(params)
         self.layout = engine_layout(cfg, ecfg)
@@ -320,13 +352,14 @@ class PrefillWorker:
     def bucket_len(self, prompt_len: int) -> int:
         return bucket_len(self.cfg, self.ecfg, prompt_len)
 
-    @torch.inference_mode()
+    @device_program
     def _prefill(self, tokens: torch.Tensor, true_lens: torch.Tensor):
         """Prefill N prompts, sample their first tokens, seal the KV."""
         cfg, e = self.cfg, self.ecfg
         n = tokens.shape[0]
-        st1 = init_lm_state(cfg, n, e.max_seq, device=self.device)
-        logits, st1 = lm_prefill(self.params, cfg, {"tokens": tokens}, st1, last_index=true_lens - 1)
+        st1 = shard_state(init_lm_state(cfg, n, e.max_seq, device=self.device), self.mesh)
+        with mesh_context(self.mesh):
+            logits, st1 = lm_prefill(self.params, cfg, {"tokens": tokens}, st1, last_index=true_lens - 1)
         toks0 = sample_tokens(logits[:, 0], self._gen, e.temperature)  # (N,)
         if self.layout != "paged":
             return st1, toks0
@@ -389,9 +422,10 @@ class DecodeWorker:
     :class:`repro_torch.serve.spec_decode.SpecDecoder`."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig, *, stats: Optional[StatsView] = None,
-                 registry: Optional[MetricsRegistry] = None, drafter=None, replica: int = 0):
+                 registry: Optional[MetricsRegistry] = None, drafter=None, replica: int = 0, mesh=None):
         self.cfg = cfg
         self.ecfg = ecfg
+        self.mesh = mesh
         self.params = params
         self.device = _device_of(params)
         self.layout = engine_layout(cfg, ecfg)
@@ -415,7 +449,7 @@ class DecodeWorker:
 
     # -- device programs ----------------------------------------------------
 
-    @torch.inference_mode()
+    @device_program
     def _cow(self, src: torch.Tensor, dst: torch.Tensor) -> None:
         """Copy-on-write, device half: duplicate pages ``src`` (M,) into
         ``dst`` (M,) on every layer's page buffers ((L, P, page, KH, hd)).
@@ -424,9 +458,9 @@ class DecodeWorker:
         whose write order is moot."""
         for name in ("k_pages", "v_pages"):
             big = self._state.kv[name]
-            big[:, dst] = big[:, src]
+            write_rows(big, (slice(None), dst), take_rows(big, (slice(None), src)))
 
-    @torch.inference_mode()
+    @device_program
     def _splice(self, tokens, slot: int, start: int, last_idx: int, budget: int, true_len: int,
                 table_row, cow_src, cow_dst) -> None:
         """One hot-prefix admission: the copy-on-write page duplicate
@@ -438,7 +472,8 @@ class DecodeWorker:
         self._cow(cow_src, cow_dst)
         ds.page_table[slot] = table_row
         start_v = torch.full((1,), start, dtype=torch.int32, device=self.device)
-        logits, _ = lm_extend(self.params, self.cfg, tokens, ds.kv, start_v, table_row[None, :])
+        with mesh_context(self.mesh):
+            logits, _ = lm_extend(self.params, self.cfg, tokens, ds.kv, start_v, table_row[None, :])
         tok0 = sample_tokens(logits[:, last_idx], self._gen, self.ecfg.temperature)[0]
         ds.last_tok[slot, 0] = tok0
         ds.pos[slot] = true_len
@@ -448,7 +483,7 @@ class DecodeWorker:
         ds.n_out[slot] = 1
         ds.budget[slot] = budget
 
-    @torch.inference_mode()
+    @device_program
     def _adopt(self, sealed, toks0, slots, true_lens, budgets, table_rows, page_ids) -> None:
         """Ingest one sealed burst: data movement only. Paged: the sealed
         page units land in this worker's pool at the ids its pool assigned
@@ -460,9 +495,9 @@ class DecodeWorker:
         for name, rows in sealed.items():
             big = ds.kv[name]
             if name in ("k_pages", "v_pages"):
-                big[:, page_ids] = rows.to(big.dtype)  # (L_attn, P, ps, KH, hd)
+                write_rows(big, (slice(None), page_ids), rows)  # (L_attn, P, ps, KH, hd)
             else:
-                big[:, slots] = rows.to(big.dtype)
+                write_rows(big, (slice(None), slots), rows)
         if self.layout == "paged":
             ds.page_table[slots] = table_rows
         ds.last_tok[slots, 0] = toks0
@@ -473,7 +508,7 @@ class DecodeWorker:
         ds.n_out[slots] = 1
         ds.budget[slots] = budgets
 
-    @torch.inference_mode()
+    @device_program
     def _chunk(self, steps: int) -> None:
         """``steps`` batched decode steps, on the device only: no value is
         read back, so the host never waits inside a chunk."""
@@ -481,9 +516,10 @@ class DecodeWorker:
         rows = torch.arange(e.max_slots, device=self.device)
         paged = self.layout == "paged"
         for _ in range(steps):
-            logits, _ = lm_decode(
-                self.params, cfg, s.last_tok, s.kv, s.pos, page_table=s.page_table if paged else None
-            )
+            with mesh_context(self.mesh):
+                logits, _ = lm_decode(
+                    self.params, cfg, s.last_tok, s.kv, s.pos, page_table=s.page_table if paged else None
+                )
             nxt = sample_tokens(logits[:, -1], self._gen, e.temperature)
             write = s.active & (s.n_out < e.max_new)
             idx = torch.clamp(s.n_out, max=e.max_new - 1).long()
@@ -537,7 +573,7 @@ class DecodeWorker:
             table0 = torch.zeros((e.max_slots, 1), dtype=torch.int32, device=dev)
         zeros = lambda *shape, dtype=torch.int32: torch.zeros(shape, dtype=dtype, device=dev)
         self._state = DecodeState(
-            kv=kv,
+            kv=shard_state(kv, self.mesh),
             last_tok=zeros(e.max_slots, 1),
             pos=zeros(e.max_slots),
             active=zeros(e.max_slots, dtype=torch.bool),
@@ -945,7 +981,7 @@ class ServeEngine:
     pages across to the decode worker's pool. Either way admission runs the
     same programs."""
 
-    def __init__(self, cfg, params, ecfg: EngineConfig, *, prefill_device=None, drafter=None,
+    def __init__(self, cfg, params, ecfg: EngineConfig, *, mesh=None, prefill_device=None, drafter=None,
                  registry: Optional[MetricsRegistry] = None, replica: int = 0):
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only: nothing to decode")
@@ -955,9 +991,21 @@ class ServeEngine:
                 "the slot engine does not thread through admission yet; serve "
                 "vlm archs with the static batch path"
             )
+        if mesh is not None:
+            if prefill_device is not None:
+                raise ValueError(
+                    "a sharded engine colocates its prefill and decode workers on its mesh: "
+                    "the disaggregated pair over mesh halves is ROADMAP A.7b"
+                )
+            # the reference's _shard_params: distributed whenever a mesh is
+            # given, a 1x1 mesh included
+            params = shard_params(params, mesh)
+            if drafter is not None:
+                drafter = (drafter[0], shard_params(drafter[1], mesh))
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
+        self.mesh = mesh
         self.layout = engine_layout(cfg, ecfg)
         self.replica = replica
         self.stats: StatsView = _fresh_stats(registry, replica)
@@ -980,8 +1028,8 @@ class ServeEngine:
                 dev = torch.device("cuda", torch.cuda.current_device())
             if dev != _device_of(params):
                 prefill_params = tree_map(lambda t: t.to(dev), params)
-        self.prefill = PrefillWorker(cfg, prefill_params, ecfg, stats=self.stats, replica=replica)
-        self.decode = DecodeWorker(cfg, params, ecfg, stats=self.stats, drafter=drafter, replica=replica)
+        self.prefill = PrefillWorker(cfg, prefill_params, ecfg, stats=self.stats, replica=replica, mesh=mesh)
+        self.decode = DecodeWorker(cfg, params, ecfg, stats=self.stats, drafter=drafter, replica=replica, mesh=mesh)
 
     # -- delegation (the device state lives on the workers) -----------------
 

@@ -43,7 +43,10 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.models.attention import write_rows
 from repro_torch.models.transformer import group_pattern, init_lm_state, lm_decode, lm_extend, lm_prefill
+from repro_torch.serve.engine import device_program, shard_state
+from repro_torch.sharding.partition import mesh_context, whole
 
 
 class SpecDecoder:
@@ -89,29 +92,34 @@ class SpecDecoder:
         device counters ``[proposed, accepted, steps]`` and the prefill
         count."""
         w = self.worker
-        self._draft = init_lm_state(self.dcfg, w.ecfg.max_slots, w.ecfg.max_seq, device=w.device)
+        # the drafter's dense cache shards by the same k, v suffix rules as
+        # the target's dense engine state
+        draft = init_lm_state(self.dcfg, w.ecfg.max_slots, w.ecfg.max_seq, device=w.device)
+        self._draft = shard_state({"draft": draft}, w.mesh)["draft"]
         self._counts = torch.zeros(3, dtype=torch.int32, device=w.device)
         # the drafter's prefills since reset, each one forward of the
         # drafter over a bucket-padded admission group
         self.prefill_dispatches = 0
 
-    @torch.inference_mode()
+    @device_program
     def on_admit(self, slots: List[int], token_rows: np.ndarray, true_lens) -> None:
         """Prefill the drafter's cache rows for an admitted group. The
         drafter shares no pages: it always consumes the full (bucket-padded)
         prompt, even when the target spliced its prefix. Pad positions past
         each true length are overwritten by drafting before they are
         attended."""
-        dev = self.worker.device
+        w = self.worker
+        dev = w.device
         tokens = torch.as_tensor(np.asarray(token_rows, np.int32), device=dev)
-        st1 = init_lm_state(self.dcfg, tokens.shape[0], self.worker.ecfg.max_seq, device=dev)
-        lm_prefill(self.dparams, self.dcfg, {"tokens": tokens}, st1)
+        st1 = shard_state(init_lm_state(self.dcfg, tokens.shape[0], w.ecfg.max_seq, device=dev), w.mesh)
+        with mesh_context(w.mesh):
+            lm_prefill(self.dparams, self.dcfg, {"tokens": tokens}, st1)
         rows = torch.as_tensor(slots, dtype=torch.long, device=dev)
         for name, big in self._draft.items():
-            big[:, rows] = st1[name].to(big.dtype)
+            write_rows(big, (slice(None), rows), st1[name])
         self.prefill_dispatches += 1
 
-    @torch.inference_mode()
+    @device_program
     def chunk(self, rounds: int) -> None:
         """``rounds`` draft→verify rounds, on the device only. Each round:
         the drafter greedily unrolls k tokens from the batch's last tokens,
@@ -129,21 +137,24 @@ class SpecDecoder:
                 # along, rewriting their frozen position in their own rows
                 dt, dpos, drafts = s.last_tok, s.pos, []
                 for _ in range(k):
-                    dlog, _ = lm_decode(self.dparams, dcfg, dt, d, dpos)
-                    nxt = torch.argmax(dlog[:, -1], dim=-1).to(torch.int32)
+                    with mesh_context(w.mesh):
+                        dlog, _ = lm_decode(self.dparams, dcfg, dt, d, dpos)
+                    nxt = torch.argmax(whole(dlog[:, -1]), dim=-1).to(torch.int32)
                     drafts.append(nxt)
                     dt, dpos = nxt[:, None], dpos + 1
                 # one more cache fill: when every draft and the bonus token
                 # are accepted, the next round resumes at pos+k+1, and
                 # position pos+k (token d_k) must already be in the cache
-                lm_decode(self.dparams, dcfg, dt, d, dpos)
+                with mesh_context(w.mesh):
+                    lm_decode(self.dparams, dcfg, dt, d, dpos)
                 dmat = torch.stack(drafts, dim=1)  # (S, k)
                 # 2) verify: one target forward over [last_tok, d_1..d_k] at
                 # pos..pos+k; tgt[:, j] is the target's greedy choice after
                 # x[:, :j+1], what the plain engine would have sampled
                 x = torch.cat([s.last_tok, dmat], dim=1)  # (S, k+1)
-                vlog, _ = lm_extend(w.params, cfg, x, s.kv, s.pos, s.page_table)
-                tgt = torch.argmax(vlog, dim=-1).to(torch.int32)  # (S, k+1)
+                with mesh_context(w.mesh):
+                    vlog, _ = lm_extend(w.params, cfg, x, s.kv, s.pos, s.page_table)
+                tgt = torch.argmax(whole(vlog), dim=-1).to(torch.int32)  # (S, k+1)
                 match = (dmat == tgt[:, :k]).to(torch.int32)
                 n_acc = torch.cumprod(match, dim=1).sum(dim=1)  # (S,) in [0, k]
                 act = s.active

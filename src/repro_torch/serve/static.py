@@ -16,10 +16,10 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models.transformer import init_lm_state, lm_decode, lm_prefill
-from repro_torch.serve.engine import sample_tokens
+from repro_torch.serve.engine import sample_tokens, shard_state
+from repro_torch.sharding.partition import mesh_context
 
 
-@torch.inference_mode()
 def static_generate(
     params,
     cfg,
@@ -29,14 +29,22 @@ def static_generate(
     temperature: float = 0.0,
     max_seq: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """``batch["tokens"]``: (B, L) int; a VLM's ``batch["prefix"]``: (B, P,
-    frontend_dim). Returns (B, gen) int32 on the tokens' device."""
+    frontend_dim). Returns (B, gen) int32 on the tokens' device. With a
+    ``mesh``, ``params`` are DTensors on it (``engine.shard_params``) and
+    the cache is placed by the engine state's rules."""
+    with torch.inference_mode() if mesh is None else torch.no_grad(), mesh_context(mesh):
+        return _generate(params, cfg, batch, gen, temperature, max_seq, generator, mesh)
+
+
+def _generate(params, cfg, batch, gen, temperature, max_seq, generator, mesh) -> torch.Tensor:
     tokens = batch["tokens"]
     b, prompt_len = tokens.shape
     prefix = batch["prefix"].shape[1] if "prefix" in batch else 0
     base = prompt_len + prefix  # the first decode position
-    state = init_lm_state(cfg, b, (max_seq or (prompt_len + gen)) + prefix, device=tokens.device)
+    state = shard_state(init_lm_state(cfg, b, (max_seq or (prompt_len + gen)) + prefix, device=tokens.device), mesh)
     logits, state = lm_prefill(params, cfg, batch, state)
     tok = sample_tokens(logits[:, -1], generator, temperature)
     out = [tok]

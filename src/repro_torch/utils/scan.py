@@ -62,3 +62,23 @@ def chunked_scan(cell: Callable, carry: Any, xs: Any, chunk: int, use_checkpoint
     if isinstance(ys[0], tuple):
         return carry, tuple(torch.cat(parts) for parts in zip(*ys))
     return carry, torch.cat(ys)
+
+
+def local_scan(fn: Callable, args, in_logical, out_logical):
+    """``fn(*args)`` for a recurrence over DTensor ``args`` (the Mamba,
+    mLSTM and sLSTM scans), run on each rank's local shards: a step's ops
+    are per channel or per head, so each rank scans its own channels or
+    heads with no communication. ``in_logical`` gives each argument's
+    logical axes and ``out_logical`` each (flattened) output's as
+    ``(shape, logical)``; the placements come from
+    :func:`repro_torch.sharding.partition.logical_placements`, so inputs
+    and outputs that share a dim share its split."""
+    from repro_torch.kernels.dispatch import on_local_shards
+    from repro_torch.sharding.partition import logical_placements, replicated
+
+    mesh = next(a.device_mesh for a in args if hasattr(a, "device_mesh"))
+    # a plain argument (a zero initial carry) is the same on every rank
+    args = tuple(replicated(a, mesh) for a in args)
+    in_pl = [logical_placements(a.shape, lg, mesh) for a, lg in zip(args, in_logical)]
+    out_pl = tuple(logical_placements(shape, lg, mesh) for shape, lg in out_logical)
+    return on_local_shards("recurrent_scan", fn, args, in_pl, out_pl)
