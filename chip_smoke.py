@@ -238,7 +238,8 @@ result line):
    and one ``lm_prefill`` of 128 tokens at batch 1 and 8 (ms per prompt
    token on the host clock; the device's idle share, profiled). Then
    ``launch.train`` in bf16 under remat at batch 8 x 256 (two scan chunks
-   of 128; s/step, tok/s, peak memory, finite losses), and one f32
+   of 128), 2 steps (s/step and tok/s of the second, peak memory, finite
+   losses), and one f32
    ``lm_loss`` step at batch 2 x 256 with ``chunked_scan``'s chunk
    checkpoint on and off: the same loss, every gradient within 1e-6 of
    its leaf's largest, each arm's peak memory printed. Then
@@ -285,13 +286,35 @@ result line):
    meshless engine's on every position, and #5 and #8 ran through the
    ``local_map`` route (both counters and the route's calls above 0).
    Then bf16 through ``launch.serve.run_continuous`` at phase 5's
-   settings, meshless and sharded in turns (meshless, sharded, sharded,
-   meshless): tok/s of each, printed, not gated. Last the train step at
-   full width under the 1×1 mesh: 3 AdamW steps in f32 on 8 × 256
-   tokens, its losses within 1e-5 relative of the meshless step's; then
-   bf16 s/step in turns with the meshless step, #5–#7 launched through
-   the route. DTensor places every leaf whole on one card, so the phase
-   shows the route's host cost, not a split.
+   settings, meshless then sharded: tok/s of each, printed, not gated.
+   Last the train step at full width under the 1×1 mesh: 3 AdamW steps
+   in f32 on 8 × 256 tokens, its losses within 1e-5 relative of the
+   meshless step's; then bf16 s/step, meshless then sharded, #5–#7
+   launched through the route. DTensor places every leaf whole on one
+   card, so the phase shows the route's host cost, not a split.
+5i. The sharded fleet's pieces one card can run (a world of one; a
+   multi-rank split needs one card a rank, so it is held on the CPU by
+   gloo ranks, ``tests/test_torch_mesh_fleet.py``). (a) The cross-mesh
+   pair: smollm-135m at full width in f32 (head ×10), paged, 4 requests ×
+   16 tokens, ``ServeEngine(mesh=d, prefill_mesh=p)`` on two distinct
+   1×1 meshes over this rank, so that every admission takes the
+   cross-mesh handoff (the sealed burst's bytes in one broadcast, placed
+   by the decode worker's specs): its tokens equal the colocated meshless
+   engine's before each request's first near-tie (as in phase 5c),
+   ``handoffs`` above 0, #5 and #8 through the ``local_map`` route. (b)
+   ``launch.serve`` in bf16 on a world of one, 8 requests, prompt 128, 16
+   new tokens: ``--mesh multipod --replicas 1`` (2 colocated replicas,
+   each admitting) and ``--disagg`` (a colocated pair): every request
+   returns its tokens. (c) Co-Boosting on phase 4's market (2 epochs)
+   under ``mesh_context`` of the 1×1 mesh, the grouped bank's client
+   axis split as it always is under a mesh, against the meshless run on the same seed,
+   both on cuDNN's deterministic algorithms: #1–#4 launch exactly as
+   meshless, every forward through ``on_local_shards`` (the route's
+   ``ensemble_kl`` and ``ghm_ce`` calls equal #1's and #3's launches, the
+   bank's above 0); ``w`` within 1e-6, the server's and the generator's
+   parameters within 1e-5; a second meshless run gives the first one's
+   bits; s/epoch of the sharded run and of the second meshless run
+   printed, with the card's name and power limit.
 5b. Telemetry (``repro_torch.obs``): phase 4's Co-Boosting run, then
    phase 5's serving run, each through its launcher with
    ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
@@ -310,7 +333,7 @@ result line):
    Printed, not fatal: s/epoch (the ``ofl.epoch`` spans after the first)
    with telemetry on, unprofiled against profiled (the profiler's cost),
    and serving tok/s with telemetry off and on (metrics and spans, no
-   profiler) in turns off, on, on, off, with each side's median.
+   profiler), one turn each, off then on.
 6. LM training path: one step of smollm-135m at full width, whose
    gradients through the kernels are held against plain autograd: in f32
    through the CUDA-core kernels (the largest gap relative to each leaf's
@@ -333,8 +356,10 @@ result line):
    every epoch, ``w`` summing to 1, and both backward kernels launched (DHS
    differentiates the clients, distillation the server), all on the
    tensor cores.
-8. Summary: a ``kernels: {...}`` line, the JSON kernel table, and last the
-   ``{"ok": true, "device": {...}}`` line.
+8. Summary: a ``phase seconds: {...}`` line (every phase above, in the
+   order run), a ``kernels: {...}`` line (with phase 5i's launches of
+   #1–#4 on the mesh and its ``local_map`` calls), the JSON kernel table,
+   and last the ``{"ok": true, "device": {...}}`` line.
 """
 from __future__ import annotations
 
@@ -445,12 +470,17 @@ INTERNLM2_LAYERS = 4
 # that the three Algorithm 1 phase ranges must cover (phase 5b)
 PHASE_COVERAGE = 0.9
 # phase 5h: the sharded engine and train step under the 1x1 mesh
-MESH_TURNS = ("meshless", "sharded", "sharded", "meshless")
+MESH_TURNS = ("meshless", "sharded")
 MESH_TRAIN = dict(batch=8, seq=256, steps=3)
+# phase 5i: the cross-mesh pair (f32, full width), the launcher's fleet on a
+# world of one (bf16), Co-Boosting on phase 4's market under the 1x1 mesh
+FLEET_PAIR = dict(requests=4, gen=16)
+FLEET_LAUNCH = dict(requests=8, prompt=128, gen=16)
+MESH_COBOOST = dict(epochs=2)
 # phase 5b's serving runs with telemetry off and on (metrics and spans), in
-# turns: host-bound tok/s spreads between runs, so each side runs twice (not
-# more: the whole script has to stay inside its time limit)
-SERVE_TURNS = ("off", "on", "on", "off")
+# turns: host-bound tok/s spreads between runs, and one turn a side is all
+# the script's time limit leaves room for
+SERVE_TURNS = ("off", "on")
 # LM training: smollm-135m at full width, under remat (the config's default:
 # the attention forward launches twice a layer a step, its forward and its
 # recompute in the backward pass)
@@ -468,7 +498,7 @@ REMAT_MIXTRAL = dict(layers=2, batch=2, seq=256)
 # scan chunks of 128) and the chunk-checkpoint check at batch 2; jamba's f32
 # engine check cut to one interleave group of 8 layers (13.3 B parameters,
 # 53.2 GB), at an ample capacity factor (E / k) on ragged prompts
-RECURRENT_TRAIN = dict(batch=8, seq=256, steps=3, check_batch=2)
+RECURRENT_TRAIN = dict(batch=8, seq=256, steps=2, check_batch=2)
 RECURRENT_JAMBA = dict(layers=8, factor=8.0, lens=(128, 97, 113, 77))
 # phase 5g and its phase-2 shapes: hubert-xlarge (16/16 heads, hd 80, non-causal) at the f32 check's
 # 4 x 500 frames (10 s of audio at 20 ms a frame), phi-3-vision-4.2b (32/32, hd 96, causal) at the
@@ -3323,6 +3353,192 @@ def mesh_path(card):
     print(f"mesh phase (5h): {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 5i
+
+
+def _cross_mesh_pair(card):
+    """(a) ``ServeEngine(mesh=d, prefill_mesh=p)`` on two distinct 1x1
+    meshes over this rank: every admission takes the cross-mesh handoff
+    (one broadcast over the ranks of both meshes, a group of one here).
+    Full width in f32, 4 requests x 16 tokens: the colocated meshless
+    engine's tokens before each request's first near-tie, handoffs above 0,
+    #5 and #8 through the local route."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.config.registry import get_arch
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.dispatch import LOCAL_MAP_CALLS, reset_local_map_calls
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_arch("smollm-135m").replace(dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    params["embed"]["table"] *= 10.0
+    n, gen, prompt = FLEET_PAIR["requests"], FLEET_PAIR["gen"], SERVE["prompt"]
+    tokens = make_token_stream(1, cfg.vocab_size, n, prompt)["tokens"]
+    reqs = [Request(rid=i, tokens=tokens[i], max_new_tokens=gen) for i in range(n)]
+    ecfg = EngineConfig(max_slots=n, max_seq=prompt + gen, max_new=gen, page_size=SERVE["page"], kv_layout="paged")
+
+    def run(**kw):
+        eng = ServeEngine(cfg, params, ecfg, **kw)
+        comps = ContinuousScheduler(eng, clock=ManualClock()).run(reqs)
+        return {c.rid: c.tokens for c in comps}, dict(eng.stats)
+
+    want, _ = run()
+    meshes = [DeviceMesh("cuda", torch.tensor([[0]]), mesh_dim_names=("data", "model")) for _ in range(2)]
+    reset_launch_counts()
+    reset_local_map_calls()
+    got, stats = run(mesh=meshes[1], prefill_mesh=meshes[0])
+    counts, route = launch_counts(), dict(LOCAL_MAP_CALLS)
+    gates, margin = _cold_gates(params, cfg, reqs, want, where="cross-mesh pair f32")
+    if not all(np.array_equal(got[i][: gates[i]], want[i][: gates[i]]) for i in range(n)):
+        fail(f"cross-mesh pair f32: tokens {[got[i].tolist() for i in range(n)]} != colocated meshless engine "
+             f"{[want[i].tolist() for i in range(n)]} (compared before positions {gates})")
+    if stats["handoffs"] == 0:
+        fail(f"cross-mesh pair f32: no handoff in {stats}")
+    for name, key in (("flash_attention_fwd", "flash_attention"), ("flash_decode", "flash_decode")):
+        if counts[name] == 0 or route[key] == 0:
+            fail(f"cross-mesh pair f32: {name} launched {counts[name]} times, {route[key]} calls on the local route")
+    equal = sum(int(np.array_equal(got[i], want[i])) for i in range(n))
+    print(f"cross-mesh pair f32 (two 1x1 meshes, {card}): tokens equal to the colocated meshless engine's before "
+          f"each first near-tie (compared {sum(gates.values())} of {n * gen} positions, smallest margin "
+          f"{margin:.3e}; {equal}/{n} requests equal at every position); {stats['handoffs']} handoffs, "
+          f"{stats['prefill_dispatches']} prefills; launches {json.dumps({k: counts[k] for k in ATTN_KERNELS})}, "
+          f"local_map calls {json.dumps(route)}", flush=True)
+    del params
+
+
+def _fleet_world_of_one(card):
+    """(b) ``launch.serve --mesh multipod --replicas 1`` and ``--disagg``
+    in bf16 on a world of one: the replicas and the pair colocate meshless;
+    every request returns its tokens, multipod serves on 2 replicas."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    base = [*SERVE_ARGV[: SERVE_ARGV.index("--requests")], "--requests", str(FLEET_LAUNCH["requests"]),
+            "--prompt-len", str(FLEET_LAUNCH["prompt"]), "--gen", str(FLEET_LAUNCH["gen"]),
+            "--max-slots", str(SERVE["slots"]), "--page-size", str(SERVE["page"]), "--device", "cuda"]
+    for flags, replicas in ((["--mesh", "multipod", "--replicas", "1"], 2), (["--disagg"], 1)):
+        result = serve.main(base + flags)
+        torch.cuda.synchronize()
+        comps = result["completions"]
+        where = f"fleet launcher bf16 {' '.join(flags)}"
+        if len(comps) != FLEET_LAUNCH["requests"] or any(len(c.tokens) != FLEET_LAUNCH["gen"] for c in comps):
+            fail(f"{where}: expected {FLEET_LAUNCH['requests']} completions of {FLEET_LAUNCH['gen']} tokens")
+        if len(result["replicas"]) != replicas or min(r["admitted"] for r in result["replicas"]) == 0:
+            fail(f"{where}: replicas {result['replicas']}, want {replicas} that each admit")
+        print(f"{where} ({card}): {json.dumps(_serve_summary(result))}; per replica (admitted, prefills, handoffs) "
+              f"{[(r['admitted'], r['prefill_dispatches'], r['handoffs']) for r in result['replicas']]}", flush=True)
+
+
+def _coboost_on_mesh(host, card):
+    """(c) Co-Boosting on phase 4's market under the 1x1 mesh, the grouped
+    bank's client axis split as it always is under a mesh: #1–#4 through
+    the local route as often as meshless, the ensembling weights, server and
+    generator within 1e-6 / 1e-5 of the meshless run on the same seed, both
+    runs on cuDNN's deterministic algorithms (a second meshless run, timed
+    after the sharded one, must give the first one's bits)."""
+    from functools import partial
+
+    import torch
+
+    from repro_torch.core.coboosting import default_image_setup, run_coboosting
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.dispatch import LOCAL_MAP_CALLS, reset_local_map_calls
+    from repro_torch.launch import ofl
+    from repro_torch.models.cnn import cnn_apply, init_cnn
+    from repro_torch.sharding import mesh_context
+    from repro_torch.utils.device import disable_tf32
+    from repro_torch.utils.prng import Draws
+    from repro_torch.utils.trees import tree_leaves
+
+    dev = torch.device("cuda")
+    disable_tf32()
+    args = ofl.parse_args(OFL_ARGV[: OFL_ARGV.index("--epochs")] + ["--epochs", str(MESH_COBOOST["epochs"])]
+                          + OFL_ARGV[OFL_ARGV.index("--epochs") + 2 :])
+    run = ofl.prepare_run(args, dev)
+
+    def coboost(mesh):
+        g = torch.Generator(device=dev).manual_seed(args.seed + 77)
+        server = init_cnn(g, args.server_arch, args.classes, run.image_shape)
+        g.manual_seed(args.seed + 5)
+        gen_apply, gen = default_image_setup(g, run.cfg, args.classes, run.image_shape)
+        reset_launch_counts()
+        reset_local_map_calls()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mesh_context(mesh):
+            st = run_coboosting(run.applies, run.params, partial(cnn_apply, args.server_arch), server,
+                                gen_apply, gen, run.cfg, args.classes, Draws(args.seed, dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return st, wall / args.epochs, {n: launch_counts()[n] for n in LOSS_KERNELS}, dict(LOCAL_MAP_CALLS)
+
+    # cuDNN's deterministic algorithms for both runs, so that the gates
+    # see the route and not the convolutions' run-to-run spread, which the
+    # chaotic f32 epoch amplifies (0.03 of a server parameter after 2
+    # epochs without them, NVIDIA H100 80GB HBM3)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, _, plain_counts, _ = coboost(None)  # the reference, and the warm-up
+        sharded, sharded_s, counts, route = coboost(host)
+        again, plain_s, _, _ = coboost(None)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if not torch.equal(again.weights, plain.weights) or any(
+            not torch.equal(a, b) for a, b in zip(tree_leaves(again.server_params), tree_leaves(plain.server_params))):
+        fail("Co-Boosting meshless: two runs on the same seed differ with cuDNN's deterministic algorithms")
+    if counts != plain_counts or min(counts.values()) == 0:
+        fail(f"Co-Boosting on the mesh: loss-kernel launches {counts}, meshless {plain_counts}")
+    if route["ensemble_kl"] != counts["ensemble_kl_fwd"] or route["ghm_ce"] != counts["ghm_ce_fwd"] \
+            or route["client_bank"] == 0:
+        fail(f"Co-Boosting on the mesh: local_map calls {route} against launches {counts}")
+    gaps = {
+        "w": float((sharded.weights - plain.weights).abs().max()),
+        "server": max(float((a - b).abs().max()) for a, b in zip(tree_leaves(sharded.server_params),
+                                                                  tree_leaves(plain.server_params))),
+        "generator": max(float((a - b).abs().max()) for a, b in zip(tree_leaves(sharded.gen_params),
+                                                                    tree_leaves(plain.gen_params))),
+    }
+    print(f"Co-Boosting on the 1x1 mesh, phase 4's market, {args.epochs} epochs, cuDNN deterministic ({card}): "
+          f"s/epoch {sharded_s:.4f} (meshless {plain_s:.4f}); largest gaps to the meshless run {json.dumps(gaps)}; launches "
+          f"{json.dumps(counts)}; local_map calls {json.dumps(route)}", flush=True)
+    if gaps["w"] > 1e-6 or gaps["server"] > 1e-5 or gaps["generator"] > 1e-5:
+        fail(f"Co-Boosting on the mesh: gaps {gaps} beyond 1e-6 (w) / 1e-5 (server, generator)")
+    return counts, route
+
+
+def fleet_path(card):
+    """Phase 5i: the sharded fleet's pieces that one card can run, as a
+    world of one."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        if init_distributed("cuda", init_method=f"file://{tmp}/rendezvous") != 1:
+            fail("fleet phase: expected a world of one")
+        _cross_mesh_pair(card)
+        _free()
+        _fleet_world_of_one(card)
+        _free()
+        counts, route = _coboost_on_mesh(make_host_mesh("cuda"), card)
+        _free()
+        dist.destroy_process_group()
+    print(f"fleet phase (5i): {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts, route
+
+
 def _telemetry_flags(tmp, stem, profile=True):
     flags = ["--metrics-out", f"{tmp}/{stem}.jsonl", "--trace-out", f"{tmp}/{stem}.json"]
     return flags + (["--profile-dir", f"{tmp}/{stem}_prof"] if profile else [])
@@ -3408,10 +3624,8 @@ def _serving_telemetry(tmp, serve_counts, serve_stats):
     for turn, side in enumerate(SERVE_TURNS):
         flags = _telemetry_flags(tmp, f"serve_turn{turn}", profile=False) if side == "on" else []
         tok_s[side].append(serve.main(SERVE_ARGV + flags)["tok_per_s"])
-    med = {side: sorted(v)[len(v) // 2 - 1: len(v) // 2 + 1] for side, v in tok_s.items()}
     print(f"telemetry, serving tok/s in turns {','.join(SERVE_TURNS)}: off {json.dumps(tok_s['off'])}, "
-          f"on {json.dumps(tok_s['on'])}; medians off {sum(med['off']) / 2:.1f}, on {sum(med['on']) / 2:.1f}",
-          flush=True)
+          f"on {json.dumps(tok_s['on'])}", flush=True)
 
     reset_launch_counts()
     result = serve.main(SERVE_ARGV + _telemetry_flags(tmp, "serve"))
@@ -3561,36 +3775,51 @@ def lm_distill_path():
 def main() -> None:
     import torch
 
-    card = environment()
-    errs, timing = kernels_vs_plain()
-    attn_errs, attn_timing = attention_kernels_vs_plain()
+    seconds = {}
+
+    def phase(name, fn, *args):
+        """Run one phase, keeping its seconds for the summary line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = phase("1", environment)
+    errs, timing = phase("2 loss", kernels_vs_plain)
+    attn_errs, attn_timing = phase("2 attention", attention_kernels_vs_plain)
     errs.update(attn_errs)
     timing.update(attn_timing)
-    bwd_errs, bwd_timing = attention_bwd_kernels_vs_plain()
+    bwd_errs, bwd_timing = phase("2 attention bwd", attention_bwd_kernels_vs_plain)
     errs.update(bwd_errs)
     timing.update(bwd_timing)
-    small_input_agreement()
-    lm_small_input_agreement()
-    counts, coboost = main_path()
-    baselines_path(coboost)
-    bank_path({n: counts[n] for n in LOSS_KERNELS})
-    serving_parity_f32()
-    serving, serve_stats = serving_path()
-    prefix_spec_f32()
-    prefix_spec_path()
-    granite = rest_of_serving_path(card)
-    moe_qk_norm_path(card)
-    recurrent_path(card)
-    modality_path(card)
-    mesh_path(card)
-    telemetry_path({n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
+    phase("3", small_input_agreement)
+    phase("3 lm", lm_small_input_agreement)
+    counts, coboost = phase("4", main_path)
+    phase("4b", baselines_path, coboost)
+    phase("4c", bank_path, {n: counts[n] for n in LOSS_KERNELS})
+    phase("5 f32", serving_parity_f32)
+    serving, serve_stats = phase("5", serving_path)
+    phase("5c f32", prefix_spec_f32)
+    phase("5c", prefix_spec_path)
+    granite = phase("5d", rest_of_serving_path, card)
+    phase("5e", moe_qk_norm_path, card)
+    phase("5f", recurrent_path, card)
+    phase("5g", modality_path, card)
+    phase("5h", mesh_path, card)
+    mesh_counts, mesh_route = phase("5i", fleet_path, card)
+    phase("5b", telemetry_path, {n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
-    counts.update(lm_training_path())
+    counts.update(phase("6", lm_training_path))
     print(f"flash_attention_fwd launches: serving path {serving['flash_attention_fwd']} (tensor cores "
           f"{serving['flash_attention_fwd_sm90']}), granite-3-2b serving {granite['flash_attention_fwd']}, LM training path {counts['flash_attention_fwd']} (tensor cores "
           f"{counts['flash_attention_fwd_sm90']}; the table's)", flush=True)
-    lm_distill_path()
-    print("kernels: " + json.dumps({n: {"launches": counts[n], "max_abs_err": errs[n]} for n in REPLACES}))
+    phase("7", lm_distill_path)
+    print(f"phase seconds: {json.dumps(seconds)}; total {sum(seconds.values()):.1f}", flush=True)
+    print("kernels: " + json.dumps({
+        n: {"launches": counts[n], "max_abs_err": errs[n],
+            **({"launches_on_the_mesh": mesh_counts[n]} if n in mesh_counts else {})}
+        for n in REPLACES
+    }) + f"; phase 5i local_map calls {json.dumps(mesh_route)}")
     table = [
         {
             "name": n, "route": ROUTES[n], "source": SOURCES[n], "replaces": REPLACES[n],

@@ -19,6 +19,21 @@ over vmapped chunks of that many clients, bounding live activations to
 (chunk, B, ...) instead of (group, B, ...). The last chunk may be short
 (the reference pads it only because ``lax.scan`` needs static shapes).
 
+Under a mesh each group's client axis splits over the data axes of the
+mesh in context (:func:`repro_torch.sharding.mesh_context`;
+the ``clients`` logical axis maps to ``("pod", "data")``), as the
+reference's ``_constrain_clients`` does; without a mesh it does nothing.
+The divisibility rule is the reference's (``resolve_rule``): a group whose
+client count the data axes do not divide stays whole on every rank (K=5
+over data 2). ``torch.func.vmap`` does not take DTensors, so a group runs
+its vmapped forward on each rank's own clients through
+:func:`repro_torch.kernels.dispatch.on_local_shards` (counted under
+``"client_bank"``): the stacked params split ``Shard(0)``, the input
+``Replicate`` (its gradient comes back a partial sum over the ranks,
+then whole), the logits ``Shard(0)``. The loss kernels take such a stack
+as it comes (:mod:`repro_torch.kernels.ensemble_kl`,
+:mod:`repro_torch.kernels.ghm_ce`).
+
 Outputs are cast to the ensemble dtype (f32) at this boundary, so a bf16
 client next to f32 ones gives an f32 stack. The stacked parameters are
 detached: gradients flow to the input (generator, DHS) through the vmapped
@@ -38,6 +53,8 @@ import torch
 
 from repro_torch.config.train import ENSEMBLE_IMPLS
 from repro_torch.core.ensemble import ENSEMBLE_DTYPE, make_logits_all
+from repro_torch.kernels.dispatch import on_local_shards
+from repro_torch.sharding.partition import constrain, current_mesh, replicated
 from repro_torch.utils.trees import flatten_dict, tree_leaves, tree_map, tree_stack, tree_unstack, vmap_dims
 
 
@@ -66,6 +83,13 @@ def _params_key(params: Any) -> Any:
         (path, ("tensor", tuple(leaf.shape), str(leaf.dtype)) if torch.is_tensor(leaf) else ("value", leaf))
         for path, leaf in flatten_dict(params).items()
     )
+
+
+def _constrain_clients(tree: Any) -> Any:
+    """Split the leading (client) axis of a stacked group tree over the
+    data axes of the mesh in context (tensor leaves; a block's ``"stride"``
+    int is kept)."""
+    return tree_map(lambda l: constrain(l, "clients", *([None] * (l.dim() - 1))), tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,24 +157,43 @@ class ClientBank:
 
     # -- forward ------------------------------------------------------------
 
-    def _group_logits(self, g: int, stacked: Any, x: torch.Tensor) -> torch.Tensor:
-        """One group's (n_g, B, C) client logits: one vmapped forward, or a
-        loop over vmapped chunks when the group outgrows ``scan_chunk``.
-        ``x`` goes to every client as a stride-0 view, so the first layer is
-        a grouped convolution like the rest and the input gradient comes
-        back per client and is summed over the clients, as in the loop (a
-        shared ``x`` would sum the clients inside the first convolution's
-        data gradient, in another order)."""
-        n, c = self.counts[g], self.scan_chunk
+    def _forward(self, g: int, stacked: Any, x: torch.Tensor) -> torch.Tensor:
+        """The (n, B, C) logits of the n clients of group ``g`` stacked in
+        ``stacked``: one vmapped forward, or a loop over vmapped chunks when
+        they outgrow ``scan_chunk``. ``x`` goes to every client as a
+        stride-0 view, so the first layer is a grouped convolution like the
+        rest and the input gradient comes back per client and is summed
+        over the clients, as in the loop (a shared ``x`` would sum the
+        clients inside the first convolution's data gradient, in another
+        order)."""
+        n, c = tree_leaves(stacked)[0].shape[0], self.scan_chunk
         fwd = torch.func.vmap(self.applies[g], in_dims=(vmap_dims(stacked), 0))
         if c <= 0 or n <= c:
-            out = fwd(stacked, x.expand(n, *x.shape))
-        else:
-            out = torch.cat([
-                fwd(tree_map(lambda l, i=i: l[i : i + c], stacked), x.expand(min(c, n - i), *x.shape))
-                for i in range(0, n, c)
-            ])
-        return out.to(ENSEMBLE_DTYPE)
+            return fwd(stacked, x.expand(n, *x.shape))
+        return torch.cat([
+            fwd(tree_map(lambda l, i=i: l[i : i + c], stacked), x.expand(min(c, n - i), *x.shape))
+            for i in range(0, n, c)
+        ])
+
+    def _group_logits(self, g: int, stacked: Any, x: torch.Tensor) -> torch.Tensor:
+        """One group's (n_g, B, C) client logits; under a mesh each rank
+        runs its own clients and the logits are a DTensor split like the
+        clients."""
+        mesh = current_mesh()
+        if mesh is None:
+            return self._forward(g, stacked, x).to(ENSEMBLE_DTYPE)
+        stacked = _constrain_clients(stacked)
+        leaves = tree_leaves(stacked)
+        placements = leaves[0].placements  # every leaf's client axis splits alike
+
+        def local(x_local, *local_leaves):
+            it = iter(local_leaves)
+            return self._forward(g, tree_map(lambda _: next(it), stacked), x_local)
+
+        xd = replicated(x, mesh)
+        out = on_local_shards("client_bank", local, (xd, *leaves), (xd.placements, *[placements] * len(leaves)),
+                              [*placements])
+        return _constrain_clients(out.to(ENSEMBLE_DTYPE))
 
     def logits_all(self, bank_params: Tuple[Any, ...], x: torch.Tensor) -> torch.Tensor:
         """f(bank_params, x) -> (K, B, C) stacked client logits in client

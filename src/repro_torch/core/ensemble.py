@@ -14,6 +14,8 @@ from typing import Any, Callable, List, Sequence
 
 import torch
 
+from repro_torch.sharding.partition import is_dtensor, replicated
+
 # The stack dtype every consumer of logits_all sees.
 ENSEMBLE_DTYPE = torch.float32
 
@@ -33,5 +35,11 @@ def make_logits_all(apply_fns: List[Callable]) -> Callable:
 
 
 def ensemble_logits(logits_all: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """A_w(x) = Σ_k w_k f_k(x). logits_all: (K, B, C); w: (K,)."""
+    """A_w(x) = Σ_k w_k f_k(x). logits_all: (K, B, C); w: (K,). A stack
+    split over the clients (a DTensor, the grouped bank's under a mesh)
+    gives a partial sum on each rank, made whole: a plain tensor, the same
+    on every rank, for the plain generator and DHS that read it."""
+    if is_dtensor(logits_all):
+        w = replicated(w.float(), logits_all.device_mesh)
+        return torch.einsum("k,k...->...", w, logits_all.float()).full_tensor()
     return torch.einsum("k,k...->...", w.float(), logits_all.float())

@@ -110,6 +110,9 @@ LOCAL_MAP_CALLS = {
     "page_gather": 0,  # the page-table view of a paged pool
     "moe_dispatch": 0,  # routing, capacity positions and the index_add fill
     "recurrent_scan": 0,  # the Mamba, mLSTM and sLSTM recurrences
+    "client_bank": 0,  # a client group's vmapped forward on each rank's own clients
+    "ensemble_kl": 0,  # kernels #1 and #2 on each rank's rows of a sharded client stack
+    "ghm_ce": 0,  # kernels #3 and #4, the same
 }
 
 
@@ -141,3 +144,29 @@ def on_local_shards(op: str, fn, args, in_placements, out_placements):
     )
     return local_map(fn, out_placements=out_placements, in_placements=in_placements,
                      in_grad_placements=grad_placements, redistribute_inputs=True)(*args)
+
+
+def on_row_split(op: str, fn, stack, per_row, w):
+    """A loss kernel (#1–#4) on a client stack ``stack`` (K, B, V) that is
+    a DTensor, e.g. the grouped bank's logits split over the clients: every
+    row needs all K clients, so the stack is redistributed from its client
+    split to a split of the B rows over the data axes (whole where they do
+    not divide B), and ``fn(stack, *per_row, w)`` runs on each rank's rows
+    with K whole (``on_local_shards``, counted under ``op``). ``per_row``
+    ((B, ...) tensors: the student's logits, the labels) and ``w`` (K,) are
+    plain tensors every rank holds whole. The per-row output, split
+    ``Shard(0)``, is made whole, so the caller (the server, the generator)
+    sees a plain tensor; through it every cotangent comes back whole and
+    equal on every rank: the stack's split as it came, the rows'
+    gathered, and ``w``'s a partial sum over the ranks, reduced."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.partition import logical_placements, replicated
+
+    mesh = stack.device_mesh
+    rows = logical_placements((stack.shape[1],), ("batch",), mesh)
+    stack_rows = tuple(Shard(1) if isinstance(p, Shard) else p for p in rows)
+    args = [stack] + [replicated(t, mesh) for t in per_row] + [replicated(w, mesh)]
+    whole = (Replicate(),) * mesh.ndim
+    out = on_local_shards(op, fn, args, (stack_rows, *([rows] * len(per_row)), whole), [*rows])
+    return out.full_tensor()

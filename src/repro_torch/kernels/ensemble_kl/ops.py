@@ -10,14 +10,20 @@ distillation (Eq. 4) and the generator's adversarial term (Eq. 7); the
 client cotangent reaches the generator through the client CNNs; on the
 Co-Boosting path nothing differentiates ``w`` through this op. ``"ref"`` is plain autograd of
 :func:`ensemble_kl_ref`.
+
+A client stack that is a DTensor (the grouped bank's logits under a mesh)
+takes the same kernels on each rank's rows, the K clients whole
+(:func:`repro_torch.kernels.dispatch.on_row_split`); the output comes back
+whole on every rank.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import resolve
+from repro_torch.kernels.dispatch import on_row_split, resolve
 from repro_torch.kernels.ensemble_kl.kernel import ensemble_kl_bwd, ensemble_kl_fwd
 from repro_torch.kernels.ensemble_kl.ref import ensemble_kl_ref
+from repro_torch.sharding.partition import is_dtensor
 
 
 class EnsembleKL(torch.autograd.Function):
@@ -46,8 +52,13 @@ def ensemble_kl(
     backend: str = "auto",
 ) -> torch.Tensor:
     """Per-sample KL(A_w ‖ student)·T², shape (B,). client_logits: (K, B, V)."""
-    if resolve("loss", backend, client_logits.device) == "ref":
-        return ensemble_kl_ref(client_logits, student_logits, w, temperature)
-    return EnsembleKL.apply(
-        client_logits.contiguous(), student_logits.contiguous(), w.contiguous(), float(temperature)
-    )
+    ref = resolve("loss", backend, client_logits.device) == "ref"
+
+    def local(cl, st, w):
+        if ref:
+            return ensemble_kl_ref(cl, st, w, temperature)
+        return EnsembleKL.apply(cl.contiguous(), st.contiguous(), w.contiguous(), float(temperature))
+
+    if is_dtensor(client_logits):
+        return on_row_split("ensemble_kl", local, client_logits, (student_logits,), w)
+    return local(client_logits, student_logits, w)

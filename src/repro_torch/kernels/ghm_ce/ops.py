@@ -7,7 +7,11 @@ label logit ``ly`` as residuals, and whose backward is the backward kernel,
 emitting only the cotangents autograd asks for (``ctx.needs_input_grad``):
 the client cotangent for the generator's steps (Eq. 6), the ``w``
 cotangent for the EE step (Eq. 12); labels are integer and get none.
-``"ref"`` is plain autograd of :func:`ghm_ce_ref`.
+``"ref"`` is plain autograd of :func:`ghm_ce_ref`. A client stack that is
+a DTensor takes the same kernels on each rank's rows, the K clients whole
+(:func:`repro_torch.kernels.dispatch.on_row_split`): the output comes back
+whole on every rank, and so does the ``w`` cotangent (a partial sum over
+the ranks, reduced).
 
 With ``t = A_w``, ``p = softmax(t)``, ``p_y`` the label probability,
 ``nll`` the CE and ``e`` the one-hot label, d(out)/dt is ``coeff·(p − e)``:
@@ -20,9 +24,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import resolve
+from repro_torch.kernels.dispatch import on_row_split, resolve
 from repro_torch.kernels.ghm_ce.kernel import ghm_ce_bwd, ghm_ce_fwd
 from repro_torch.kernels.ghm_ce.ref import ghm_ce_ref
+from repro_torch.sharding.partition import is_dtensor
 
 
 class GhmCE(torch.autograd.Function):
@@ -54,9 +59,14 @@ def ghm_ce(
     stop_difficulty_grad: bool = False,
 ) -> torch.Tensor:
     """Per-sample difficulty-weighted CE of the weighted ensemble (Eq. 6)."""
-    if resolve("loss", backend, client_logits.device) == "ref":
-        return ghm_ce_ref(client_logits, labels, w, weighted, stop_difficulty_grad)
-    return GhmCE.apply(
-        client_logits.contiguous(), labels.contiguous(), w.contiguous(),
-        bool(weighted), bool(stop_difficulty_grad),
-    )
+    ref = resolve("loss", backend, client_logits.device) == "ref"
+
+    def local(cl, labels, w):
+        if ref:
+            return ghm_ce_ref(cl, labels, w, weighted, stop_difficulty_grad)
+        return GhmCE.apply(cl.contiguous(), labels.contiguous(), w.contiguous(), bool(weighted),
+                           bool(stop_difficulty_grad))
+
+    if is_dtensor(client_logits):
+        return on_row_split("ghm_ce", local, client_logits, (labels,), w)
+    return local(client_logits, labels, w)

@@ -27,12 +27,15 @@ from repro_torch.sharding.partition import mesh_context
 
 __all__ = [
     "disagg_submeshes",
+    "group_over",
     "init_distributed",
     "launcher_mesh",
     "make_fleet_mesh",
     "make_host_mesh",
     "make_production_mesh",
     "mesh_context",
+    "mesh_ranks",
+    "on_this_rank",
     "replica_meshes",
     "world_size",
 ]
@@ -44,6 +47,41 @@ def world_size() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def mesh_ranks(mesh) -> tuple:
+    """The global ranks a ``DeviceMesh`` spans, ascending (``()`` for
+    None)."""
+    if mesh is None:
+        return ()
+    return tuple(sorted(int(r) for r in mesh.mesh.flatten().tolist()))
+
+
+def on_this_rank(mesh) -> bool:
+    """Whether this process holds a shard of ``mesh`` (always, for None):
+    a rank outside a mesh builds what lives there, for the host
+    bookkeeping every rank shares, but runs none of its device work."""
+    return mesh is None or mesh.get_coordinate() is not None
+
+
+_GROUPS: dict = {"world": None}
+
+
+def group_over(ranks: Sequence[int]):
+    """A process group over ``ranks`` (global ranks): None, the default
+    group, when they are the whole world; otherwise a group made once per
+    rank set and process group, by its members only
+    (``use_local_synchronization``), so disjoint rank sets can make theirs
+    concurrently. Every member must ask for it in the same order."""
+    ranks = tuple(sorted(int(r) for r in ranks))
+    if ranks == tuple(range(dist.get_world_size())):
+        return None
+    if _GROUPS["world"] is not dist.group.WORLD:  # a new process group: the old groups are gone
+        _GROUPS.clear()
+        _GROUPS["world"] = dist.group.WORLD
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = dist.new_group(list(ranks), use_local_synchronization=True)
+    return _GROUPS[ranks]
 
 
 def init_distributed(device, init_method: Optional[str] = None) -> int:

@@ -29,6 +29,10 @@ engine (default) or the static-batch baseline, on the GPU.
     # params and KV tensor-parallel over "model" (DTensors)
     torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.serve --mesh production
 
+    # a sharded fleet: 2 replicas over 4 ranks, each replica's prefill and
+    # decode workers on one rank each behind the router every rank runs
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --replicas 2 --disagg
+
     # a VLM (phi-3-vision-4.2b) serves through the static path only, with
     # a seeded prefix of 576 patch embeddings before each prompt
     python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --engine static \
@@ -42,9 +46,17 @@ makes it). An encoder-only arch (hubert-xlarge) has nothing to decode and
 is refused. ``--mesh host`` (the default) serves on one device without a
 mesh; ``--mesh production`` runs one engine (or the static batch) sharded
 over the 16x16 mesh of a 256-rank ``torchrun`` world and exits, before any
-allocation, in any other world. ``--mesh multipod`` with the continuous
-engine, several replicas over a mesh, and ``--disagg`` are the fleet work
-of ROADMAP A.7b and exit with that message. Full width serves in the
+allocation, in any other world. A fleet (more than one effective replica,
+or ``--disagg``; ``--mesh multipod`` doubles ``--replicas``, one replica
+group a pod) takes no global mesh, as the reference's: in a world of
+several ranks with several replicas, whatever ``--mesh`` names, each
+replica shards its engine over its slice of
+``make_fleet_mesh(replicas)`` (``--disagg`` halves each slice into its
+prefill and decode workers' meshes) and every rank runs the router, which
+shares the clock and the readbacks; in a world of one the replicas and
+the pair colocate meshless on the device. ``--mesh multipod`` static
+serving is refused, and so are ``--disagg`` with the dense layout or with
+an arch without attention. Full width serves in the
 config's bf16 activations with f32 params; ``--reduced`` runs the reduced
 variant in f32, as the JAX launcher does. Runs on ``cuda`` unless
 ``--device cpu`` is given. Arguments are checked, and the engine and KV
@@ -71,7 +83,9 @@ from repro_torch.config.model import reduced_variant
 from repro_torch.config.registry import get_arch
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels.dispatch import KERNEL_BACKENDS
-from repro_torch.launch.mesh import launcher_mesh
+from repro_torch.launch.mesh import (
+    disagg_submeshes, init_distributed, launcher_mesh, make_fleet_mesh, replica_meshes, world_size,
+)
 from repro_torch.models.transformer import cast_weights, group_pattern, init_lm
 from repro_torch.serve import (
     ContinuousScheduler,
@@ -119,7 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host: one device, no mesh; production: one engine sharded over the 16x16 mesh of a "
                         "256-rank torchrun world")
     p.add_argument("--disagg", action="store_true",
-                   help="disaggregated prefill/decode over mesh halves (ROADMAP A.7b: not ported yet)")
+                   help="disaggregated prefill/decode: each replica's mesh slice split into a prefill half "
+                        "and a decode half, sealed KV pages handed across (paged layout only; on one "
+                        "device the pair colocates)")
     p.add_argument("--kv-layout", default="paged", choices=("paged", "dense"),
                    help="paged: KVPool + flash-decode; dense: per-slot rectangle + SDPA")
     p.add_argument("--page-size", type=int, default=16, help="tokens per KV page (power of two)")
@@ -217,22 +233,15 @@ def validate_args(args, cfg) -> None:
             "replication). Use --engine continuous, which runs one engine "
             "replica group per pod behind the fleet router."
         )
-    if args.disagg or args.mesh == "multipod" or (args.mesh != "host" and args.replicas > 1):
-        raise SystemExit(
-            "--disagg, --mesh multipod serving and --replicas over a mesh are the sharded "
-            "fleet of ROADMAP A.7b (a router every rank shares, the cross-mesh handoff), "
-            "not ported yet: serve one engine with --mesh production, or the meshless "
-            "fleet with --mesh host"
-        )
     if args.prompt_len < 1 or args.gen < 1:
         raise SystemExit(f"--prompt-len ({args.prompt_len}) and --gen ({args.gen}) must be >= 1")
     if args.profile and args.profile_dir:
         raise SystemExit("--profile and --profile-dir each run torch.profiler, and one process runs one: pick one")
     if args.replicas < 1:
         raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
-    if args.replicas > 1 and args.engine != "continuous":
+    if (args.replicas > 1 or args.disagg) and args.engine != "continuous":
         raise SystemExit(
-            "--replicas describes the continuous serving fleet; the static "
+            "--replicas/--disagg describe the continuous serving fleet; the static "
             "baseline is a single fused program. Use --engine continuous."
         )
     if args.engine == "static":
@@ -251,6 +260,12 @@ def validate_args(args, cfg) -> None:
             raise SystemExit(f"{flag} must be >= {low}, got {value}")
     if args.request_rate < 0:
         raise SystemExit(f"--request-rate must be >= 0, got {args.request_rate}")
+    if args.disagg and args.kv_layout == "dense":
+        raise SystemExit(
+            "--disagg requires --kv-layout paged: the prefill->decode handoff moves sealed "
+            "KV PAGES between worker pools, and the dense per-slot rectangle has no page "
+            "units to hand off."
+        )
     if args.prefix_cache and args.kv_layout == "dense":
         raise SystemExit(
             "--prefix-cache requires --kv-layout paged: prefix sharing IS page-table "
@@ -302,6 +317,11 @@ def validate_args(args, cfg) -> None:
             )
     try:
         ecfg = continuous_engine_config(args)
+        if args.disagg and engine_layout(cfg, ecfg) != "paged":
+            raise ValueError(
+                f"{cfg.name} has no attention layers: its serving state degrades to the dense "
+                "layout, which has no page units to hand off — --disagg needs an attention arch."
+            )
         if engine_layout(cfg, ecfg) == "paged":  # an arch without attention runs dense
             KVPool(cfg, ecfg)
     except ValueError as ex:
@@ -331,13 +351,32 @@ def run_static(args, cfg, params, device, mesh=None) -> dict:
     return {"tokens": float(toks), "wall_s": dt, "tok_per_s": toks / max(dt, 1e-9), "sample": out[0].tolist()}
 
 
+def effective_replicas(args) -> int:
+    """``--mesh multipod`` serves one fleet a pod: a decode engine is a
+    single-pod program (the pod axis is the slow boundary), so each of the
+    two pods carries its own replica group behind the shared router."""
+    return args.replicas * (2 if args.mesh == "multipod" else 1)
+
+
+def is_fleet(args) -> bool:
+    """A continuous run with several effective replicas or ``--disagg``:
+    the replicas place themselves, with no global mesh."""
+    return args.engine == "continuous" and (effective_replicas(args) > 1 or args.disagg)
+
+
 def build_fleet(args, cfg, params, mesh=None) -> list:
-    """The engine replicas, ids 0..N-1, on the parameters' device: on one
-    device the replicas colocate (their own pools and slots, one device),
-    as the reference's do meshless. One drafter (``--spec-decode``) serves
-    every replica; with ``--metrics-out`` every replica's stats land in the
-    process-global registry under its replica label, without it each
-    engine keeps its private always-on registry."""
+    """The engine replicas, ids 0..N-1 (N = :func:`effective_replicas`).
+    In a world of several ranks with several replicas each replica shards
+    over its slice of ``make_fleet_mesh(N)`` (the world's ranks split
+    ``replicas × (data=1) × model``), and ``--disagg`` halves each slice
+    into its prefill and decode workers' meshes (``disagg_submeshes``; a
+    one-rank slice colocates); otherwise every replica sits on ``mesh``
+    (None: the parameters' device; on one device the replicas colocate,
+    with their own pools and slots, as the reference's do). One drafter
+    (``--spec-decode``) serves every replica; with ``--metrics-out`` every
+    replica's stats land in the process-global registry under its replica
+    label, without it each engine keeps its private always-on registry."""
+    replicas = effective_replicas(args)
     ecfg = continuous_engine_config(args)
     drafter = None
     if args.spec_decode:
@@ -346,8 +385,17 @@ def build_fleet(args, cfg, params, mesh=None) -> list:
         gen = torch.Generator(device=device).manual_seed(args.seed + 1)
         drafter = (dcfg, cast_weights(init_lm(dcfg, gen), dcfg))
     registry = obs.registry() if args.metrics_out else None
-    return [ServeEngine(cfg, params, ecfg, mesh=mesh, drafter=drafter, registry=registry, replica=i)
-            for i in range(args.replicas)]
+    if world_size() > 1 and replicas > 1:
+        device_type = params["embed"]["table"].device.type
+        subs = replica_meshes(make_fleet_mesh(replicas, device_type=device_type))
+    else:
+        subs = [mesh] * replicas
+    engines = []
+    for i, sub in enumerate(subs):
+        pmesh, dmesh = disagg_submeshes(sub) if args.disagg and sub is not None else (sub, sub)
+        engines.append(ServeEngine(cfg, params, ecfg, mesh=dmesh, prefill_mesh=pmesh, drafter=drafter,
+                                   registry=registry, replica=i))
+    return engines
 
 
 def run_continuous(args, cfg, params, mesh=None) -> dict:
@@ -380,9 +428,9 @@ def run_continuous(args, cfg, params, mesh=None) -> dict:
         wall = time.perf_counter() - t0
     s = latency_summary(completions, wall)
     log.info(
-        "fleet[%d]: %d reqs, %d tokens in %.3fs (%.1f tok/s) "
+        "fleet[%d%s]: %d reqs, %d tokens in %.3fs (%.1f tok/s) "
         "p50=%.3fs p95=%.3fs queue-wait p50=%.3fs p95=%.3fs",
-        len(engines), len(completions), int(s["tokens"]), wall, s["tok_per_s"],
+        len(engines), "+disagg" if args.disagg else "", len(completions), int(s["tokens"]), wall, s["tok_per_s"],
         s["p50_s"], s["p95_s"], s["queue_wait_p50_s"], s["queue_wait_p95_s"],
     )
     for i, eng in enumerate(engines):
@@ -441,7 +489,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         profile_dir=args.profile_dir,
         device=device,
     )
-    mesh = launcher_mesh(args.mesh, device)  # None for host; exits on a wrong world first
+    if is_fleet(args):
+        # no global mesh: each replica shards against its own slice of the
+        # world (build_fleet), which needs the process group under torchrun
+        if world_size() > 1:
+            init_distributed(device)
+        mesh = None
+    else:
+        mesh = launcher_mesh(args.mesh, device)  # None for host; exits on a wrong world first
     # weights in the activation dtype once, not at every step
     params = cast_weights(init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed)), cfg)
     if args.engine == "static":

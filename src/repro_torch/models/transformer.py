@@ -220,16 +220,22 @@ def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     cast to the activation dtype with no token embedding; for an encoder,
     the projected ``batch["frames"]``; else the embedded
     ``batch["tokens"]``, after the projected ``batch["prefix"]`` where a
-    vision config is given one."""
+    vision config is given one.
+
+    The reference constrains it to ``("batch", "seq", None)``; here the
+    sequence stays whole on every rank: every projection flattens (B, S)
+    into a matmul's rows, which DTensor cannot do from a sequence split
+    without a gather (torch 2.11 refuses the op outright), and the kernels
+    take whole sequences anyway."""
     dtype = dtype_of(cfg.dtype)
     if "embeds" in batch:
-        return constrain(batch["embeds"].to(dtype), "batch", "seq", None)
+        return constrain(batch["embeds"].to(dtype), "batch", None, None)
     if cfg.is_encoder_only:
-        return constrain(_project(batch["frames"], params["frames_proj"], dtype), "batch", "seq", None)
+        return constrain(_project(batch["frames"], params["frames_proj"], dtype), "batch", None, None)
     x = embed_tokens(params, cfg, batch["tokens"])
     if cfg.frontend == "vision" and "prefix" in batch:
         x = torch.cat([_project(batch["prefix"], params["prefix_proj"], dtype), x], dim=1)
-    return constrain(x, "batch", "seq", None)
+    return constrain(x, "batch", None, None)
 
 
 def head_matrix(params, cfg) -> torch.Tensor:

@@ -24,14 +24,25 @@ handoff.
 
 Because adoption is data movement, a request prefilled by one worker can
 land on another worker's pool than the one it decodes from: that is the
-disaggregation seam. ``ServeEngine(..., prefill_device=...)`` places the
-prefill worker, with its own copy of the parameters, on another device
-than the decode worker (the reference's ``prefill_mesh``; paged only,
-since the dense per-slot rectangle has no page units to hand off);
-``adopt`` then copies the sealed pages across under the ``serve.handoff``
-span. Unset, the pair colocates on the parameters' device. It runs the
-same programs either way, so the colocated engine is the disaggregated
-pair's parity oracle by construction.
+disaggregation seam. ``ServeEngine(..., mesh=d, prefill_mesh=p)`` places
+the prefill worker on mesh ``p`` and the decode worker on mesh ``d`` (the
+reference's, paged only, since the dense per-slot rectangle has no page
+units to hand off); the halves are disjoint rank sets, so ``adopt`` sends
+each sealed burst whole from ``p`` to ``d`` in one broadcast and places it
+by the decode worker's own specs. ``ServeEngine(..., prefill_device=...)``
+is the meshless pair: the prefill worker on another device of the same
+process. Either transport runs under the ``serve.handoff`` span. Unset,
+the pair colocates. It runs the same programs either way, so the
+colocated engine is the disaggregated pair's parity oracle by
+construction.
+
+Multi-controller: every rank builds every worker (mesh groups are made
+collectively, and a fleet's router needs every replica's bookkeeping),
+but a worker runs its device work only on the ranks of its own mesh
+(:func:`device_program`); elsewhere it keeps the host state (slots,
+pages, budgets), which advances from the readbacks the router shares
+(:meth:`DecodeWorker.head` into :meth:`DecodeWorker.advance`, the finished
+slots' rows into :meth:`DecodeWorker.hold`).
 
 The reference runs a chunk as one ``lax.while_loop`` dispatch. Here a
 chunk is a Python loop of device ops that never reads the device: finished
@@ -80,6 +91,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -89,9 +101,10 @@ from repro_torch import obs
 from repro_torch.models.attention import take_rows, write_rows
 from repro_torch.models.transformer import group_pattern, init_lm_state, lm_decode, lm_extend, lm_prefill
 from repro_torch.obs import KV_GAUGES, SERVE_ENGINE_METRICS, MetricsRegistry, StatsView
+from repro_torch.launch.mesh import group_over, mesh_ranks, on_this_rank
 from repro_torch.serve.kv_pool import KVPool
 from repro_torch.sharding.partition import (
-    mesh_axes_of, mesh_context, place, shard_engine_state, shard_params, whole,
+    mesh_axes_of, mesh_context, place, shard_engine_state, shard_params, shard_whole, whole,
 )
 from repro_torch.utils.trees import tree_map
 
@@ -111,12 +124,16 @@ def device_program(fn):
     """A worker method's device work runs without autograd: under
     ``inference_mode`` for a meshless worker, under ``no_grad`` for one on
     a mesh (DTensor cannot take views of a state made outside inference
-    mode inside it). ``self.mesh`` (or ``self.worker.mesh``) decides."""
+    mode inside it). ``self.mesh`` (or ``self.worker.mesh``) decides. On a
+    rank outside the worker's mesh the method does nothing and returns
+    None: that rank keeps only the worker's host bookkeeping."""
 
     @functools.wraps(fn)
     def run(self, *args, **kwargs):
-        mesh = self.mesh if hasattr(self, "mesh") else self.worker.mesh
-        with torch.inference_mode() if mesh is None else torch.no_grad():
+        owner = self if hasattr(self, "mesh") else self.worker
+        if not owner.local:
+            return None
+        with torch.inference_mode() if owner.mesh is None else torch.no_grad():
             return fn(self, *args, **kwargs)
 
     return run
@@ -336,6 +353,7 @@ class PrefillWorker:
         self.cfg = cfg
         self.ecfg = ecfg
         self.mesh = mesh
+        self.local = on_this_rank(mesh)
         self.params = params
         self.device = _device_of(params)
         self.layout = engine_layout(cfg, ecfg)
@@ -396,9 +414,10 @@ class PrefillWorker:
             n_alloc = self.staging.required_pages(lb)
             staging_id, _ = self.staging.stage(n * n_alloc)
         with obs.span("serve.prefill", replica=self.replica, n=n, bucket=lb):
+            # (None, None) on a rank outside this worker's mesh
             sealed, toks0 = self._prefill(
                 torch.as_tensor(padded, device=self.device), torch.as_tensor(lens, device=self.device)
-            )
+            ) or (None, None)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_tokens"] += n * lb
         return KVHandoff(
@@ -426,6 +445,10 @@ class DecodeWorker:
         self.cfg = cfg
         self.ecfg = ecfg
         self.mesh = mesh
+        self.local = on_this_rank(mesh)
+        # the process group a cross-mesh handoff travels over (ServeEngine
+        # sets it for a pair on disjoint meshes)
+        self.handoff_group = None
         self.params = params
         self.device = _device_of(params)
         self.layout = engine_layout(cfg, ecfg)
@@ -547,6 +570,10 @@ class DecodeWorker:
         # generate as of the last sync (bounds the next chunk's steps)
         self._budget: Dict[int, int] = {}
         self._left: Dict[int, int] = {}
+        # finished slots' output rows, on the host until fetched, and the
+        # slots the last sync found finished whose rows are still to come
+        self._held: Dict[int, np.ndarray] = {}
+        self.finishing: List[int] = []
         # pages a slot borrowed from the prefix cache instead of allocating
         # (its billed load is discounted by exactly this many pages)
         self._spliced: Dict[int, int] = {}
@@ -557,10 +584,14 @@ class DecodeWorker:
         self._gen = torch.Generator(device=dev).manual_seed(e.seed)
         if self.prefix is not None:
             self.prefix.clear()  # refcounts are wiped by pool.reset() below
-        if self._spec is not None:
-            self._spec.reset()
         if self.pool is not None:
             self.pool.reset()
+        if self._spec is not None:
+            self._spec.reset()
+        self._state: Optional[DecodeState] = None
+        if not self.local:
+            return  # another rank's worker: host bookkeeping only
+        if self.pool is not None:
             # +1: the scratch page — the write target of idle slots' frozen
             # ride-along positions (never allocated, reads always masked)
             kv = init_lm_state(
@@ -695,9 +726,14 @@ class DecodeWorker:
                     "Adopt fewer requests, raise --pool-pages, or lower --max-slots."
                 )
         sealed, toks0 = handoff.sealed, handoff.first_tok
-        if toks0.device != self.device:
+        if self.mesh is not None and handoff.source.mesh is not self.mesh:
+            # cross-mesh transport: the burst was sealed on the prefill
+            # worker's mesh (the reference replicates it onto this one)
+            with obs.span("serve.handoff", replica=self.replica, n=n):
+                sealed, toks0 = self._receive(handoff)
+        elif toks0 is not None and toks0.device != self.device:
             # cross-device transport: the burst was sealed by a prefill worker
-            # on another device (the reference's cross-mesh replicate)
+            # on another device (the meshless pair)
             with obs.span("serve.handoff", replica=self.replica, n=n):
                 sealed = {k: v.to(self.device) for k, v in sealed.items()}
                 toks0 = toks0.to(self.device)
@@ -733,6 +769,49 @@ class DecodeWorker:
         self.stats["admitted"] += n
         self.stats["handoffs"] += 1
         return gslots
+
+    def _receive(self, handoff: KVHandoff):
+        """The cross-mesh hop of a sealed burst. DTensor cannot redistribute
+        from one mesh to another, so the prefill half makes the burst whole
+        (a gather inside its mesh) and its first rank broadcasts the bytes
+        of every leaf and the first tokens, in one collective over the
+        ranks of both halves (``handoff_group``); each rank of this
+        worker's mesh then keeps its shard by this worker's own specs
+        (:func:`~repro_torch.sharding.shard_engine_state`), with no further
+        communication. Returns ``(sealed, first tokens)`` there and
+        ``(None, None)`` on every other rank."""
+        import torch.distributed as dist
+
+        src_ranks = mesh_ranks(handoff.source.mesh)
+        rank = dist.get_rank()
+        if rank not in src_ranks and not self.local:
+            return None, None
+        names = sorted(self._state.kv if handoff.sealed is None else handoff.sealed)
+        if handoff.sealed is not None:  # a rank of the prefill half
+            parts = [whole(handoff.sealed[k]) for k in names] + [handoff.first_tok]
+            layout = [(t.shape, t.dtype) for t in parts]
+            buf = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in parts])
+        else:
+            n, n_alloc = handoff.n, handoff.n_alloc
+            layout = []
+            for k in names:
+                big = self._state.kv[k]  # (L, pages or slots, ...)
+                rows = (n, n_alloc) if k in ("k_pages", "v_pages") else (n,)
+                layout.append(((big.shape[0], *rows, *big.shape[2:]), big.dtype))
+            layout.append(((n,), torch.int32))
+            size = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size() for shape, dt in layout)
+            buf = torch.empty(size, dtype=torch.uint8, device=self.device)
+        dist.broadcast(buf, src=src_ranks[0], group=self.handoff_group)
+        if not self.local:
+            return None, None
+        parts, at = [], 0
+        for shape, dt in layout:
+            nbytes = math.prod(shape) * torch.empty((), dtype=dt).element_size()
+            parts.append(buf[at : at + nbytes].clone().view(dt).reshape(shape))  # clone: aligned to dt
+            at += nbytes
+        sealed = dict(zip(names, parts[:-1]))
+        sealed = shard_whole(sealed, shard_engine_state(sealed, mesh_axes=mesh_axes_of(self.mesh)), self.mesh)
+        return sealed, parts[-1]
 
     def admit_spliced(self, tokens, budget: int) -> Optional[int]:
         """Hot-prefix admission: splice the longest resident radix run into
@@ -890,7 +969,7 @@ class DecodeWorker:
         for slot, (true_len, budget) in self._meta.items():
             self._pos_est[slot] = min(self._pos_est[slot] + horizon, true_len + budget - 1)
         dev = self.device
-        if upd_rows:
+        if upd_rows and self.local:
             self._state.page_table[
                 torch.as_tensor(upd_rows, device=dev), torch.as_tensor(upd_cols, device=dev)
             ] = torch.as_tensor(upd_vals, dtype=torch.int32, device=dev)
@@ -917,24 +996,71 @@ class DecodeWorker:
             self._left[slot] = max(self._left[slot] - steps, 0)
         self.stats["decode_chunks"] += 1
 
-    def sync(self) -> Tuple[np.ndarray, np.ndarray]:
-        """The once-per-chunk host sync: ``(active, n_out)`` as numpy, in one
-        device-to-host transfer. Reconciles the host's position estimates
-        and remaining budgets to the truth; with speculative decoding the
-        draft counters ride the same transfer."""
+    def head_len(self) -> int:
+        """The length of :meth:`head`'s vector."""
+        return 2 * self.ecfg.max_slots + (3 if self._spec is not None else 0)
+
+    def head(self) -> torch.Tensor:
+        """What the host reads of the slots every chunk, as one int32
+        vector on the device: ``active``, ``n_out`` and the draft counters
+        ``[proposed, accepted, steps]`` (speculative decoding). A fleet
+        over several ranks shares one rank's copy
+        (:class:`repro_torch.serve.scheduler.SharedHost`)."""
+        s = self._state
+        parts = [s.active.to(torch.int32), s.n_out]
+        if self._spec is not None:
+            parts.append(self._spec.counts)
+        return torch.cat(parts)
+
+    def read_head(self) -> np.ndarray:
+        """:meth:`head` on the host, in one device-to-host transfer."""
         with obs.span("serve.sync", replica=self.replica):
-            if self._spec is not None:
-                active, n_out = self._spec.sync()
-            else:
-                both = torch.stack([self._state.active.to(torch.int32), self._state.n_out]).cpu().numpy()
-                active, n_out = both[0].astype(bool), both[1]
+            return self.head().cpu().numpy()
+
+    def sync(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The once-per-chunk host sync: ``(active, n_out)`` as numpy
+        (:meth:`advance` on this rank's :meth:`head`), holding the output
+        rows of the slots that finished since the last sync on the host
+        for :meth:`fetch`."""
+        active, n_out = self.advance(self.read_head())
+        if self.finishing:
+            self.hold(self.rows().cpu().numpy())
+        return active, n_out
+
+    def advance(self, head: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Reconcile the host's position estimates and remaining budgets to
+        a :meth:`head` read on the host (this rank's, or the one the
+        fleet's ranks share); with speculative decoding the draft counters
+        ride the same vector (cumulative since reset: assigned, not
+        incremented). Lists the resident slots that finished since the
+        last sync in ``finishing``, whose rows :meth:`hold` takes next.
+        Returns ``(active, n_out)``."""
+        n = self.ecfg.max_slots
+        active, n_out = head[:n].astype(bool), head[n : 2 * n]
+        if self._spec is not None:
+            proposed, accepted, steps = (int(v) for v in head[2 * n : 2 * n + 3])
+            self.stats["draft_proposed"] = proposed
+            self.stats["draft_accepted"] = accepted
+            self.stats["spec_steps"] = steps
         self.stats["host_syncs"] += 1
         for slot in self._left:
             self._left[slot] = self._budget[slot] - int(n_out[slot]) if active[slot] else 0
         if self.pool is not None:
             for slot, (true_len, _) in self._meta.items():
                 self._pos_est[slot] = true_len + int(n_out[slot]) - 1
+        self.finishing = [s for s in sorted(self._budget) if not active[s] and s not in self._held]
         return active, n_out
+
+    def rows(self) -> torch.Tensor:
+        """The output rows of the ``finishing`` slots, (n, max_new) int32
+        on the device (finished rows stay frozen there)."""
+        return self._state.out[torch.as_tensor(self.finishing, dtype=torch.long, device=self.device)]
+
+    def hold(self, rows: np.ndarray) -> None:
+        """Keep the ``finishing`` slots' output rows (:meth:`rows`, on the
+        host) for :meth:`fetch`."""
+        self._held.update(zip(self.finishing, rows))
+        self.finishing = []
 
     def publish_gauges(self) -> None:
         """Push the pool and prefix-cache occupancy gauges into the stats
@@ -950,11 +1076,15 @@ class DecodeWorker:
             reg.set_gauge(KV_GAUGES["reclaimable_pages"], self.prefix.reclaimable(), **labels)
 
     def fetch(self, slot: int, n_out: int) -> np.ndarray:
-        """Copy a finished slot's tokens to the host and free the slot
-        (returning its orphaned pages to the pool in the paged layout; pages
-        the prefix cache pins stay resident for later splices)."""
-        # a copy: on the CPU .cpu() would alias the slot's row, which the next request reuses
-        toks = self._state.out[slot, :n_out].to("cpu", copy=True).numpy()
+        """A slot's tokens, held on the host since the sync that found it
+        finished (else read from the device), and free the slot (returning
+        its orphaned pages to the pool in the paged layout; pages the
+        prefix cache pins stay resident for later splices)."""
+        row = self._held.pop(slot, None)
+        if row is None:
+            row = self._state.out[slot].cpu().numpy()
+        # a copy: on the CPU .cpu() aliases the slot's row, which the next request reuses
+        toks = row[:n_out].copy()
         self.free_slots.append(slot)
         self._left.pop(slot, None)
         self._budget.pop(slot, None)
@@ -974,15 +1104,26 @@ class ServeEngine:
     (and ``ContinuousScheduler``) drives from the request queue. ``drafter``
     is ``(cfg, params)`` of the speculative drafter (with ``ecfg.spec_k``).
 
-    Colocated by default: both workers share ``params`` on their device.
-    ``prefill_device`` (the reference's ``prefill_mesh``; paged layout
-    only) puts the prefill worker on another device, with its own copy of
-    the parameters made here, once; each admission then hands its sealed
-    pages across to the decode worker's pool. Either way admission runs the
-    same programs."""
+    Colocated by default: both workers share ``params`` on their device
+    (or, with ``mesh``, their shards on that mesh). A disaggregated pair
+    (paged layout only) puts the prefill worker elsewhere, with its own
+    copy of the parameters made here, once; each admission then hands its
+    sealed pages across to the decode worker's pool:
 
-    def __init__(self, cfg, params, ecfg: EngineConfig, *, mesh=None, prefill_device=None, drafter=None,
-                 registry: Optional[MetricsRegistry] = None, replica: int = 0):
+    * ``prefill_mesh`` (the reference's; with ``mesh``): the prefill
+      worker on another mesh, typically the other half of a replica's
+      ranks (``launch.mesh.disagg_submeshes``). The burst crosses in one
+      broadcast over the ranks of both meshes (:meth:`DecodeWorker._receive`).
+    * ``prefill_device`` (meshless): the prefill worker on another device
+      of this process.
+
+    Either way admission runs the same programs. Every rank builds every
+    replica (group creation is collective), but a rank runs only the
+    device work of the meshes it is on; ``ranks`` are the ranks this
+    replica spans (empty when meshless)."""
+
+    def __init__(self, cfg, params, ecfg: EngineConfig, *, mesh=None, prefill_mesh=None, prefill_device=None,
+                 drafter=None, registry: Optional[MetricsRegistry] = None, replica: int = 0):
         if cfg.is_encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only: nothing to decode")
         if cfg.frontend == "vision":
@@ -991,26 +1132,26 @@ class ServeEngine:
                 "the slot engine does not thread through admission yet; serve "
                 "vlm archs with the static batch path"
             )
-        if mesh is not None:
-            if prefill_device is not None:
-                raise ValueError(
-                    "a sharded engine colocates its prefill and decode workers on its mesh: "
-                    "the disaggregated pair over mesh halves is ROADMAP A.7b"
-                )
-            # the reference's _shard_params: distributed whenever a mesh is
-            # given, a 1x1 mesh included
-            params = shard_params(params, mesh)
-            if drafter is not None:
-                drafter = (drafter[0], shard_params(drafter[1], mesh))
+        if prefill_mesh is not None and prefill_device is not None:
+            raise ValueError(
+                "prefill_mesh places the prefill worker on a mesh, prefill_device on a device "
+                "of a meshless pair: give one"
+            )
+        if prefill_mesh is not None and mesh is None:
+            raise ValueError("prefill_mesh needs the decode worker's mesh too (mesh=...)")
+        if mesh is not None and prefill_device is not None:
+            raise ValueError(
+                "a sharded engine places its prefill worker with prefill_mesh, not prefill_device"
+            )
+        if prefill_mesh is mesh:
+            prefill_mesh = None  # colocated on one mesh
         self.cfg = cfg
-        self.params = params
         self.ecfg = ecfg
         self.mesh = mesh
         self.layout = engine_layout(cfg, ecfg)
         self.replica = replica
         self.stats: StatsView = _fresh_stats(registry, replica)
-        prefill_params = params
-        if prefill_device is not None:
+        if prefill_mesh is not None or prefill_device is not None:
             if self.layout != "paged" and ecfg.kv_layout == "paged":
                 raise ValueError(
                     f"{cfg.name} has no attention layers: its serving state degrades "
@@ -1019,17 +1160,39 @@ class ServeEngine:
                 )
             if self.layout != "paged":
                 raise ValueError(
-                    'prefill_device requires kv_layout="paged": the prefill->decode '
-                    "handoff moves sealed KV PAGES between worker pools, and the "
-                    "dense per-slot rectangle has no page units to hand off."
+                    'a disaggregated pair (prefill_mesh or prefill_device) requires kv_layout="paged": '
+                    "the prefill->decode handoff moves sealed KV PAGES between worker pools, and "
+                    "the dense per-slot rectangle has no page units to hand off."
                 )
+        prefill_params = params
+        if mesh is not None:
+            # the reference's _shard_params: distributed whenever a mesh is
+            # given, a 1x1 mesh included; each half of a pair on its own
+            # mesh, and nothing on a rank outside a mesh (its worker runs
+            # no device work)
+            if prefill_mesh is not None and on_this_rank(prefill_mesh):
+                prefill_params = shard_params(params, prefill_mesh)
+            if on_this_rank(mesh):
+                params = shard_params(params, mesh)
+                if drafter is not None:
+                    drafter = (drafter[0], shard_params(drafter[1], mesh))
+            if prefill_mesh is None:
+                prefill_params = params
+        self.params = params
+        if prefill_device is not None:
             dev = torch.device(prefill_device)
             if dev.type == "cuda" and dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
             if dev != _device_of(params):
                 prefill_params = tree_map(lambda t: t.to(dev), params)
-        self.prefill = PrefillWorker(cfg, prefill_params, ecfg, stats=self.stats, replica=replica, mesh=mesh)
+        self.prefill = PrefillWorker(cfg, prefill_params, ecfg, stats=self.stats, replica=replica,
+                                     mesh=mesh if prefill_mesh is None else prefill_mesh)
         self.decode = DecodeWorker(cfg, params, ecfg, stats=self.stats, drafter=drafter, replica=replica, mesh=mesh)
+        # the ranks this replica spans; a pair on disjoint meshes hands off
+        # over a group of both halves (made on every rank, in the same order)
+        self.ranks = tuple(sorted(set(mesh_ranks(mesh)) | set(mesh_ranks(prefill_mesh))))
+        if prefill_mesh is not None and (self.prefill.local or self.decode.local):
+            self.decode.handoff_group = group_over(self.ranks)
 
     # -- delegation (the device state lives on the workers) -----------------
 
@@ -1178,7 +1341,7 @@ class ServeEngine:
                 break  # a tight pool caps the burst; larger sizes can't fit either
             self.admit_many(reqs)
             self.decode_chunk()
-            self.sync()
+            self._warm_sync()
             n *= 2
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if (
@@ -1198,8 +1361,15 @@ class ServeEngine:
             if self.max_admissible([(longer, budget)]) >= 1:
                 self.admit(longer, budget)
             self.decode_chunk()
-            self.sync()
+            self._warm_sync()
         self.reset()
+
+    def _warm_sync(self) -> None:
+        # the warm-up's syncs read the decode worker's own device (its ranks
+        # hold the slots replicated); another rank has nothing to read, and
+        # the reset after the warm-up drops its host state either way
+        if self.decode.local:
+            self.sync()
 
     def decode_chunk(self) -> None:
         self.decode.decode_chunk()

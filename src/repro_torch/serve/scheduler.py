@@ -21,6 +21,24 @@ A :class:`FleetRouter` over N engine replicas (each a
 ``arrival``, ``admitted``, ``first_token`` and ``finished`` separately, so
 queue wait and TTFT can be read apart from decode time.
 
+On several ranks (engines on meshes, one process a rank) there is no
+single controller: every rank the fleet spans runs this same loop, and
+every rank must take the same routing, admission, requeue and drain
+decisions in the same order, since each decision launches collectives on
+some replica's mesh. The decisions read the engines' host state, the
+clock and the readbacks, so the last two are shared (:class:`SharedHost`):
+each tick takes the first rank's reading of the clock (one broadcast; a
+:class:`ManualClock` advances the same everywhere and is read as is), and
+after the tick's decode chunks every replica's head (``active``,
+``n_out``, the draft counters) comes from the first rank of its decode
+mesh, all replicas in one all-reduce; on a tick where slots finish, their
+output rows follow in one more. A rank outside a
+replica's mesh advances its host state from those readbacks alone. The
+admission and completion stamps are each rank's own clock readings (equal
+under a :class:`ManualClock`); no decision reads them. A collective that
+fails raises, on every rank. One rank (a meshless fleet, a world of one,
+or one engine on a mesh of one) issues no collective.
+
 Telemetry (:mod:`repro_torch.obs`): the router's stats are a
 :class:`~repro_torch.obs.StatsView` over the ``serve.router.*`` names
 (:data:`repro_torch.obs.ROUTER_METRICS`), in the engines' registry, so
@@ -38,8 +56,10 @@ from collections import deque
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import obs
+from repro_torch.launch.mesh import group_over, mesh_ranks
 from repro_torch.obs import ROUTER_METRICS, MetricsRegistry, StatsView
 from repro_torch.serve.engine import ServeEngine
 
@@ -123,6 +143,88 @@ class ManualClock:
     advance = sleep
 
 
+class SharedHost:
+    """The host inputs of a router that several ranks run: the ranks the
+    engines span (their decode and prefill meshes), a process group over
+    them, and for each replica the rank whose readback every rank uses
+    (the first of its decode mesh; a meshless replica's, the first rank).
+    ``active`` is False when the engines span one rank or none: then each
+    engine is read where it is and no collective is issued."""
+
+    def __init__(self, engines: Sequence[ServeEngine]):
+        self.workers = [eng.decode for eng in engines]
+        ranks = sorted({r for eng in engines for r in eng.ranks})
+        self.active = len(ranks) > 1
+        if not self.active:
+            return
+        import torch.distributed as dist
+
+        self.rank = dist.get_rank()
+        if self.rank not in ranks:
+            raise RuntimeError(f"rank {self.rank} runs a router over ranks {ranks} it is not one of")
+        self.ranks = ranks
+        self.group = group_over(ranks)
+        self.device = self.workers[0].device
+        self.roots = [mesh_ranks(w.mesh)[0] if w.mesh is not None else ranks[0] for w in self.workers]
+
+    def now(self, clock) -> float:
+        """The tick's clock reading, the same on every rank: the first
+        rank's (a broadcast), or the :class:`ManualClock`'s own."""
+        t = clock.now()
+        if not self.active or isinstance(clock, ManualClock):
+            return t
+        import torch.distributed as dist
+
+        buf = torch.tensor([t], dtype=torch.float64, device=self.device)
+        dist.broadcast(buf, src=self.ranks[0], group=self.group)
+        return float(buf.item())
+
+    def _share(self, parts: Sequence[tuple]) -> List[np.ndarray]:
+        """One all-reduce of the int32 pieces ``parts`` (``(replica, size,
+        read)``, ``read()`` the piece on the device), each filled in by its
+        replica's root alone and zero elsewhere, so the sum is each root's
+        piece on every rank; the volume is the pieces', whatever the
+        world's size."""
+        import torch.distributed as dist
+
+        sizes = [size for _, size, _ in parts]
+        buf = torch.zeros(sum(sizes), dtype=torch.int32, device=self.device)
+        at = 0
+        for i, size, read in parts:
+            if self.roots[i] == self.rank:
+                buf[at : at + size] = read().reshape(-1)
+            at += size
+        dist.all_reduce(buf, group=self.group)
+        return np.split(buf.cpu().numpy(), np.cumsum(sizes)[:-1])
+
+    def heads(self, live: Sequence[int]) -> dict:
+        """``{replica: head}`` for the ``live`` replicas
+        (:meth:`~repro_torch.serve.engine.DecodeWorker.head` on the host):
+        each worker's own on one rank, else its root's, in one collective."""
+        if not self.active:
+            return {i: self.workers[i].read_head() for i in live}
+        with obs.span("serve.sync", replicas=len(live)):
+            got = self._share([(i, self.workers[i].head_len(), self.workers[i].head) for i in live])
+        return dict(zip(live, got))
+
+    def hold_rows(self, live: Sequence[int]) -> None:
+        """Hand each ``live`` worker the output rows of its ``finishing``
+        slots (:meth:`~repro_torch.serve.engine.DecodeWorker.hold`): read
+        where it is on one rank, else its root's, in one collective on a
+        tick where any slot finished and none on the others."""
+        done = [i for i in live if self.workers[i].finishing]
+        if not done:
+            return
+        if not self.active:
+            for i in done:
+                self.workers[i].hold(self.workers[i].rows().cpu().numpy())
+            return
+        width = {i: self.workers[i].ecfg.max_new for i in done}
+        parts = [(i, len(self.workers[i].finishing) * width[i], self.workers[i].rows) for i in done]
+        for i, flat in zip(done, self._share(parts)):
+            self.workers[i].hold(flat.reshape(-1, width[i]))
+
+
 class FleetRouter:
     """Least-loaded admission + eviction loop over N engine replicas;
     returns one Completion per request (tagged with its replica)."""
@@ -192,6 +294,7 @@ class FleetRouter:
 
     def run(self, requests: Sequence[Request]) -> List[Completion]:
         clock = self.clock or MonotonicClock()
+        shared = SharedHost(self.engines)
         for eng in self.engines:
             eng.reset()
         for k in list(self.stats):
@@ -217,7 +320,7 @@ class FleetRouter:
                 resident[i][slot] = (req, t_admit, t_first)
 
         while pending or any(queues) or any(resident):
-            now = clock.now()
+            now = shared.now(clock)
             while pending and pending[0].arrival <= now:
                 req = pending.popleft()
                 queues[self._route(req, queues)].append(req)
@@ -258,15 +361,21 @@ class FleetRouter:
                     self.stats["requeued"] += 1
 
             if any(resident):
-                for i, eng in enumerate(self.engines):
-                    if not resident[i]:
-                        continue
-                    eng.decode_chunk()
-                    active, n_out = eng.sync()
+                # every live replica's chunk, then the tick's readbacks
+                live = [i for i, r in enumerate(resident) if r]
+                for i in live:
+                    self.engines[i].decode_chunk()
+                heads = shared.heads(live)
+                finished = {}
+                for i in live:
+                    active, n_out = self.engines[i].decode.advance(heads[i])
+                    finished[i] = [(s, int(n_out[s])) for s in resident[i] if not active[s]]
+                shared.hold_rows(live)
+                for i in live:
                     t_done = clock.now()
-                    for slot in [s for s in resident[i] if not active[s]]:
+                    for slot, n in finished[i]:
                         req, t_admit, t_first = resident[i].pop(slot)
-                        toks = eng.fetch(slot, int(n_out[slot]))
+                        toks = self.engines[i].fetch(slot, n)
                         comp = Completion(
                             rid=req.rid,
                             prompt_len=len(req.tokens),

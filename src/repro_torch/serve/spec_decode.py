@@ -52,8 +52,9 @@ from repro_torch.sharding.partition import mesh_context, whole
 class SpecDecoder:
     """The drafter's state and the draft/verify chunk. Owned by a
     :class:`repro_torch.serve.engine.DecodeWorker` (``ecfg.spec_k > 0``);
-    the worker hands its ``decode_chunk`` and ``sync`` here and forwards
-    every admission so the drafter can prefill its own cache."""
+    the worker hands its ``decode_chunk`` here, reads the draft counters
+    (``counts``) with its slots, and forwards every admission so the
+    drafter can prefill its own cache."""
 
     def __init__(self, worker, dcfg, dparams, k: int):
         non_attn = sorted({m for m, _ in group_pattern(dcfg) if m != "attn"})
@@ -89,25 +90,32 @@ class SpecDecoder:
 
     def reset(self) -> None:
         """(Re)build the drafter's dense cache (all slots) and zero the
-        device counters ``[proposed, accepted, steps]`` and the prefill
-        count."""
+        device counters ``[proposed, accepted, steps]`` (which the worker's
+        readback carries) and the prefill count. A worker on another rank
+        keeps only the count."""
+        # the drafter's prefills since reset, each one forward of the
+        # drafter over a bucket-padded admission group
+        self.prefill_dispatches = 0
         w = self.worker
+        if not w.local:
+            return
         # the drafter's dense cache shards by the same k, v suffix rules as
         # the target's dense engine state
         draft = init_lm_state(self.dcfg, w.ecfg.max_slots, w.ecfg.max_seq, device=w.device)
         self._draft = shard_state({"draft": draft}, w.mesh)["draft"]
-        self._counts = torch.zeros(3, dtype=torch.int32, device=w.device)
-        # the drafter's prefills since reset, each one forward of the
-        # drafter over a bucket-padded admission group
-        self.prefill_dispatches = 0
+        self.counts = torch.zeros(3, dtype=torch.int32, device=w.device)
 
-    @device_program
     def on_admit(self, slots: List[int], token_rows: np.ndarray, true_lens) -> None:
         """Prefill the drafter's cache rows for an admitted group. The
         drafter shares no pages: it always consumes the full (bucket-padded)
         prompt, even when the target spliced its prefix. Pad positions past
         each true length are overwritten by drafting before they are
         attended."""
+        self._prefill_rows(slots, token_rows)
+        self.prefill_dispatches += 1
+
+    @device_program
+    def _prefill_rows(self, slots: List[int], token_rows: np.ndarray) -> None:
         w = self.worker
         dev = w.device
         tokens = torch.as_tensor(np.asarray(token_rows, np.int32), device=dev)
@@ -117,7 +125,6 @@ class SpecDecoder:
         rows = torch.as_tensor(slots, dtype=torch.long, device=dev)
         for name, big in self._draft.items():
             write_rows(big, (slice(None), rows), st1[name])
-        self.prefill_dispatches += 1
 
     @device_program
     def chunk(self, rounds: int) -> None:
@@ -158,7 +165,7 @@ class SpecDecoder:
                 match = (dmat == tgt[:, :k]).to(torch.int32)
                 n_acc = torch.cumprod(match, dim=1).sum(dim=1)  # (S,) in [0, k]
                 act = s.active
-                self._counts += torch.stack([
+                self.counts += torch.stack([
                     k * act.sum(), torch.where(act, n_acc, 0).sum(), act.any().long()
                 ]).to(torch.int32)
                 # 3) emit tgt[:, 0..n_acc] per slot: candidate j does not
@@ -176,17 +183,3 @@ class SpecDecoder:
                     s.last_tok = torch.where(step[:, None], tok[:, None], s.last_tok)
                     s.pos += step.to(torch.int32)
                     s.active &= ~finished
-
-    def sync(self):
-        """The worker's host read, with the draft counters in the same
-        device-to-host transfer. The stats are cumulative since reset
-        (assigned, not incremented)."""
-        s = self.worker._state
-        both = torch.cat([s.active.to(torch.int32), s.n_out, self._counts]).cpu().numpy()
-        n = s.active.shape[0]
-        proposed, accepted, steps = (int(v) for v in both[2 * n :])
-        st = self.worker.stats
-        st["draft_proposed"] = proposed
-        st["draft_accepted"] = accepted
-        st["spec_steps"] = steps
-        return both[:n].astype(bool), both[n : 2 * n]

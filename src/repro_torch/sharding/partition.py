@@ -434,6 +434,21 @@ def place(tree: Any, specs: Any, mesh) -> Any:
     return map_with_path(put, tree)
 
 
+def shard_whole(tree: Any, specs: Any, mesh) -> Any:
+    """As :func:`place`, for values every rank of ``mesh`` already holds
+    whole (received, or computed the same everywhere): each rank keeps its
+    own shard, with no communication."""
+    flat: Dict[str, Any] = {}
+    map_with_path(lambda path, s: flat.__setitem__(path, s), specs, is_leaf=lambda s: isinstance(s, PartitionSpec))
+
+    def put(path, leaf):
+        if not torch.is_tensor(leaf):
+            return leaf
+        return replicated(leaf, mesh).redistribute(mesh, to_placements(flat[path], mesh))
+
+    return map_with_path(put, tree)
+
+
 def shard_params(params: Any, mesh) -> Any:
     """The params as DTensors on ``mesh``, placed by
     :func:`infer_param_specs` against ITS axes (the reference's

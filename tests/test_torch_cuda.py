@@ -9,7 +9,9 @@ ensemble, a paged decode run that telemetry adds no device sync to, the
 prefix cache with speculative decoding on hot-prefix traffic, and the MoE
 dispatches, qk-norm prefill, ``remat``, the recurrent archs' engine
 (jamba through #5/#8 against the plain attention) and the modality archs
-(hubert at hd 80, phi with its prefix at hd 96). These tests need a CUDA device (marker
+(hubert at hd 80, phi with its prefix at hd 96), and on a world of one the
+loss kernels on a sharded client stack and the cross-mesh serving pair.
+These tests need a CUDA device (marker
 ``cuda``) and skip without one; on the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -1207,3 +1209,80 @@ def test_modality_paths_on_card(device):
     counts = launch_counts()
     assert (counts["flash_attention_fwd"], counts["flash_decode"]) == (cfg.num_layers, 0)
     assert torch.equal(got, static_generate(params, cfg.replace(backend="ref"), batch, 8))
+
+
+@pytest.fixture
+def world_of_one(device, tmp_path):
+    """A process group of one rank on this card (NCCL), for the mesh
+    routes; destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    assert init_distributed(device, init_method=f"file://{tmp_path}/rendezvous") == 1
+    yield device
+    dist.destroy_process_group()
+
+
+def test_loss_kernels_on_a_sharded_client_stack(world_of_one):
+    """#1–#4 take a client stack that is a DTensor (the grouped bank's
+    logits under a mesh) through the row split on local shards: on a 1x1
+    mesh each kernel launches once a call, through ``on_local_shards``, and
+    the outputs and every cotangent are the plain call's bits."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels.dispatch import LOCAL_MAP_CALLS, reset_local_map_calls
+    from repro_torch.sharding.partition import replicated
+
+    device = world_of_one
+    mesh = DeviceMesh("cuda", torch.tensor([[0]]), mesh_dim_names=("data", "model"))
+    cl, st, w, labels, _ = _inputs(6, 8, 10, torch.float32, device)
+
+    def run(stack_of):
+        c, s, ww = (t.clone().requires_grad_() for t in (cl, st, w))
+        out = ensemble_kl(stack_of(c), s, ww).sum() + ghm_ce(stack_of(c), labels, ww).sum()
+        return (out, *torch.autograd.grad(out, (c, s, ww)))
+
+    want = run(lambda c: c)
+    reset_launch_counts()
+    reset_local_map_calls()
+    got = run(lambda c: replicated(c, mesh))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert all(counts[n] == 1 for n in ("ensemble_kl_fwd", "ensemble_kl_bwd", "ghm_ce_fwd", "ghm_ce_bwd")), counts
+    assert LOCAL_MAP_CALLS["ensemble_kl"] == LOCAL_MAP_CALLS["ghm_ce"] == 1, LOCAL_MAP_CALLS
+    for g, wnt in zip(got, want):
+        assert not hasattr(g, "placements") and torch.equal(g, wnt)
+
+
+def test_cross_mesh_pair_matches_colocated_engine(world_of_one):
+    """``ServeEngine(mesh=d, prefill_mesh=p)`` on two distinct 1x1 meshes:
+    every admission hands off across the meshes, and the reduced
+    smollm-135m's greedy tokens (f32) are the colocated meshless engine's."""
+    import numpy as np
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.config.model import reduced_variant
+    from repro_torch.config.registry import get_arch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ContinuousScheduler, EngineConfig, ManualClock, Request, ServeEngine
+
+    device = world_of_one
+    cfg = reduced_variant(get_arch("smollm-135m")).replace(dtype="float32", param_dtype="float32")
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(1))
+    params["embed"]["table"] *= 10.0
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, tokens=rng.randint(0, cfg.vocab_size, 12 + 5 * i).astype(np.int32), max_new_tokens=6)
+            for i in range(4)]
+    ecfg = EngineConfig(max_slots=2, max_seq=48, max_new=6, page_size=8)
+
+    def run(**kw):
+        eng = ServeEngine(cfg, params, ecfg, **kw)
+        comps = ContinuousScheduler(eng, clock=ManualClock(tick=0.2)).run(reqs)
+        return {c.rid: c.tokens.tolist() for c in comps}, dict(eng.stats)
+
+    want, want_stats = run()
+    meshes = [DeviceMesh("cuda", torch.tensor([[0]]), mesh_dim_names=("data", "model")) for _ in range(2)]
+    got, stats = run(mesh=meshes[1], prefill_mesh=meshes[0])
+    assert got == want
+    assert stats == want_stats and stats["handoffs"] > 0

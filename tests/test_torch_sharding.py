@@ -20,8 +20,10 @@ package's (``repro.sharding``), and the launchers' ``--mesh`` flag.
   ``MeshConfig``, against the reference's; the H100's constants.
 * The launchers on a world of one: ``--mesh production`` exits before
   allocating, naming the 256 ranks it needs; ``launch.serve --mesh
-  multipod --engine static`` gives the reference's message; ``--disagg``
-  names ROADMAP A.7b; ``--mesh host`` runs as before.
+  multipod --engine static`` gives the reference's message, and so does
+  ``--disagg`` with the dense layout; ``--mesh multipod``, ``--disagg``
+  and ``--mesh production --replicas 2`` serve their fleet, colocated
+  meshless, with every request returned; ``--mesh host`` runs as before.
 
 The multi-rank parity (gloo) and the mesh topology are in
 ``tests/test_torch_mesh.py``.
@@ -341,14 +343,34 @@ def test_launchers_production_mesh_exits_before_allocating(monkeypatch):
         serve.main(["--reduced", "--device", "cpu", "--mesh", "production", "--engine", "static"])
 
 
+FLEET_ARGS = ["--reduced", "--device", "cpu", "--requests", "4", "--max-slots", "2", "--prompt-len", "8", "--gen", "3"]
+
+
 def test_serve_mesh_refusals():
-    """The reference's ``validate_args`` rule for a multipod static run,
-    and the fleet work left for ROADMAP A.7b, each with its message."""
+    """The reference's ``validate_args`` rules: a multipod static run and
+    ``--disagg`` with the dense layout are refused, each with its message."""
     with pytest.raises(SystemExit, match="not supported for static serving"):
         serve.main(["--reduced", "--device", "cpu", "--mesh", "multipod", "--engine", "static"])
-    for extra in (["--mesh", "multipod"], ["--disagg"], ["--mesh", "production", "--replicas", "2"]):
-        with pytest.raises(SystemExit, match="A.7b"):
-            serve.main(["--reduced", "--device", "cpu", *extra])
+    with pytest.raises(SystemExit, match="--disagg requires --kv-layout paged"):
+        serve.main([*FLEET_ARGS, "--disagg", "--kv-layout", "dense"])
+
+
+@pytest.mark.parametrize("extra, replicas", [
+    (["--mesh", "multipod"], 2),  # one replica group a pod
+    (["--disagg"], 1),
+    (["--mesh", "production", "--replicas", "2"], 2),
+])
+def test_serve_fleet_runs_in_a_world_of_one(monkeypatch, extra, replicas):
+    """The fleet serves in a world of one as the reference's does on one
+    device: the replicas and the pair colocate meshless, no mesh is made
+    (the production world of 256 is not asked for), every request
+    returns, and the tokens are the single engine's."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    out = serve.main([*FLEET_ARGS, *extra])
+    single = serve.main(FLEET_ARGS)
+    assert len(out["replicas"]) == replicas
+    assert len(out["completions"]) == 4 and all(len(c.tokens) == 3 for c in out["completions"])
+    assert [c.tokens.tolist() for c in out["completions"]] == [c.tokens.tolist() for c in single["completions"]]
 
 
 def test_mesh_host_runs_as_before():
