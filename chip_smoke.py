@@ -237,7 +237,8 @@ result line):
    its 64 tokens, no attention launch; tok/s, p50/p95, TTFT, peak memory)
    and one ``lm_prefill`` of 128 tokens at batch 1 and 8 (ms per prompt
    token on the host clock; the device's idle share, profiled). Then
-   ``launch.train`` in bf16 under remat at batch 8 x 256 (two scan chunks
+   ``launch.train`` in bf16 under remat at 4 of the 12 layers (one sLSTM
+   group; registered under its own name) at batch 8 x 256 (two scan chunks
    of 128), 2 steps (s/step and tok/s of the second, peak memory, finite
    losses), and one f32
    ``lm_loss`` step at batch 2 x 256 with ``chunked_scan``'s chunk
@@ -351,6 +352,18 @@ result line):
    first-10 mean; s/step, tokens/s after the first step and the peak
    device memory are printed, then the same for the same run without
    remat (smollm-135m registered with ``remat=False`` under its own name).
+6b. The dry-run (``repro_torch.launch.dryrun``, about 30 s): (a) two
+   processes at once, ``--arch smollm-135m --multi-pod single`` (the four
+   shapes at full width on the 16x16 mesh, rank 0 of a one-process fake
+   world of 256) and the same with ``--coboost 4 --shape train_4k``: every
+   record ``ok`` but ``long_500k``, a ``skip`` with the reference's reason;
+   the seconds are printed. (b) Phase 6's program counted meshless
+   (smollm-135m at full width, 8 × 256, bf16, AdamW, remat) and held to
+   phase 6's run: the kernel calls a step under each of the six training
+   launch counters equal phase 6's launches over its steps; the aten FLOPs
+   equal ``FlopCounterMode``'s over one real step on the card; the bound
+   is no more than phase 6's s/step (the ratio is printed); the peak is
+   within 0.9–1.1× of phase 6's ``max_memory_allocated``.
 7. LM distillation path: ``repro_torch.launch.distill_llm`` at full width
    (K = 3 clients, 8 epochs of DHS, EE and distillation): ``kd`` finite at
    every epoch, ``w`` summing to 1, and both backward kernels launched (DHS
@@ -363,6 +376,7 @@ result line):
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -498,7 +512,7 @@ REMAT_MIXTRAL = dict(layers=2, batch=2, seq=256)
 # scan chunks of 128) and the chunk-checkpoint check at batch 2; jamba's f32
 # engine check cut to one interleave group of 8 layers (13.3 B parameters,
 # 53.2 GB), at an ample capacity factor (E / k) on ragged prompts
-RECURRENT_TRAIN = dict(batch=8, seq=256, steps=2, check_batch=2)
+RECURRENT_TRAIN = dict(batch=8, seq=256, steps=2, check_batch=2, layers=4)
 RECURRENT_JAMBA = dict(layers=8, factor=8.0, lens=(128, 97, 113, 77))
 # phase 5g and its phase-2 shapes: hubert-xlarge (16/16 heads, hd 80, non-causal) at the f32 check's
 # 4 x 500 frames (10 s of audio at 20 ms a frame), phi-3-vision-4.2b (32/32, hd 96, causal) at the
@@ -742,48 +756,6 @@ def check_stream_lookup():
           + json.dumps(t), flush=True)
 
 
-def _peak(dtype):
-    """The card's peak rate for ``dtype``'s operations: the H100 SXM figures
-    of ``repro_torch.config.mesh`` (f32 outside the tensor cores, bf16 on
-    them, dense)."""
-    import torch
-
-    from repro_torch.config.mesh import PEAK_FLOPS_BF16, PEAK_FLOPS_F32
-
-    return PEAK_FLOPS_F32 if dtype == torch.float32 else PEAK_FLOPS_BF16
-
-
-def _bound_ms(nbytes, flops, peak=None):
-    import torch
-
-    from repro_torch.config.mesh import HBM_BW
-
-    t_bytes = nbytes / HBM_BW
-    t_ops = flops / (_peak(torch.float32) if peak is None else peak)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def _work(name, k, b, v, itemsize, needs=None):
-    """Bytes each kernel must move (each input read once, each output
-    written once) and f32 operations it does: per (b, v) element a K-step
-    fma combine (2K) plus ~10 ops of scaling, exponentials and sums in the
-    forward; the backward rebuilds the combine and forms the cotangents in
-    ``needs`` (K multiplies for g_client, 2K for the g_w dot products, ~4 for
-    g_student) plus ~8 ops, and writes only those."""
-    n = b * v
-    if name == "ensemble_kl_fwd":
-        return (k * n + n) * itemsize + 4 * k + 3 * 4 * b, n * (2 * k + 10)
-    if name == "ghm_ce_fwd":
-        return k * n * itemsize + 4 * k + 8 * b + 3 * 4 * b, n * (2 * k + 6)
-    if name == "ensemble_kl_bwd":
-        cl, st, gw = needs
-        written = (k * n * cl + n * st) * itemsize + 4 * k * gw
-        return (k * n + n) * itemsize + 4 * k + 4 * 4 * b + written, n * (2 * k + 8 + k * cl + 4 * st + 2 * k * gw)
-    cl, gw = needs
-    written = k * n * itemsize * cl + 4 * k * gw
-    return k * n * itemsize + 4 * k + 8 * b + 3 * 4 * b + written, n * (2 * k + 8 + k * cl + 2 * k * gw)
-
-
 def _same_bits(name, a, b):
     import torch
 
@@ -828,6 +800,7 @@ def kernels_vs_plain():
     from repro_torch.kernels.ensemble_kl.ref import ensemble_kl_bwd_ref, ensemble_kl_fwd_ref
     from repro_torch.kernels.ghm_ce.kernel import ghm_ce_bwd, ghm_ce_fwd
     from repro_torch.kernels.ghm_ce.ref import ghm_ce_bwd_ref, ghm_ce_fwd_ref
+    from repro_torch.kernels.kernel_cost import bound_ms, loss_work
 
     check_stream_lookup()
     dev = torch.device("cuda")
@@ -922,8 +895,7 @@ def kernels_vs_plain():
         for name, (kern, plain, needs) in calls.items():
             if needs is not None and (not bwd or shape is CLIENTS20):
                 continue  # the backwards at the main and the wide shapes
-            nbytes, flops = _work(name, k, b, v, cl.element_size(), needs)
-            bound, bound_by = _bound_ms(nbytes, flops)
+            bound, bound_by = bound_ms(*loss_work(name, k, b, v, cl.element_size(), needs))
             timing[(name, tag)] = {
                 "ms": _time_ms(kern), "plain_ms": _time_ms(plain),
                 "bound_ms": bound, "bound_by": bound_by, "device_ms": _graph_ms(kern),
@@ -989,16 +961,6 @@ def _sdpa(q, k, v, causal=True):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
-def _attn_fwd_bound(q, k, v, shape, peak, causal=True):
-    """The forward's bound: bytes (q, k, v read once, out written once, lse
-    f32) and the QK^T and PV products over the visible pairs (the causal
-    half, or all of them)."""
-    b, sq, sk, h, kh, hd = shape
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + 4 * b * sq * h
-    flops = 4 * b * h * sq * sk * hd // (2 if causal else 1)
-    return _bound_ms(nbytes, flops, peak)
-
-
 def attention_kernels_vs_plain():
     """``flash_attention_fwd`` and ``flash_decode`` against their plain
     versions, f32 and bf16. bf16 goes to the tensor-core forward (``_sm90``)
@@ -1013,6 +975,7 @@ def attention_kernels_vs_plain():
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref_lse
     from repro_torch.kernels.flash_decode.kernel import flash_decode_fwd
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.kernel_cost import attention_fwd_work, bound_ms, decode_work, peak_flops
 
     dev = torch.device("cuda")
     errs = {n: 0.0 for n in ATTN_KERNELS}
@@ -1052,7 +1015,7 @@ def attention_kernels_vs_plain():
                     **{f"{a} heads decode": f"{a} heads decode" for a in MODALITY_ATTN}}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        peak = _peak(dtype)
+        peak = peak_flops(dtype)
         # bf16: the tensor-core kernel (picked by dtype) and the CUDA-core one (named)
         variants = {None: "flash_attention_fwd"} if dtype == torch.float32 else {
             None: "flash_attention_fwd_sm90", "cuda_core": "flash_attention_fwd"}
@@ -1071,7 +1034,7 @@ def attention_kernels_vs_plain():
                 errs[name] = max(errs[name], _err(label + " out", out, want_o), _lse_err(label + " lse", lse, want_lse))
             if tag not in timed or (dtype == torch.float32 and tag != "smollm prefill"):
                 continue
-            bound, bound_by = _attn_fwd_bound(q, k, v, shape, peak, kw["causal"])
+            bound, bound_by = bound_ms(*attention_fwd_work(*shape, q.element_size(), kw["causal"]), peak)
             plain_ms = _time_ms(lambda: flash_attention_ref_lse(q, k, v, **kw), iters=50)
             library = _sdpa(q, k, v, kw["causal"])
             on_device = dtype == torch.bfloat16  # device times for the main paths' dtype
@@ -1093,9 +1056,7 @@ def attention_kernels_vs_plain():
                 fail(f"flash_decode {tag} {dname}: a second call gave other bits")
             if tag in decode_timed:
                 b, h, kh, hd = args[:4]
-                nbytes = 2 * keys * kh * hd * kp.element_size() + 2 * q.numel() * q.element_size() + 4 * (table.numel() + b)
-                flops = 4 * keys * (h // kh) * kh * hd
-                bound, bound_by = _bound_ms(nbytes, flops, peak)
+                bound, bound_by = bound_ms(*decode_work(b, h, kh, hd, keys, table.numel(), q.element_size()), peak)
                 call = lambda: flash_decode_fwd(q, kp, vp, table, pos, **kw)
                 timing[("flash_decode", decode_timed[tag], dname)] = {
                     "ms": _time_ms(call),
@@ -1143,12 +1104,12 @@ def attention_bwd_kernels_vs_plain():
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_dkv, flash_attention_bwd_dq
     from repro_torch.kernels.flash_attention.ref import (
-        _visible,
         attention_delta,
         flash_attention_bwd_dkv_ref,
         flash_attention_bwd_dq_ref,
         flash_attention_ref_lse,
     )
+    from repro_torch.kernels.kernel_cost import attention_bwd_work, bound_ms, peak_flops
 
     dev = torch.device("cuda")
     errs = {n: 0.0 for n in BWD_KERNELS}
@@ -1166,7 +1127,7 @@ def attention_bwd_kernels_vs_plain():
                                                   for a, m in MODALITY_ATTN.items()}}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        peak = _peak(dtype)
+        peak = peak_flops(dtype)
         # bf16: the tensor-core kernels (picked by dtype) and the CUDA-core ones (named)
         passes = {"dq": {None: "flash_attention_bwd_dq"}, "dkv": {None: "flash_attention_bwd_dkv"}}
         if dtype == torch.bfloat16:
@@ -1199,16 +1160,7 @@ def attention_bwd_kernels_vs_plain():
                         fail(f"{kname} {name}: a second call gave other bits")
             if tag not in timed or (dtype == torch.float32 and ci != 0):
                 continue
-            b, sq, sk, h, kh, hd = shape
-            pairs = int(_visible(sq, sk, kw["causal"], 0, "cpu").sum())  # the visible (query, key) pairs
-            its = q.element_size()
-            rows = 2 * 4 * b * sq * h  # lse and delta, f32
-            work = {
-                # s, dp, dq; inputs q k v dout lse delta, output dq
-                "dq": ((3 * q.numel() + 2 * k.numel()) * its + rows, 3 * 2 * b * h * pairs * hd),
-                # s, dp, dv, dk; outputs dk dv
-                "dkv": ((2 * q.numel() + 4 * k.numel()) * its + rows, 4 * 2 * b * h * pairs * hd),
-            }
+            work = {w: attention_bwd_work(w, *shape, q.element_size(), kw["causal"]) for w in ("dq", "dkv")}
             both, fwd = _sdpa_bwd(q, k, v, dout, kw["causal"])
             library = _time_ms(both, iters=50) - _time_ms(fwd, iters=50)
             on_device = dtype == torch.bfloat16  # device times for the main paths' dtype
@@ -1220,7 +1172,7 @@ def attention_bwd_kernels_vs_plain():
                     calls[kname] = (w, lambda kern=kern, variant=variant: kern(*args, variant=variant, **kw),
                                     lambda plain=plain: plain(*args, **kw))
             for n, (w, kern, plain) in calls.items():
-                bound, bound_by = _bound_ms(*work[w], peak)
+                bound, bound_by = bound_ms(*work[w], peak)
                 timing[(n, timed[tag], dname)] = {
                     "ms": _time_ms(kern, iters=50), "plain_ms": _time_ms(plain, iters=20),
                     "bound_ms": bound, "bound_by": bound_by, "library_ms": library,
@@ -2751,7 +2703,7 @@ def _xlstm_path(card):
     import numpy as np
     import torch
 
-    from repro_torch.config.registry import get_arch
+    from repro_torch.config.registry import get_arch, register_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     from repro_torch.models.transformer import cast_weights, init_lm
@@ -2784,7 +2736,11 @@ def _xlstm_path(card):
           f"{json.dumps(counts)}; one lm_prefill of {SERVE['prompt']} tokens (host clock; profiled idle share) "
           f"{json.dumps(cost)}", flush=True)
     _free()
-    argv = ["--arch", full.name, "--batch", str(RECURRENT_TRAIN["batch"]), "--seq", str(RECURRENT_TRAIN["seq"]),
+    # depth cut to one sLSTM group: the step is a host loop over time, a few
+    # seconds a layer
+    cut = register_arch(full.replace(name=f"{full.name}-{RECURRENT_TRAIN['layers']}l",
+                                     num_layers=RECURRENT_TRAIN["layers"]))
+    argv = ["--arch", cut.name, "--batch", str(RECURRENT_TRAIN["batch"]), "--seq", str(RECURRENT_TRAIN["seq"]),
             "--steps", str(RECURRENT_TRAIN["steps"]), "--optimizer", "adamw", "--device", "cuda",
             "--log-every", "1"]
     reset_launch_counts()
@@ -2794,7 +2750,8 @@ def _xlstm_path(card):
     if not all(math.isfinite(x) for x in result["losses"]):
         fail(f"xlstm-125m training: non-finite loss in {result['losses']}")
     summary = {k: result[k] for k in ("s_per_step", "tok_per_s", "max_memory_bytes", "params")}
-    print(f"xlstm-125m training, launch.train in bf16 under remat, batch {RECURRENT_TRAIN['batch']} x "
+    print(f"xlstm-125m training, {cut.num_layers} of {full.num_layers} layers, launch.train in bf16 under remat, "
+          f"batch {RECURRENT_TRAIN['batch']} x "
           f"{RECURRENT_TRAIN['seq']} ({RECURRENT_TRAIN['seq'] // full.ssm_chunk} scan chunks of {full.ssm_chunk}), "
           f"{RECURRENT_TRAIN['steps']} steps ({card}): {json.dumps(summary)}; losses "
           f"{[round(x, 4) for x in result['losses']]}", flush=True)
@@ -3710,7 +3667,11 @@ def lm_training_path():
           f"over leaves {kmedian:.3e}; limit 2 x {gap:.3e}", flush=True)
     if kgap > 2 * gap:
         fail(f"bf16 full-width step: the kernels' gradient gap to f32 {kgap:.3e} at {kleaf} beyond 2 x {gap:.3e}")
-    del params, plain, kernels
+    # nothing of the checks above may stay on the card: the run below resets
+    # the peak once its params and optimizer state exist, and phase 6b holds
+    # the dry-run's count to that peak
+    del params, plain, kernels, got, batch
+    gc.collect()
 
     argv = ["--arch", "smollm-135m", "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
             "--steps", str(TRAIN["steps"]), "--optimizer", "adamw", "--device", "cuda"]
@@ -3744,7 +3705,112 @@ def lm_training_path():
     print(f"LM training without remat: {other['s_per_step']:.4f} s/step, {other['tok_per_s']:.1f} tokens/s after the "
           f"first step, max_memory_allocated {other['max_memory_bytes']} bytes (remat: {result['s_per_step']:.4f}, "
           f"{result['max_memory_bytes']}); losses equal to the remat run's: {other['losses'] == losses}", flush=True)
-    return counts
+    return counts, result
+
+
+def _dryrun_records(*runs):
+    """The records of ``python -m repro_torch.launch.dryrun`` runs, one
+    subprocess each (each builds a one-process fake world of 256 ranks),
+    started together, and the seconds until the last ended."""
+    import os
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = []
+        for i, args in enumerate(runs):
+            out = Path(tmp) / f"dryrun{i}.json"
+            procs.append((args, out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", str(out)], cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)))
+        try:
+            errs = [proc.communicate(timeout=300)[1] for _, _, proc in procs]
+        finally:
+            for _, _, proc in procs:
+                proc.kill()  # a no-op for one that has ended
+        seconds = time.perf_counter() - t0
+        for (args, _, proc), err in zip(procs, errs):
+            if proc.returncode:
+                fail(f"dry-run {' '.join(args)} exited {proc.returncode}:\n{err[-4000:]}")
+        return [json.loads(out.read_text()) for _, out, _ in procs], seconds
+
+
+def dryrun_path(train_counts, train_result):
+    """Phase 6b: the dry-run (``repro_torch.launch.dryrun``) on this machine,
+    then held to phase 6's measured run."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.config import INPUT_SHAPES, ShapeConfig, TrainConfig, arch_supports_shape, get_arch
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.launch.specs import build_program
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.roofline import roofline_report
+    from repro_torch.roofline.op_cost import count_step
+    from repro_torch.runtime.steps import make_train_step
+
+    # (a) smollm-135m at full width over the four shapes on the 16x16 mesh,
+    # and the Co-Boosting distillation step at train_4k
+    cfg = get_arch("smollm-135m")
+    skip = arch_supports_shape(cfg, INPUT_SHAPES["long_500k"])
+    (records, coboost), sec = _dryrun_records(
+        ["--arch", "smollm-135m", "--multi-pod", "single"],
+        ["--arch", "smollm-135m", "--multi-pod", "single", "--coboost", "4", "--shape", "train_4k"])
+    for r in records + coboost:
+        want = ("skip", skip) if r["shape"] == "long_500k" else ("ok", None)
+        if (r["status"], r.get("reason")) != want:
+            fail(f"dry-run {r['arch']} {r['shape']} {r['mesh']}: {r['status']} {r.get('reason') or r.get('error')}, "
+                 f"expected {want}")
+    for r in records + coboost:
+        if r["status"] == "ok":
+            print(f"dry-run {r['arch']} {r['shape']} {r['mesh']}{' coboost 4' if 'coboost_clients' in r else ''}: "
+                  + json.dumps({k: r[k] for k in ("compute_s", "memory_s", "collective_s", "dominant", "bound_s",
+                                                  "peak_bytes_per_device", "fits_hbm", "useful_flops_ratio",
+                                                  "mfu_bound", "count_s")}), flush=True)
+    print(f"dry-run (a): {len(records)} records and coboost 4 in {sec:.1f} s (two processes at once)", flush=True)
+
+    # (b) phase 6's program counted meshless: smollm-135m at full width, bf16,
+    # AdamW, remat, 8 x 256; held to phase 6's run
+    shape = ShapeConfig("phase 6", TRAIN["seq"], TRAIN["batch"], "train")
+    tc = TrainConfig(optimizer="adamw", learning_rate=3e-3, schedule="linear_warmup_cosine", warmup_steps=1,
+                     total_steps=TRAIN["steps"])
+    t0 = time.perf_counter()
+    counts = count_step(*build_program(cfg, shape, tc))
+    rec = roofline_report(counts, 1, cfg, shape)
+    count_s = time.perf_counter() - t0
+    per_step = {n: train_counts[n] / TRAIN["steps"] for n in TRAIN_KERNELS}
+    calls = {n: rec["kernels"].get(n, {}).get("calls", 0) for n in TRAIN_KERNELS}
+    if calls != per_step:
+        fail(f"dry-run kernel calls a step {calls}, phase 6 launched {per_step} a step")
+    # the same step really run once on the card under FlopCounterMode
+    dev = torch.device("cuda")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0))
+    step = make_train_step(cfg, tc)
+    opt_state = step.optimizer.init(params)
+    batch = {n: torch.as_tensor(a, device=dev)
+             for n, a in make_token_stream(0, cfg.vocab_size, TRAIN["batch"], TRAIN["seq"]).items()}
+    with FlopCounterMode(display=False) as flop_counter:
+        step(params, opt_state, batch, 0)
+    torch.cuda.synchronize()
+    real = flop_counter.get_total_flops()
+    del params, opt_state
+    aten = rec["aten_flops_per_device"]
+    if aten != real:
+        fail(f"dry-run aten FLOPs {aten} != FlopCounterMode's {real} on one real step")
+    ratio = rec["bound_s"] / train_result["s_per_step"]
+    peak = rec["peak_bytes_per_device"] / train_result["max_memory_bytes"]
+    print(f"dry-run (b), phase 6's program meshless ({count_s:.1f} s): " + json.dumps(
+        {k: rec[k] for k in ("flops_per_device", "aten_flops_per_device", "bytes_per_device", "compute_s",
+                             "memory_s", "dominant", "bound_s", "argument_bytes_per_device",
+                             "temp_bytes_per_device", "peak_bytes_per_device")})
+          + f"; kernel calls a step {json.dumps(calls)} (phase 6: the same); aten FLOPs equal FlopCounterMode's "
+          f"({real}); bound / measured s/step {rec['bound_s']:.6f} / {train_result['s_per_step']:.6f} = {ratio:.4f};"
+          f" peak / max_memory_allocated {rec['peak_bytes_per_device']} / {train_result['max_memory_bytes']} = "
+          f"{peak:.4f}", flush=True)
+    if ratio > 1:
+        fail(f"dry-run bound {rec['bound_s']} s above phase 6's measured {train_result['s_per_step']} s/step")
+    if not 0.9 <= peak <= 1.1:
+        fail(f"dry-run peak {rec['peak_bytes_per_device']} bytes is {peak:.3f} x phase 6's max_memory_allocated")
 
 
 def lm_distill_path():
@@ -3809,10 +3875,12 @@ def main() -> None:
     mesh_counts, mesh_route = phase("5i", fleet_path, card)
     phase("5b", telemetry_path, {n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
-    counts.update(phase("6", lm_training_path))
+    train_counts, train_result = phase("6", lm_training_path)
+    counts.update(train_counts)
     print(f"flash_attention_fwd launches: serving path {serving['flash_attention_fwd']} (tensor cores "
           f"{serving['flash_attention_fwd_sm90']}), granite-3-2b serving {granite['flash_attention_fwd']}, LM training path {counts['flash_attention_fwd']} (tensor cores "
           f"{counts['flash_attention_fwd_sm90']}; the table's)", flush=True)
+    phase("6b", dryrun_path, train_counts, train_result)
     phase("7", lm_distill_path)
     print(f"phase seconds: {json.dumps(seconds)}; total {sum(seconds.values()):.1f}", flush=True)
     print("kernels: " + json.dumps({

@@ -108,6 +108,11 @@ class ModelConfig:
         return self.family == "audio"
 
     @property
+    def is_subquadratic(self) -> bool:
+        """True if the arch can decode at 500k+ context (SSM/hybrid state or SWA)."""
+        return self.ssm_kind != "" or self.sliding_window > 0
+
+    @property
     def expert_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 

@@ -22,13 +22,59 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.core.ensemble import ensemble_logits
-from repro_torch.core.losses import kl_loss, kl_per_sample
+from repro_torch.core.losses import kl_per_sample
 from repro_torch.core.weight_search import normalize_weights
+from repro_torch.kernels.dispatch import on_local_shards
 from repro_torch.models.transformer import head_matrix, lm_features, lm_forward
 from repro_torch.optim.optimizers import apply_updates
+from repro_torch.sharding.partition import is_dtensor
 from repro_torch.utils.trees import value_and_grad
 
 Clients = List[Dict[str, Any]]
+
+
+def kl_per_position(teacher: torch.Tensor, student: torch.Tensor, temperature: float) -> torch.Tensor:
+    """:func:`~repro_torch.core.losses.kl_per_sample` of (B, S, V) logits,
+    vocab-parallel where ``student`` is a DTensor whose V is split: no rank
+    gathers the vocabulary it does not hold (as the reference's partitioned
+    reductions do not). On each rank's slice, the largest scaled logit a
+    position and the sum of the exponentials below it, for the teacher and
+    the student; the mesh dim that splits V stacks them on the last dim,
+    made whole (a few numbers a position) and combined into the two
+    log-sum-exps; then each rank's slice of ``Σ p_t (log p_t - log p_s)``,
+    summed across the slices. The largest logits only shift the
+    exponentials and take no gradient; the student's sum and its slice
+    carry the gradient back to it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = student.dim() - 1
+    split = is_dtensor(student) and any(isinstance(p, Shard) and p.dim == last for p in student.placements)
+    if not split:
+        return kl_per_sample(teacher, student, temperature)
+    mesh = student.device_mesh
+    # a partial sum (a product over a split d) is reduced first
+    pl = tuple(Replicate() if p.is_partial() else p for p in student.placements)
+    rows = [Replicate() if isinstance(p, Shard) and p.dim == last else p for p in pl]
+
+    def stats(t, s):
+        out = []
+        for x in (t.float() / temperature, s.float() / temperature):
+            m = torch.amax(x, dim=-1, keepdim=True).detach()
+            out += [m, torch.sum(torch.exp(x - m), dim=-1, keepdim=True)]
+        return tuple(out)
+
+    def lse(m, e):  # (..., n slices) -> (..., 1)
+        top = torch.amax(m, dim=-1, keepdim=True)
+        return top + torch.log(torch.sum(e * torch.exp(m - top), dim=-1, keepdim=True))
+
+    def part(t, s, lse_t, lse_s):
+        lt = t.float() / temperature - lse_t
+        return torch.sum(torch.exp(lt) * (lt - (s.float() / temperature - lse_s)), dim=-1, keepdim=True)
+
+    mt, et, ms, es = (x.redistribute(mesh, rows) for x in
+                      on_local_shards("vocab_kl", stats, (teacher, student), (pl, pl), (pl,) * 4))
+    kl = on_local_shards("vocab_kl", part, (teacher, student, lse(mt, et), lse(ms, es)), (pl, pl, rows, rows), list(pl))
+    return torch.sum(kl.redistribute(mesh, rows), dim=-1) * (temperature**2)
 
 
 def ensemble_lm_logits(client_params: Clients, cfg, batch: Dict, w: torch.Tensor) -> torch.Tensor:
@@ -101,7 +147,7 @@ def coboost_distill_loss(
         with torch.no_grad():
             teacher = ensemble_lm_logits(client_params, cfg, batch, w)
         student, aux = lm_forward(server_params, cfg, batch)
-        return kl_loss(teacher, student, temperature) + cfg.router_aux_coef * aux
+        return torch.mean(kl_per_position(teacher, student, temperature)) + cfg.router_aux_coef * aux
 
     with torch.no_grad():
         cfeats = torch.stack([lm_features(p, cfg, batch)[0].to(torch.bfloat16) for p in client_params])  # (K,B,S,d)
@@ -118,7 +164,7 @@ def coboost_distill_loss(
         cl = cfeats[:, :, c0 : c0 + chunk].float()
         t = torch.einsum("k,kbcd,kdv->bcv", wf, cl, cheads.float())
         st = sfeat[:, c0 : c0 + chunk] @ shead.to(sfeat.dtype)
-        total = total + torch.sum(kl_per_sample(t, st, temperature))
+        total = total + torch.sum(kl_per_position(t, st, temperature))
     return total / (b * s) + cfg.router_aux_coef * aux
 
 

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Any, Dict, Iterable, List, NamedTuple
 
 import torch
 
@@ -46,6 +46,26 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+#: Listeners told of every hand-kernel call on ``meta`` tensors, which
+#: launches nothing and leaves :data:`LAUNCHES` alone: the dry-run's
+#: per-op counter (``repro_torch.roofline.op_cost.OpCounter``) subscribes
+#: while it counts. A listener has ``kernel(names, nbytes, flops, dtype)``,
+#: and the ``scale``, ``snapshot`` and ``add_since`` through which
+#: ``repro_torch.utils.scan.counted_times`` counts one step of a loop for
+#: many.
+META_LISTENERS: List[Any] = []
+
+
+def record_meta_call(names: Iterable[str], nbytes: int, flops: int, dtype: torch.dtype) -> None:
+    """A wrapper's call on ``meta`` tensors, told to every listener:
+    ``names`` are the launch counters the card's launch would bump (the
+    first is the op's), ``nbytes`` and ``flops`` its work
+    (:mod:`repro_torch.kernels.kernel_cost`), ``dtype`` the peak its
+    operations run at."""
+    for listener in META_LISTENERS:
+        listener.kernel(tuple(names), nbytes, flops, dtype)
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -56,10 +76,12 @@ def launch_counts() -> Dict[str, int]:
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Every tensor on one CUDA device and contiguous."""
+    """Every tensor on one CUDA device, or every one on ``meta`` (where a
+    wrapper records its call for the dry-run's counter instead of
+    launching), and contiguous."""
     dev = tensors[0].device
     for t in tensors:
-        if not t.is_cuda or t.device != dev:
+        if not (t.is_cuda or t.is_meta) or t.device != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA device (got {t.device} and {dev})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} must be contiguous")

@@ -113,6 +113,8 @@ LOCAL_MAP_CALLS = {
     "client_bank": 0,  # a client group's vmapped forward on each rank's own clients
     "ensemble_kl": 0,  # kernels #1 and #2 on each rank's rows of a sharded client stack
     "ghm_ce": 0,  # kernels #3 and #4, the same
+    "vocab_ce": 0,  # the cross-entropy's per-rank statistics over a vocabulary slice
+    "vocab_kl": 0,  # the distillation KL's, the same
 }
 
 

@@ -52,9 +52,11 @@ from repro_torch.kernels.build import (
     loss_bwd_geometry,
     loss_fwd_geometry,
     loss_scratch,
+    record_meta_call,
     stream_ptr,
 )
 from repro_torch.kernels.ensemble_kl.ref import ensemble_kl_bwd_ref, ensemble_kl_fwd_ref
+from repro_torch.kernels.kernel_cost import loss_work
 
 FWD_SOURCE = Path(__file__).with_name("ensemble_kl_fwd.cu")
 BWD_SOURCE = Path(__file__).with_name("ensemble_kl_bwd.cu")
@@ -88,12 +90,17 @@ def _fwd_lib():
 def ensemble_kl_fwd(client_logits, student_logits, w, temperature: float = 1.0):
     """``(out, lse_t, lse_s)``, each (B,) f32 (the rows of one (3, B)
     tensor). Launches the CUDA kernel, once, for CUDA tensors; computes the
-    plain version for CPU tensors."""
+    plain version for CPU tensors; on ``meta`` tensors returns the outputs'
+    shapes and records the call for the dry-run's counter."""
     if client_logits.device.type == "cpu":
         return ensemble_kl_fwd_ref(client_logits, student_logits, w, temperature)
     _check_inputs("ensemble_kl_fwd", client_logits, student_logits, w)
     k, b, v = client_logits.shape
     res = torch.empty((3, b), dtype=torch.float32, device=w.device)
+    if w.is_meta:
+        work = loss_work("ensemble_kl_fwd", k, b, v, client_logits.element_size())
+        record_meta_call(("ensemble_kl_fwd",), *work, torch.float32)
+        return res[0], res[1], res[2]
     cl_p, st_p = client_logits.data_ptr(), student_logits.data_ptr()
     itemsize = max(client_logits.element_size(), student_logits.element_size())
     geo = loss_fwd_geometry(b, v, itemsize, (cl_p | st_p) % 16 == 0)
@@ -132,7 +139,7 @@ def ensemble_kl_bwd(
     """``(g_client, g_student, g_w)`` in the dtypes of the inputs, each
     ``None`` where ``needs`` (three flags, in that order) leaves it out.
     Launches the CUDA kernel, once, for CUDA tensors; computes the plain
-    version for CPU tensors."""
+    version for CPU tensors; records the call on ``meta`` tensors."""
     if client_logits.device.type == "cpu":
         return ensemble_kl_bwd_ref(client_logits, student_logits, w, g, out, lse_t, lse_s, temperature, needs)
     _check_bwd(client_logits, student_logits, w, g, out, lse_t, lse_s)
@@ -141,6 +148,10 @@ def ensemble_kl_bwd(
     g_cl = torch.empty_like(client_logits) if want_cl else None
     g_st = torch.empty_like(student_logits) if want_st else None
     g_w = torch.empty(k, dtype=torch.float32, device=w.device) if want_w else None
+    if w.is_meta:
+        work = loss_work("ensemble_kl_bwd", k, b, v, client_logits.element_size(), (want_cl, want_st, want_w))
+        record_meta_call(("ensemble_kl_bwd",), *work, torch.float32)
+        return g_cl, g_st, g_w
     itemsize = max(client_logits.element_size(), student_logits.element_size())
     aligned = client_logits.data_ptr() % 16 == 0 and student_logits.data_ptr() % 16 == 0
     blocks, vec, rows = loss_bwd_geometry(b * v, itemsize, aligned)

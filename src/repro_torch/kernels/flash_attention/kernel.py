@@ -27,17 +27,19 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES, check_cuda, check_launch, cuda_library, stream_ptr
+from repro_torch.kernels.build import LAUNCHES, check_cuda, check_launch, cuda_library, record_meta_call, stream_ptr
 from repro_torch.kernels.flash_attention.ref import (
     attention_delta,
     flash_attention_bwd_dkv_ref,
     flash_attention_bwd_dq_ref,
     flash_attention_ref_lse,
 )
+from repro_torch.kernels.kernel_cost import attention_bwd_work, attention_fwd_work
 
 SOURCE = Path(__file__).with_name("flash_attention.cu")
 BWD_SOURCE = Path(__file__).with_name("flash_attention_bwd.cu")
@@ -138,17 +140,30 @@ def _shape_args(q, k, causal, window, softcap):
     return (b, sq, k.shape[1], h, k.shape[2], hd, int(causal), int(window), float(softcap))
 
 
+def _record(name, variant, work, q, k, causal, window):
+    """A call on ``meta`` tensors: recorded under the counters the card's
+    launch would bump, with its work at these shapes; nothing launches."""
+    b, sq, h, hd = q.shape
+    names = (name, f"{name}_sm90") if variant == "sm90" else (name,)
+    nbytes, flops = work(b, sq, k.shape[1], h, k.shape[2], hd, q.element_size(), bool(causal), int(window))
+    record_meta_call(names, nbytes, flops, q.dtype)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0, variant=None):
     """``(out, lse)``: out (B, Sq, H, hd) in q's dtype, lse (B, Sq, H) f32.
     Launches a CUDA kernel for CUDA tensors (:func:`attention_variant`
     picks it, unless ``variant`` names one); computes the plain version for
-    CPU tensors."""
+    CPU tensors; on ``meta`` tensors returns the outputs' shapes and
+    records the call (:func:`repro_torch.kernels.build.record_meta_call`)."""
     if q.device.type == "cpu":
         return flash_attention_ref_lse(q, k, v, causal=causal, window=window, softcap=softcap)
     _check("flash_attention_fwd", q, k, v)
     variant = _pick("flash_attention_fwd", q, variant)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        _record("flash_attention_fwd", variant, attention_fwd_work, q, k, causal, window)
+        return out, lse
     if q.numel() == 0:
         return out, lse
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
@@ -170,12 +185,16 @@ def flash_attention_bwd_dq(
 ):
     """The dq pass: dq (B, Sq, H, hd) in q's dtype. Launches a CUDA kernel
     for CUDA tensors (:func:`attention_variant` picks it, unless
-    ``variant`` names one); computes the plain version for CPU tensors."""
+    ``variant`` names one); computes the plain version for CPU tensors;
+    records the call on ``meta`` tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, dout, lse, delta, causal=causal, window=window, softcap=softcap)
     _check_bwd("flash_attention_bwd_dq", q, k, v, dout, lse, delta)
     variant = _pick("flash_attention_bwd_dq", q, variant)
     dq = torch.empty_like(q)
+    if q.is_meta:
+        _record("flash_attention_bwd_dq", variant, functools.partial(attention_bwd_work, "dq"), q, k, causal, window)
+        return dq
     if q.numel() == 0:
         return dq
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
@@ -198,12 +217,16 @@ def flash_attention_bwd_dkv(
     """The dk/dv pass: ``(dk, dv)``, each (B, Sk, KH, hd) in k's dtype, the
     GQA group summed in the kernel. Launches a CUDA kernel for CUDA tensors
     (:func:`attention_variant` picks it, unless ``variant`` names one);
-    computes the plain version for CPU tensors."""
+    computes the plain version for CPU tensors; records the call on
+    ``meta`` tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, dout, lse, delta, causal=causal, window=window, softcap=softcap)
     _check_bwd("flash_attention_bwd_dkv", q, k, v, dout, lse, delta)
     variant = _pick("flash_attention_bwd_dkv", q, variant)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.is_meta:
+        _record("flash_attention_bwd_dkv", variant, functools.partial(attention_bwd_work, "dkv"), q, k, causal, window)
+        return dk, dv
     if q.numel() == 0 or k.numel() == 0:
         return dk.zero_(), dv.zero_()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),

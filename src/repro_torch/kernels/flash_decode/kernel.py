@@ -29,8 +29,9 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import SMS, LAUNCHES, check_cuda, check_launch, cuda_library, stream_ptr
+from repro_torch.kernels.build import SMS, LAUNCHES, check_cuda, check_launch, cuda_library, record_meta_call, stream_ptr
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.kernel_cost import decode_work
 
 SOURCE = Path(__file__).with_name("flash_decode.cu")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,7 +94,10 @@ def flash_decode_fwd(q, k_pages, v_pages, page_table, pos, *, window: int = 0, s
     """(B, H, hd) in q's dtype. Launches the CUDA kernels for CUDA tensors
     (a call is two kernels: the splits, then their combine, unless S = 1;
     it counts as one launch); computes the plain version for CPU tensors.
-    ``cache_len`` 0 means the table extent W·ps."""
+    On ``meta`` tensors it returns the output's shape, makes the scratch
+    the launch would, and records the call with the work of every row
+    reading its whole window or table extent (positions are data, which
+    ``meta`` has not). ``cache_len`` 0 means the table extent W·ps."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_pages, v_pages, page_table, pos, window=window, softcap=softcap, cache_len=cache_len)
     _check(q, k_pages, v_pages, page_table, pos)
@@ -103,11 +107,16 @@ def flash_decode_fwd(q, k_pages, v_pages, page_table, pos, *, window: int = 0, s
     out = torch.empty_like(q)
     if b == 0:
         return out
+    splits = decode_splits(b, kh, w)
+    part = torch.empty(b * h * splits * (hd + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
+    if q.is_meta:
+        cl = min(int(cache_len or w * ps), w * ps)
+        keys = b * (min(cl, window) if window > 0 else cl)
+        record_meta_call(("flash_decode",), *decode_work(b, h, kh, hd, keys, page_table.numel(), q.element_size()), q.dtype)
+        return out
     for t in (k_pages, v_pages):  # cp.async copies 16-byte pieces
         if t.data_ptr() % 16:
             raise ValueError("flash_decode: the pages must start at a 16-byte-aligned address")
-    splits = decode_splits(b, kh, w)
-    part = torch.empty(b * h * splits * (hd + 2), dtype=torch.float32, device=q.device) if splits > 1 else None
     err = _lib()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         part.data_ptr() if part is not None else None, b, h, kh, hd, ps, w, int(cache_len or w * ps), int(window),

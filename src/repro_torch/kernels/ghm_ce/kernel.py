@@ -52,9 +52,11 @@ from repro_torch.kernels.build import (
     loss_bwd_geometry,
     loss_fwd_geometry,
     loss_scratch,
+    record_meta_call,
     stream_ptr,
 )
 from repro_torch.kernels.ghm_ce.ref import ghm_ce_bwd_ref, ghm_ce_fwd_ref
+from repro_torch.kernels.kernel_cost import loss_work
 
 FWD_SOURCE = Path(__file__).with_name("ghm_ce_fwd.cu")
 BWD_SOURCE = Path(__file__).with_name("ghm_ce_bwd.cu")
@@ -90,12 +92,15 @@ def _fwd_lib():
 def ghm_ce_fwd(client_logits, labels, w, weighted: bool = True):
     """``(out, lse, ly)``, each (B,) f32 (the rows of one (3, B) tensor).
     Launches the CUDA kernel, once, for CUDA tensors; computes the plain
-    version for CPU tensors."""
+    version for CPU tensors; records the call on ``meta`` tensors."""
     if client_logits.device.type == "cpu":
         return ghm_ce_fwd_ref(client_logits, labels, w, weighted)
     _check_inputs("ghm_ce_fwd", client_logits, labels, w)
     k, b, v = client_logits.shape
     res = torch.empty((3, b), dtype=torch.float32, device=w.device)
+    if w.is_meta:
+        record_meta_call(("ghm_ce_fwd",), *loss_work("ghm_ce_fwd", k, b, v, client_logits.element_size()), torch.float32)
+        return res[0], res[1], res[2]
     cl_p = client_logits.data_ptr()
     geo = loss_fwd_geometry(b, v, client_logits.element_size(), cl_p % 16 == 0)
     part = ticket = None
@@ -134,7 +139,7 @@ def ghm_ce_bwd(
     """``(g_client, g_w)`` in the dtypes of the inputs, each ``None`` where
     ``needs`` (two flags, in that order) leaves it out. Launches the CUDA
     kernel, once, for CUDA tensors; computes the plain version for CPU
-    tensors."""
+    tensors; records the call on ``meta`` tensors."""
     if client_logits.device.type == "cpu":
         return ghm_ce_bwd_ref(client_logits, labels, w, g, lse, ly, weighted, stop_difficulty_grad, needs)
     _check_bwd(client_logits, labels, w, g, lse, ly)
@@ -142,6 +147,10 @@ def ghm_ce_bwd(
     want_cl, want_w = (bool(x) for x in needs)
     g_cl = torch.empty_like(client_logits) if want_cl else None
     g_w = torch.empty(k, dtype=torch.float32, device=w.device) if want_w else None
+    if w.is_meta:
+        work = loss_work("ghm_ce_bwd", k, b, v, client_logits.element_size(), (want_cl, want_w))
+        record_meta_call(("ghm_ce_bwd",), *work, torch.float32)
+        return g_cl, g_w
     blocks, vec, rows = loss_bwd_geometry(b * v, client_logits.element_size(), client_logits.data_ptr() % 16 == 0)
     part, ticket = loss_scratch(w.device, k * rows) if want_w and rows else (None, None)
     ptr = lambda t: t.data_ptr() if t is not None else None

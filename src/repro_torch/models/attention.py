@@ -59,14 +59,55 @@ def init_attention(gen: torch.Generator, cfg, dtype):
 def _proj(x, w):
     """``einsum("bsd,dhk->bshk")`` as one matmul."""
     d, h, hd = w.shape
-    y = x @ w.to(x.dtype).reshape(d, h * hd)
+    return split_heads(x @ flatten_heads(w.to(x.dtype), 1), h, hd)
+
+
+def whole_where_cut(t, dim: int, heads: int):
+    """A DTensor ``t`` made whole on each mesh dim that splits its ``dim``
+    into pieces that are not whole heads (9 heads over a 16-way model
+    axis): such a split cannot be unflattened into (heads, hd). DTensor
+    may put that split on a product's output where the weight is whole on
+    the model axis. A plain tensor is kept."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = t.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim and heads % mesh.size(i) else p
+               for i, p in enumerate(t.placements))
+    return t if pl == tuple(t.placements) else t.redistribute(mesh, pl)
+
+
+def split_heads(y, h: int, hd: int):
+    """``y`` (..., h·hd) as (..., h, hd) (:func:`whole_where_cut` first)."""
+    y = whole_where_cut(y, y.dim() - 1, h)
     return y.reshape(*y.shape[:-1], h, hd)
+
+
+class _FlattenHeads(torch.autograd.Function):
+    """A DTensor's (heads, hd) dims flattened into one, whose gradient is
+    made whole where its split would cut a head before it is unflattened
+    back."""
+
+    @staticmethod
+    def forward(ctx, w, dim):
+        ctx.shape, ctx.dim = w.shape, dim
+        return w.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_where_cut(g, ctx.dim, ctx.shape[ctx.dim]).reshape(ctx.shape), None
+
+
+def flatten_heads(w, dim: int):
+    """``w`` (a weight or an activation) with its dims ``dim`` (the heads)
+    and ``dim + 1`` (hd) flattened into one, for one matmul."""
+    return _FlattenHeads.apply(w, dim) if is_dtensor(w) else w.flatten(dim, dim + 1)
 
 
 def _out_proj(o, wo):
     """``einsum("bshk,hkd->bsd")``."""
-    h, hd, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * hd) @ wo.to(o.dtype).reshape(h * hd, d)
+    return flatten_heads(o, o.dim() - 2) @ flatten_heads(wo.to(o.dtype), 0)
 
 
 def _project_qkv(params, x, cfg, positions):
@@ -121,11 +162,11 @@ def _index_parts(index):
 
 def write_rows(buf: torch.Tensor, index, values: torch.Tensor) -> None:
     """``buf[index] = values`` in place (cast to ``buf``'s dtype). On a
-    DTensor ``buf`` every rank writes its own shard: the indexed leading
-    dims (slots, pages, positions) are never sharded, so ``values`` takes
-    ``buf``'s placements on the trailing dims they share (the heads or
-    channel dims) and the index tensors, data every rank holds, stay
-    whole."""
+    DTensor ``buf`` every rank writes its own shard: an indexed leading dim
+    (slots, pages, positions) is sharded only where its index is the full
+    ``slice(None)``, so ``values`` takes ``buf``'s placements on the dims
+    they share (the full dims, the heads or channel dims) and the index
+    tensors, data every rank holds, stay whole."""
     if not is_dtensor(buf):
         buf[index] = values.to(buf.dtype)
         return
@@ -137,7 +178,7 @@ def write_rows(buf: torch.Tensor, index, values: torch.Tensor) -> None:
     vp = []
     for p in buf.placements:
         if isinstance(p, Shard):
-            if p.dim < len(index):
+            if p.dim < len(index) and index[p.dim] != slice(None):
                 raise ValueError(f"cannot write rows of a buffer sharded on an indexed dim ({buf.placements})")
             p = Shard(p.dim - lead)
         vp.append(p)
@@ -148,6 +189,36 @@ def write_rows(buf: torch.Tensor, index, values: torch.Tensor) -> None:
 
     on_local_shards("kv_scatter", local, (buf, values, *tensors),
                     (buf.placements, vp, *([None] * len(tensors))), [*buf.placements])
+
+
+def write_positions(buf: torch.Tensor, pos: torch.Tensor, values: torch.Tensor) -> None:
+    """``buf[r, pos[r]] = values[r]`` in place for every row r: buf (B, S,
+    ...), pos (B,), values (B, ...). On a DTensor ``buf`` whose S dim is
+    split over one mesh dim (the reference's sequence-split decode cache),
+    each rank writes the rows whose position falls in its share of S and
+    rewrites its own value elsewhere; rows follow ``buf``'s batch split."""
+    seq = [i for i, p in enumerate(buf.placements) if getattr(p, "dim", None) == 1] if is_dtensor(buf) else []
+    if not seq:
+        write_rows(buf, (torch.arange(buf.shape[0], device=pos.device), pos), values)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, (i,) = buf.device_mesh, seq
+    share = -(-buf.shape[1] // mesh.size(i))  # torch.chunk's
+    off = mesh.get_coordinate()[i] * share
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in buf.placements)
+    vp = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else q
+               for p, q in zip(buf.placements, rows))
+
+    def local(b, v, p):
+        lp = p.long() - off
+        inside = ((lp >= 0) & (lp < b.shape[1])).reshape(-1, 1, *([1] * (b.dim() - 2)))
+        at = lp.clamp(0, b.shape[1] - 1).reshape(-1, 1, *([1] * (b.dim() - 2))).expand(b.shape[0], 1, *b.shape[2:])
+        b.scatter_(1, at, torch.where(inside, v[:, None].to(b.dtype), b.gather(1, at)))
+        return b
+
+    on_local_shards("kv_scatter", local, (buf, replicated(values, mesh), replicated(pos, mesh)),
+                    (buf.placements, vp, rows), [*buf.placements])
 
 
 def take_rows(buf: torch.Tensor, index) -> torch.Tensor:
@@ -171,8 +242,13 @@ def _sdpa_small(q, k, v, bias, cfg):
     right-aligned broadcastable to it, like the engine's ``(B, 1, Sk)``."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
-    if is_dtensor(q):  # whole GQA groups per rank before the heads split
-        q = q.redistribute(q.device_mesh, _gqa_placements(q, k, q.device_mesh)[0])
+    if is_dtensor(q):  # whole GQA groups per rank before the heads split, where the cache splits its heads
+        from torch.distributed.tensor import Replicate, Shard
+
+        qp = _gqa_placements(q, k, q.device_mesh)[0]
+        if not any(isinstance(p, Shard) and p.dim == 2 for p in getattr(k, "placements", ())):
+            qp = tuple(Replicate() if isinstance(p, Shard) and p.dim == 2 else p for p in qp)
+        q = q.redistribute(q.device_mesh, qp)
     q = q.reshape(b, sq, kh, h // kh, hd)
     scale = 1.0 / torch.tensor(float(hd)).sqrt().to(q.dtype)
     scores = torch.einsum("bqkgh,bskh->bkgqs", q * scale, k).float()
@@ -232,10 +308,11 @@ def attn_prefill(params, x, cfg, cache):
         write_rows(ck, (slice(None), slice(0, s)), k)
         write_rows(cv, (slice(None), slice(0, s)), v)
     else:
-        tail_pos = torch.arange(s - cl, s, device=x.device)
-        slots = tail_pos % cl if cfg.sliding_window > 0 else torch.arange(cl, device=x.device)
-        write_rows(ck, (slice(None), slots), k[:, -cl:])
-        write_rows(cv, (slice(None), slots), v[:, -cl:])
+        # the last cl positions fill the cache; on a ring, position t sits
+        # at slot t % cl, so the tail is rolled by s % cl
+        shift = s % cl if cfg.sliding_window > 0 else 0
+        write_rows(ck, (slice(None), slice(None)), torch.roll(k[:, -cl:], shift, 1) if shift else k[:, -cl:])
+        write_rows(cv, (slice(None), slice(None)), torch.roll(v[:, -cl:], shift, 1) if shift else v[:, -cl:])
     return constrain(out, "batch", None, None), cache
 
 
@@ -261,9 +338,8 @@ def attn_decode(params, x, cfg, cache, pos, page_table=None):
     ck, cv = cache["k"], cache["v"]
     cl = ck.shape[1]
     slot = posv % cl if cfg.sliding_window > 0 else torch.clamp(posv, max=cl - 1)
-    rows = torch.arange(b, device=x.device)
-    write_rows(ck, (rows, slot), k_new[:, 0])
-    write_rows(cv, (rows, slot), v_new[:, 0])
+    write_positions(ck, slot, k_new[:, 0])
+    write_positions(cv, slot, v_new[:, 0])
     # the attended copy of the cache is sequence-sharded, as in the reference
     ck, cv = constrain(ck, "batch", "seq", None, None), constrain(cv, "batch", "seq", None, None)
     ring_idx = torch.arange(cl, dtype=torch.int32, device=x.device)[None, :]

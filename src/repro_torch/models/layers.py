@@ -61,14 +61,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+# Under a mesh an MLP's output has its tensor-parallel partial sums reduced,
+# as the attention's has: added to the residual stream unreduced, DTensor
+# would split the stream over the sequence.
+
+
 def swiglu(x, wi, wg, wo):
     h = x @ wi.to(x.dtype)
     g = x @ wg.to(x.dtype)
-    return constrain(h * F.silu(g), "batch", None, "tp") @ wo.to(x.dtype)
+    return constrain(constrain(h * F.silu(g), "batch", None, "tp") @ wo.to(x.dtype), "batch", None, None)
 
 
 def gelu_mlp(x, wi, wo):
-    return constrain(F.gelu(x @ wi.to(x.dtype), approximate="tanh"), "batch", None, "tp") @ wo.to(x.dtype)
+    h = constrain(F.gelu(x @ wi.to(x.dtype), approximate="tanh"), "batch", None, "tp")
+    return constrain(h @ wo.to(x.dtype), "batch", None, None)
 
 
 def init_mlp(gen: torch.Generator, cfg, dtype):

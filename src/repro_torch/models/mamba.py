@@ -62,9 +62,12 @@ def _causal_conv(x, w, state=None):
 def _ssm_params(params, xc, cfg):
     """xc: (B, S, inner) post-conv activations → (dt, B_ssm, C_ssm, A)."""
     n, r = cfg.ssm_state_dim, cfg.dt_rank_
-    dbc = xc @ params["x_proj"].to(xc.dtype)
+    # the scan's splits (channels over "tp", the projections' partial sums
+    # reduced), before the nonlinearity: DTensor would otherwise split a
+    # partial sum over the sequence, which the scan's chunks cannot take
+    dbc = constrain(xc @ params["x_proj"].to(xc.dtype), "batch", None, None)
     dt, b_ssm, c_ssm = dbc.split([r, n, n], dim=-1)
-    dt = dt @ params["dt_proj"].to(xc.dtype)
+    dt = constrain(dt @ params["dt_proj"].to(xc.dtype), "batch", None, "tp")
     dt = F.softplus(dt.float() + params["dt_bias"])
     a = -torch.exp(params["A_log"])  # (inner, N)
     return dt, b_ssm.float(), c_ssm.float(), a

@@ -50,7 +50,10 @@ def _router(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     def route(probs):
         gates, idx = torch.topk(probs, k, dim=-1, sorted=True)
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-        return gates, idx, torch.bincount(idx.reshape(-1), minlength=e)
+        # the expert histogram (bincount's, whose output size is data and
+        # which a dry-run's meta tensors cannot give)
+        flat = idx.reshape(-1)
+        return gates, idx, torch.zeros(e, dtype=torch.int64, device=idx.device).scatter_add_(0, flat, torch.ones_like(flat))
 
     if is_dtensor(probs):
         # top-k and the expert histogram on each rank's tokens: the counts
@@ -113,32 +116,81 @@ def _one_hot(i, n: int, dtype) -> torch.Tensor:
     return (i[..., None] == torch.arange(n, device=i.device)).to(dtype)
 
 
-def _experts(params, xe):
-    """The expert SwiGLU on the capacity buffer xe (G, E, C, d)."""
+def _expert_ffn(xe, wi, wg, wo):
     dt = xe.dtype
-    h = torch.einsum("gecd,edf->gecf", xe, params["wi"].to(dt))
-    hg = torch.einsum("gecd,edf->gecf", xe, params["wg"].to(dt))
-    return torch.einsum("gecf,efd->gecd", h * F.silu(hg), params["wo"].to(dt))
+    h = torch.einsum("gecd,edf->gecf", xe, wi.to(dt))
+    hg = torch.einsum("gecd,edf->gecf", xe, wg.to(dt))
+    return torch.einsum("gecf,efd->gecd", h * F.silu(hg), wo.to(dt))
 
 
-def moe_apply_einsum(params, x, cfg):
-    """GShard-style capacity dispatch through one-hot einsums. x: (B, S, d).
-    Returns (y, aux)."""
-    xg, (b, s) = _group(x, cfg, x.shape[1])
+def _experts(params, xe):
+    """The expert SwiGLU on the capacity buffer xe (G, E, C, d).
+
+    On a DTensor ``xe`` the products run on each rank's local shards: where
+    ``xe`` splits the experts over a mesh dim the weights split their
+    experts there too; on the ``model`` axis, where the experts do not
+    split, each rank takes a slice of every expert's width (the weights'
+    ``f``; its output is a partial sum over the axis); a split of the
+    groups keeps the weights whole there. The weights' FSDP split is
+    gathered for the product (their gradients come back reduce-scattered).
+    DTensor's own einsum cannot run these products where the data axes
+    meet two dims at once."""
+    weights = (params["wi"], params["wg"], params["wo"])
+    if not is_dtensor(xe):
+        return _expert_ffn(xe, *weights)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    xp, wp, op, outp = [], [], [], []
+    for name, p in zip(xe.device_mesh.mesh_dim_names, xe.placements):
+        if isinstance(p, Shard) and p.dim == 1:  # the experts split
+            xp.append(p), wp.append(Shard(0)), op.append(Shard(0)), outp.append(p)
+        elif isinstance(p, Shard) and p.dim == 0:  # the groups split
+            xp.append(p), wp.append(Replicate()), op.append(Replicate()), outp.append(p)
+        elif name == "model":  # tensor parallel over each expert's width
+            xp.append(Replicate()), wp.append(Shard(2)), op.append(Shard(1)), outp.append(Partial())
+        else:
+            xp.append(Replicate()), wp.append(Replicate()), op.append(Replicate()), outp.append(Replicate())
+    return on_local_shards("moe_dispatch", _expert_ffn, (xe, *weights), (xp, wp, wp, op), outp)
+
+
+def _dispatch(xg, gates, idx, pos, cfg, cap):
+    """The capacity buffer xe (G, E, C, d) and the combine weights (G, Sg,
+    E, C) of each group, through one-hot einsums; drops past ``cap``."""
     dt = xg.dtype
-    gates, idx, aux = _router(params, xg, cfg)  # (G, Sg, k)
-    cap = _capacity(cfg, xg.shape[1])
-    pos = _positions_in_expert(idx, cfg)
     keep = (pos < cap).to(dt)
     gates = gates.to(dt) * keep
     e_oh = _one_hot(idx, cfg.num_experts, dt)  # (G, Sg, k, E)
     c_oh = _one_hot(pos, cap, dt) * keep[..., None]  # (G, Sg, k, C)
     dispatch = torch.einsum("gske,gskc->gsec", e_oh, c_oh)
     combine = torch.einsum("gske,gskc->gsec", e_oh * gates[..., None], c_oh)
-    xe = constrain(torch.einsum("gsec,gsd->gecd", dispatch, xg), None, "experts", None, None)
-    ye = constrain(_experts(params, xe), None, "experts", None, None)
-    y = torch.einsum("gecd,gsec->gsd", ye, combine)
-    return y.reshape(b, s, -1), aux
+    return torch.einsum("gsec,gsd->gecd", dispatch, xg), combine
+
+
+def _combine(ye, combine):
+    return torch.einsum("gecd,gsec->gsd", ye, combine)
+
+
+def moe_apply_einsum(params, x, cfg):
+    """GShard-style capacity dispatch through one-hot einsums. x: (B, S, d).
+    Returns (y, aux). Under a mesh the dispatch and the combine run on each
+    rank's groups (the einsums flatten dims DTensor may not flatten in
+    place), the experts between them on the experts' split."""
+    xg, (b, s) = _group(x, cfg, x.shape[1])
+    gates, idx, aux = _router(params, xg, cfg)  # (G, Sg, k)
+    cap = _capacity(cfg, xg.shape[1])
+    pos = _positions_in_expert(idx, cfg)
+    if is_dtensor(xg):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in xg.placements]  # the groups' split
+        xe, combine = on_local_shards("moe_dispatch", lambda *a: _dispatch(*a, cfg, cap), (xg, gates, idx, pos),
+                                      (pl,) * 4, (pl, pl))
+        ye = constrain(_experts(params, constrain(xe, None, "experts", None, None)), None, "experts", None, None)
+        y = on_local_shards("moe_dispatch", _combine, (ye, combine), (pl, pl), pl)
+    else:
+        xe, combine = _dispatch(xg, gates, idx, pos, cfg, cap)
+        y = _combine(_experts(params, xe), combine)
+    return constrain(y.reshape(b, s, -1), "batch", None, None), aux
 
 
 def moe_apply_scatter(params, x, cfg):
@@ -183,7 +235,7 @@ def moe_apply_scatter(params, x, cfg):
         y = on_local_shards("moe_dispatch", read, (ye, slot, keep, gates), (pl, pl, pl, pl), pl)
     else:
         y = read(_experts(params, fill(xg, slot)), slot, keep, gates)
-    return y.reshape(b, s, d), aux
+    return constrain(y.reshape(b, s, d), "batch", None, None), aux
 
 
 MOE_APPLY = {"einsum": moe_apply_einsum, "scatter": moe_apply_scatter}

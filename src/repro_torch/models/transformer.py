@@ -57,12 +57,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.dispatch import on_local_shards
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import apply_mlp, dense_init, embed_init, init_mlp, rms_norm
-from repro_torch.sharding.partition import _mesh_axes, constrain, is_dtensor, replicated, whole
+from repro_torch.sharding.partition import _mesh_axes, as_placed, constrain, is_dtensor, replicated, whole
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -206,7 +207,7 @@ def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     # gather, then cast: the same values as the reference's cast-then-gather
     # (an embedding lookup, which DTensor shards by vocab rows; the ids go
     # in whole, tiny beside the rows they select)
-    return F.embedding(whole(tokens), params["embed"]["table"]).to(dtype_of(cfg.dtype))
+    return F.embedding(whole(tokens), as_placed(params["embed"]["table"])).to(dtype_of(cfg.dtype))
 
 
 def _project(x, proj, dtype) -> torch.Tensor:
@@ -243,14 +244,16 @@ def head_matrix(params, cfg) -> torch.Tensor:
     if cfg.is_encoder_only:
         return params["pred_head"]["kernel"]
     if cfg.tie_embeddings:
-        return params["embed"]["table"].T
+        return as_placed(params["embed"]["table"]).T
     return params["lm_head"]["kernel"]
 
 
 def lm_logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
     """Final norm and head in the activation dtype, then cast to the logit
     dtype (f32)."""
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    # constrained, so that its gradient's partial sums over the head's
+    # splits are reduced before the norm's backward
+    x = constrain(rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps), "batch", None, None)
     logits = (x @ head_matrix(params, cfg).to(x.dtype)).to(dtype_of(cfg.logit_dtype))
     # Shard the (B, S, V) logits over the model axis by vocab when it
     # divides, else by SEQUENCE (granite's odd 49155 vocab), as the
@@ -386,22 +389,40 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[tor
 
 
 def _nll_sharded(logits, labels) -> torch.Tensor:
-    """Per-position NLL (B, S) of DTensor logits: vocab-parallel
-    (``loss_parallel``: the log-sum-exp and the label's logit reduced across
-    the model axis, no rank holding the whole vocab) where the vocab dim is
-    sharded, DTensor's own cross-entropy otherwise."""
+    """Per-position NLL (B, S) of DTensor logits (B, S, V), vocab-parallel:
+    no rank gathers the vocabulary it does not hold, and no dim is
+    flattened. On each rank's shard: the largest logit a position, the
+    sum of the exponentials below it and the label's logit where the label
+    falls in the rank's vocabulary slice, each (B, S, 1); the mesh dims
+    that split V stack them on that last dim, which is then made whole (a
+    few numbers a position) and combined into ``logsumexp - label logit``.
+    The largest logits only shift the exponentials, so they take no
+    gradient; the sum and the label logit carry it back to each rank's
+    slice."""
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.parallel import loss_parallel
 
-    b, s, v = logits.shape
-    flat = logits.reshape(b * s, v)
-    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in flat.placements]
-    target = replicated(labels.reshape(-1).long(), flat.device_mesh).redistribute(flat.device_mesh, rows)
-    nll = lambda: F.cross_entropy(flat, target, reduction="none")
-    if any(isinstance(p, Shard) and p.dim == 1 for p in flat.placements):
-        with loss_parallel():
-            return nll().reshape(b, s)
-    return nll().reshape(b, s)
+    mesh = logits.device_mesh
+    vocab = [i for i, p in enumerate(logits.placements) if isinstance(p, Shard) and p.dim == 2]
+    if len(vocab) > 1:
+        raise ValueError(f"the vocabulary split over more than one mesh dim: {logits.placements}")
+    share = -(-logits.shape[2] // mesh.size(vocab[0])) if vocab else 0
+    off = mesh.get_coordinate()[vocab[0]] * share if vocab else 0
+    rows = [Replicate() if i in vocab else p for i, p in enumerate(logits.placements)]
+
+    def stats(x, y):
+        m = torch.amax(x, dim=-1, keepdim=True).detach()
+        lab = y.long()[..., None] - off
+        inside = (lab >= 0) & (lab < x.shape[-1])
+        picked = torch.gather(x, -1, lab.clamp(0, x.shape[-1] - 1))
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        return m, torch.sum(torch.exp(x - m), dim=-1, keepdim=True), torch.where(inside, picked, zero)
+
+    labels = replicated(labels, mesh)
+    m, s, z = on_local_shards("vocab_ce", stats, (logits, labels), (logits.placements, rows), (logits.placements,) * 3)
+    m, s, z = (t.redistribute(mesh, rows) for t in (m, s, z))
+    top = torch.amax(m, dim=-1, keepdim=True)
+    lse = top[..., 0] + torch.log(torch.sum(s * torch.exp(m - top), dim=-1))
+    return lse - torch.sum(z, dim=-1)
 
 
 def lm_loss(params, cfg, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

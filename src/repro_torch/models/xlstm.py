@@ -20,6 +20,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.attention import flatten_heads, split_heads, whole_where_cut
 from repro_torch.models.layers import dense_init
 from repro_torch.sharding.partition import constrain, is_dtensor
 from repro_torch.utils.scan import chunked_scan, local_scan
@@ -27,9 +28,11 @@ from repro_torch.utils.scan import chunked_scan, local_scan
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bs i, i ... -> bs ...")``: contract x's last axis with w's
-    first, in x's dtype."""
-    y = x @ w.to(x.dtype).reshape(w.shape[0], -1)
-    return y.reshape(*y.shape[:-1], *w.shape[1:])
+    first, in x's dtype (a (heads, hd) weight through the attention's
+    flatten and split, which keep a DTensor's heads whole)."""
+    if w.dim() == 3:
+        return split_heads(x @ flatten_heads(w.to(x.dtype), 1), *w.shape[1:])
+    return x @ w.to(x.dtype)
 
 
 def _log_sigmoid(f_pre: torch.Tensor) -> torch.Tensor:
@@ -99,7 +102,7 @@ def mlstm_forward(params, x, cfg, state: Optional[Dict] = None, return_state: bo
         )
     else:
         (c_f, n_f, m_f), hs = scan(*carry, *xs)
-    hs = hs.transpose(0, 1).reshape(b, s, inner).to(x.dtype)
+    hs = flatten_heads(hs.transpose(0, 1), 2).to(x.dtype)  # (B, S, inner)
     out = constrain((hs * F.silu(z)) @ params["out_proj"].to(x.dtype), "batch", None, None)
     if return_state:
         return out, {"C": c_f, "n": n_f, "m": m_f}
@@ -154,7 +157,7 @@ def slstm_forward(params, x, cfg, state: Optional[Dict] = None, return_state: bo
     b, s, d = x.shape
     h = cfg.xlstm_heads
     hd = d // h
-    wx = (x @ params["w"].to(x.dtype)).float().reshape(b, s, 4, h, hd)
+    wx = whole_where_cut((x @ params["w"].to(x.dtype)).float(), 2, 4).reshape(b, s, 4, h, hd)
     if state is None:
         state = init_slstm_state(cfg, b, x.device)
     carry = (state["h"], state["c"], state["n"], state["m"])
@@ -171,7 +174,7 @@ def slstm_forward(params, x, cfg, state: Optional[Dict] = None, return_state: bo
         )
     else:
         (h_f, c_f, n_f, m_f), hs = scan(params["r"], wx, *carry)
-    hs = hs.transpose(0, 1).reshape(b, s, d).to(x.dtype)
+    hs = flatten_heads(hs.transpose(0, 1), 2).to(x.dtype)  # (B, S, d)
     out = constrain(hs @ params["out_proj"].to(x.dtype), "batch", None, None)
     if return_state:
         return out, {"h": h_f, "c": c_f, "n": n_f, "m": m_f}

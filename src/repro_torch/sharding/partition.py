@@ -457,16 +457,52 @@ def shard_params(params: Any, mesh) -> Any:
     return place(params, infer_param_specs(params, mesh_axes=mesh_axes_of(mesh)), mesh)
 
 
+class _Constrained(torch.autograd.Function):
+    """``x`` redistributed to ``placements``, whose gradient is brought to
+    the same placements before it flows on (as a sharding constraint's
+    cotangent is constrained in the reference): DTensor would otherwise
+    give it whatever split its backward ops pick (a sequence split, say,
+    which a later flatten cannot take)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        from torch.distributed.tensor import Replicate
+
+        ctx.placements = placements
+        ctx.in_placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+        out = x.redistribute(x.device_mesh, placements)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.redistribute(g.device_mesh, ctx.placements)
+        return g.redistribute(g.device_mesh, ctx.in_placements), None
+
+
+def as_placed(w: torch.Tensor) -> torch.Tensor:
+    """``w`` for one of several uses of a parameter (the tied embedding's
+    lookup and head): each use's gradient takes the parameter's placements
+    before autograd sums them, so the sum never meets two placements (a
+    lookup's partial sums and a product's split, which torch 2.11's
+    DTensor cannot add). The identity off a mesh."""
+    if is_dtensor(w) and w.requires_grad and torch.is_grad_enabled():
+        return _Constrained.apply(w, tuple(w.placements))
+    return w
+
+
 def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """Sharding-constrain an activation by logical axis names: under a mesh,
     ``x`` redistributed to the resolved spec (a plain tensor counts as
-    replicated: every rank computed the same value). The identity when no
-    mesh is in context (unit tests / single-device runs)."""
+    replicated: every rank computed the same value), and its gradient too
+    where it has one. The identity when no mesh is in context (unit tests /
+    single-device runs)."""
     mesh = current_mesh()
     if mesh is None:
         return x
     placements = logical_placements(x.shape, logical, mesh)
     x = replicated(x, mesh)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Constrained.apply(x, placements)
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(mesh, placements)

@@ -47,6 +47,18 @@ def tree_leaves(tree: Dict[str, Any]) -> List[torch.Tensor]:
     return [tree] if torch.is_tensor(tree) else []
 
 
+def tree_size(tree: Any) -> int:
+    """Total number of scalar elements over the tensor leaves (a DTensor
+    counts its global shape)."""
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: Any) -> int:
+    """Total bytes over the tensor leaves, by their dtypes (``meta`` tensors
+    too; a DTensor counts its global shape)."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
 def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
     """Map ``fn`` over the tensor leaves of ``tree`` (and the matching leaves
     of ``rest``), through dicts and lists; non-tensor leaves of ``tree`` are

@@ -27,7 +27,18 @@ CPU ranks.
       relative of the meshless port's and within ``1e-4·(1 + |ref|)`` of
       JAX's train step; every parameter, gathered, within
       ``1e-4·(1 + |ref|)`` of the meshless port's (the sharded reductions
-      reorder f32 sums, so nothing is bitwise).
+      reorder f32 sums, so nothing is bitwise);
+  (e) splits that cut, on the (2, 2) mesh: reduced mixtral with 3 experts
+      (each rank holds half of every expert's width, its output a partial
+      sum) and the ``_mk`` config with 3 query heads over 1 KV head (the
+      projections' outputs split over ``model``, which cuts a head, and
+      are made whole first): the prefill's logits as in (c), the loss and
+      every gradient, gathered, within ``1e-4·(1 + |ref|)`` of the
+      meshless port's and JAX's;
+  (f) the LM distillation loss (Eq. 4, two reduced smollm-135m clients)
+      on the (2, 2) mesh, whole and in sequence chunks of 8: the KL runs
+      on each rank's vocabulary slice (``vocab_kl``); the loss and every
+      gradient as in (e).
 
   Every param leaf under a mesh is a DTensor whose local shard has the
   shape its spec gives; the kernels and strategy-less ops ran through the
@@ -50,6 +61,8 @@ from repro.config import TrainConfig as JaxTrainConfig
 from repro.config import get_arch as jax_get_arch
 from repro.config import reduced_variant as jax_reduced_variant
 from repro.models import init_lm_state as jax_init_lm_state
+from repro.core.distributed import coboost_distill_loss as jax_distill_loss
+from repro.models import lm_loss as jax_lm_loss
 from repro.models import lm_prefill as jax_lm_prefill
 from repro.runtime import make_train_step as jax_make_train_step
 from repro.serve import ContinuousScheduler as JaxScheduler
@@ -59,7 +72,10 @@ from repro.serve import Request as JaxRequest
 from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.convert import lm_params_to_jax
 from repro_torch.launch.mesh import disagg_submeshes, make_fleet_mesh, make_production_mesh, replica_meshes
-from torch_mesh_ranks import ENGINE, GEN, MK, NAMES, PREFILL_ARCHS, TRAIN, WORLD, port_cfg, inputs, rank_main
+from torch_mesh_ranks import (
+    COBOOST_CHUNKS, ENGINE, GEN, MK, NAMES, PREFILL_ARCHS, RAGGED, TRAIN, WORLD, inputs, port_cfg, ragged_cfg,
+    rank_main,
+)
 
 pytestmark = pytest.mark.tier1
 
@@ -140,11 +156,11 @@ def test_production_mesh_shapes(fake_world, world, multi_pod, shape):
 # multi-rank parity: the parent
 
 
-def _jax_cfg(name):
+def _jax_cfg(name, **kw):
     if name == "mk":
-        return JaxModelConfig(scan_layers=False, remat=False, **MK)
+        return JaxModelConfig(scan_layers=False, remat=False, **{**MK, **kw})
     return jax_reduced_variant(jax_get_arch(name)).replace(
-        dtype="float32", param_dtype="float32", attn_backend="ref", decode_backend="ref"
+        dtype="float32", param_dtype="float32", attn_backend="ref", decode_backend="ref", **kw
     )
 
 
@@ -175,7 +191,25 @@ def parity(tmp_path_factory):
             tokens = jnp.asarray(inp["prefill_tokens"])
             logits, _ = jax_lm_prefill(jax_params[arch], jcfg, {"tokens": tokens}, jax_init_lm_state(jcfg, *tokens.shape))
             ref["prefill"][arch] = np.asarray(logits)
-        jcfg = _jax_cfg("smollm-135m")
+        ref["ragged"] = {}
+        batch = {k: jnp.asarray(v) for k, v in inp["ragged_batch"].items()}
+        for case, (name, kw) in RAGGED.items():
+            jcfg = _jax_cfg(name, **kw)
+            jp = jax.tree_util.tree_map(jnp.asarray, lm_params_to_jax(ragged_cfg(case), inp["ragged_params"][case]))
+            logits, _ = jax_lm_prefill(jp, jcfg, {"tokens": batch["tokens"]}, jax_init_lm_state(jcfg, *batch["tokens"].shape))
+            loss, grads = jax.value_and_grad(lambda p: jax_lm_loss(p, jcfg, batch)[0])(jp)
+            ref["ragged"][case] = {"prefill": np.asarray(logits), "loss": float(loss),
+                                   "grads": [np.asarray(g) for g in jax.tree_util.tree_leaves(grads)]}
+        jcfg, cb = _jax_cfg("smollm-135m"), inp["coboost"]
+        to_jax = lambda p: jax.tree_util.tree_map(jnp.asarray, lm_params_to_jax(port_cfg("smollm-135m"), p))
+        clients = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *[to_jax(c) for c in cb["clients"]])
+        ref["coboost"] = {}
+        for kl_chunk in COBOOST_CHUNKS:
+            loss, grads = jax.value_and_grad(jax_distill_loss)(
+                to_jax(cb["server"]), clients, jnp.asarray(cb["w"]), jcfg, {"embeds": jnp.asarray(cb["embeds"])}, 4.0,
+                kl_chunk)
+            ref["coboost"][kl_chunk] = {"loss": float(loss),
+                                        "grads": [np.asarray(g) for g in jax.tree_util.tree_leaves(grads)]}
         step = jax_make_train_step(jcfg, JaxTrainConfig(**TRAIN))
         jstep = jax.jit(step)
         jp = jax.tree_util.tree_map(jnp.asarray, jax_params["smollm-135m"])
@@ -275,11 +309,59 @@ def test_sharded_train_step(parity):
         assert t["shards"]
 
 
+@pytest.mark.parametrize("case", list(RAGGED))
+def test_ragged_split_prefill(parity, case):
+    """(e) A split that cuts an expert's width or a head: the prefill's
+    logits against the meshless port's and JAX's, as in (c)."""
+    outs, ref = parity
+    for out in _results(outs, "ragged", case):
+        plain, sharded = out["prefill"]
+        want = ref["ragged"][case]["prefill"]
+        assert np.max(np.abs(sharded - plain)) <= 1e-5 * np.max(np.abs(plain))
+        assert np.all(np.abs(sharded - want) <= 1e-4 * (1 + np.abs(want)))
+        assert out["shards"]
+
+
+def _assert_loss_and_grads(cfg, got, want):
+    """A sharded loss and its gathered gradients against the meshless
+    port's (the loss within ``1e-5·(1 + |ref|)``: a KL of 0.04 is a
+    difference of log-probabilities near log V, whose f32 rounding sets its
+    error; each gradient within ``1e-4·(1 + |ref|)``) and JAX's (both
+    within ``1e-4·(1 + |ref|)``)."""
+    plain_loss, sharded_loss = got["loss"]
+    assert abs(sharded_loss - plain_loss) <= 1e-5 * (1 + abs(plain_loss))
+    assert abs(sharded_loss - want["loss"]) <= 1e-4 * (1 + abs(want["loss"]))
+    plain, sharded = (jax.tree_util.tree_leaves(lm_params_to_jax(cfg, g)) for g in got["grads"])
+    assert len(plain) == len(sharded) == len(want["grads"])
+    for p, s, w in zip(plain, sharded, want["grads"]):
+        assert np.all(np.abs(s - p) <= 1e-4 * (1 + np.abs(p)))
+        assert np.all(np.abs(s - w) <= 1e-4 * (1 + np.abs(w)))
+
+
+@pytest.mark.parametrize("case", list(RAGGED))
+def test_ragged_split_gradients(parity, case):
+    """(e) The same splits: the loss and every gradient of the sharded loss,
+    gathered, against the meshless port's and JAX's."""
+    outs, ref = parity
+    for out in _results(outs, "ragged", case):
+        _assert_loss_and_grads(ragged_cfg(case), out, ref["ragged"][case])
+
+
+@pytest.mark.parametrize("kl_chunk", COBOOST_CHUNKS, ids=["whole", "chunked"])
+def test_sharded_distill_loss(parity, kl_chunk):
+    """(f) The LM distillation loss over the vocabulary split: the loss and
+    every gradient against the meshless port's and JAX's."""
+    outs, ref = parity
+    for out in _results(outs, "coboost", kl_chunk):
+        _assert_loss_and_grads(port_cfg("smollm-135m"), out, ref["coboost"][kl_chunk])
+
+
 def test_local_map_route_taken(parity):
     """The kernels (flash attention, flash decode) and every op DTensor has
     no strategy for ran on local shards, on every rank."""
     outs, _ = parity
-    routed = ("flash_attention", "flash_decode", "kv_scatter", "page_gather", "moe_dispatch", "recurrent_scan")
+    routed = ("flash_attention", "flash_decode", "kv_scatter", "page_gather", "moe_dispatch", "recurrent_scan",
+              "vocab_kl")
     for out in outs:
         assert all(out["local_map"][k] > 0 for k in routed), out["local_map"]
     assert len(outs) == WORLD

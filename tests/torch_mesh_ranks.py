@@ -21,6 +21,13 @@ NAMES = ("mk", "smollm-135m")
 ENGINE = dict(max_slots=3, max_seq=32, max_new=6, decode_chunk=3, page_size=8)
 GEN = 4
 PREFILL_ARCHS = ("mixtral-8x7b", "jamba-v0.1-52b", "xlstm-125m")
+# splits that cut over the (2, 2) mesh's model = 2: 3 experts (each rank
+# takes half of every expert's width) and 3 query heads over 1 KV head (the
+# data split puts a model split on the projections' outputs, which cuts a
+# head; on a (1, 2) mesh they stay whole)
+# the distillation loss's sequence chunks (0: whole)
+COBOOST_CHUNKS = (0, 8)
+RAGGED = {"experts": ("mixtral-8x7b", dict(num_experts=3)), "heads": ("mk", dict(num_heads=3, num_kv_heads=1))}
 # AdamW's first steps move a weight by about lr·g/(|g| + eps): with the
 # default eps (1e-8) a gradient at the f32 noise floor of a reordered sum
 # moves its weight by up to a full ±lr either way, so the
@@ -39,6 +46,11 @@ def port_cfg(name):
     return reduced_variant(get_arch(name)).replace(dtype="float32", param_dtype="float32")
 
 
+def ragged_cfg(case):
+    name, kw = RAGGED[case]
+    return port_cfg(name).replace(**kw)
+
+
 def _shards_match_specs(params, mesh) -> bool:
     """Every leaf is a DTensor on ``mesh`` whose local shard has the shape
     its inferred spec gives."""
@@ -46,7 +58,7 @@ def _shards_match_specs(params, mesh) -> bool:
 
     from repro_torch.sharding import infer_param_specs
     from repro_torch.sharding.partition import map_with_path, mesh_axes_of
-    from repro_torch.utils.trees import tree_leaves
+    from repro_torch.utils.trees import tree_leaves, tree_map, value_and_grad
 
     axes = mesh_axes_of(mesh)
     specs = []
@@ -96,6 +108,17 @@ def inputs() -> dict:
         {"tokens": t, "labels": np.roll(t, -1, axis=1)}
         for t in (rng.randint(0, 512, size=(4, 16)).astype(np.int32) for _ in range(3))
     ]
+    inp["ragged_params"] = {}
+    for case in RAGGED:
+        inp["ragged_params"][case] = init_lm(ragged_cfg(case), torch.Generator().manual_seed(4))
+    t = rng.randint(0, 64, size=(2, 16)).astype(np.int32)  # within every ragged config's vocabulary
+    inp["ragged_batch"] = {"tokens": t, "labels": np.roll(t, -1, axis=1)}
+    inp["coboost"] = {
+        "server": init("smollm-135m", 8),
+        "clients": [init("smollm-135m", 9), init("smollm-135m", 10)],
+        "embeds": (rng.standard_normal((2, 16, port_cfg("smollm-135m").d_model)) * 0.5).astype(np.float32),
+        "w": np.asarray([0.6, 0.4], np.float32),
+    }
     return inp
 
 
@@ -106,12 +129,12 @@ def rank_main(rank: int, tmp: str) -> None:
 
     from repro_torch.config.train import TrainConfig
     from repro_torch.kernels.dispatch import LOCAL_MAP_CALLS, reset_local_map_calls
-    from repro_torch.models.transformer import init_lm_state, lm_prefill, shard_lm_state
-    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.models.transformer import init_lm_state, lm_loss, lm_prefill, shard_lm_state
+    from repro_torch.runtime.steps import make_train_step, shard_batch
     from repro_torch.serve import static_generate
     from repro_torch.serve.engine import shard_state
     from repro_torch.sharding import mesh_context, shard_params
-    from repro_torch.utils.trees import tree_leaves
+    from repro_torch.utils.trees import tree_leaves, tree_map, value_and_grad
 
     inp = inputs()
     model4 = replica_meshes(make_fleet_mesh(1, device_type="cpu"))[0]  # (1, 4)
@@ -120,7 +143,7 @@ def rank_main(rank: int, tmp: str) -> None:
     pair_id = rank // 2
     pair = replica_meshes(make_fleet_mesh(2, device_type="cpu"))[pair_id]
     grid = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 2), mesh_dim_names=("data", "model"))
-    out = {"engine": {}, "spec": {}, "static": {}, "prefill": {}, "shards": {}, "lm_state": {}}
+    out = {"engine": {}, "spec": {}, "static": {}, "prefill": {}, "shards": {}, "lm_state": {}, "ragged": {}}
     reset_local_map_calls()
     # (a) and (b): the engine, meshless and sharded
     for i, name in enumerate(NAMES):
@@ -158,6 +181,44 @@ def rank_main(rank: int, tmp: str) -> None:
                 placed = shard_lm_state(state)
             out["lm_state"][arch] = tuple(placed["k"].placements)
         out["shards"][arch] = _shards_match_specs(sharded, pair)
+    # (e) a prefill and the loss's gradients where the split cuts an expert's
+    # width or a head, on the (2, 2) mesh
+    batch = {k: torch.from_numpy(v) for k, v in inp["ragged_batch"].items()}
+    tokens = batch["tokens"]
+    for case in RAGGED:
+        cfg, params = ragged_cfg(case), inp["ragged_params"][case]
+        sharded = shard_params(params, grid)
+        with torch.no_grad():
+            plain, _ = lm_prefill(params, cfg, {"tokens": tokens}, init_lm_state(cfg, *tokens.shape))
+            with mesh_context(grid):
+                state = shard_state(init_lm_state(cfg, *tokens.shape), grid)
+                logits, _ = lm_prefill(sharded, cfg, {"tokens": tokens}, state)
+        loss0, g0 = value_and_grad(lambda p: lm_loss(p, cfg, batch)[0], params)
+        with mesh_context(grid):
+            loss1, g1 = value_and_grad(lambda p: lm_loss(p, cfg, shard_batch(batch, grid))[0], sharded)
+        whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+        out["ragged"][case] = {
+            "prefill": (plain.numpy(), whole(logits).numpy()),
+            "loss": (float(loss0), float(whole(loss1))),
+            "grads": (g0, tree_map(whole, g1)),
+            "shards": _shards_match_specs(sharded, grid),
+        }
+    # (f) the LM distillation loss (Eq. 4) and its gradients on the (2, 2)
+    # mesh, whole and chunked: the KL over the vocabulary split
+    from repro_torch.core.distributed import coboost_distill_loss
+
+    cb, cfg = inp["coboost"], port_cfg("smollm-135m")
+    w, batch = torch.from_numpy(cb["w"]), {"embeds": torch.from_numpy(cb["embeds"])}
+    sharded_clients = [shard_params(c, grid) for c in cb["clients"]]
+    out["coboost"] = {}
+    for kl_chunk in COBOOST_CHUNKS:
+        loss0, g0 = value_and_grad(lambda p: coboost_distill_loss(p, cb["clients"], w, cfg, batch, 4.0, kl_chunk),
+                                   cb["server"])
+        with mesh_context(grid):
+            loss1, g1 = value_and_grad(
+                lambda p: coboost_distill_loss(p, sharded_clients, w, cfg, shard_batch(batch, grid), 4.0, kl_chunk),
+                shard_params(cb["server"], grid))
+        out["coboost"][kl_chunk] = {"loss": (float(loss0), float(whole(loss1))), "grads": (g0, tree_map(whole, g1))}
     # (d) 3 AdamW steps on the (2, 2) mesh
     cfg = port_cfg("smollm-135m")
     params = inp["params"]["smollm-135m"]
