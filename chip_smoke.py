@@ -19,12 +19,13 @@ result line):
    on the card, in every mode and, for the backwards, for every non-empty
    subset of the cotangents they can compute, at the main path's shapes
    (K=5, B=128, V=10, f32), at a wide tail case (K=5, B=37, V=32003, f32
-   and bf16) and at 20 clients on 100 classes (K=20, B=256, V=100, f32);
+   and bf16), at 20 clients on 100 classes (K=20, B=256, V=100, f32) and
+   at the Co-Boosting examples' shapes (K=3 and K=4, B=32, V=6, f32);
    the forwards also at one row of an LM vocabulary (K=5, B=1, V=151936)
    and on planes that start one element off a 16-byte boundary (K=5,
    B=37, V=32000). A second forward call and a CUDA-graph replay must give
    the eager call's bits at every shape, a second backward call and a
-   replay at the first two. Then the CUDA C++ attention
+   replay at the first two and the examples'. Then the CUDA C++ attention
    kernels, in f32 (the CUDA-core kernels) and bf16 (the tensor-core
    kernels of ``flash_attention_sm90.cu``, ``_sm90`` below, and the
    CUDA-core ones named by the caller): ``flash_attention_fwd`` at the
@@ -146,8 +147,11 @@ result line):
    shared head on every other prompt), 16 new tokens, 4 slots, page 16,
    arrivals 2 s apart on ``ManualClock``, through four engines: cold,
    prefix cache, prefix cache with the target itself drafting (k = 4) and
-   speculative decoding with the ``seed + 1`` drafter, the launch counters
-   reset just before each run and read just after. Fatal: every engine's
+   speculative decoding with the ``seed + 1`` drafter (on the first 4
+   requests and 2 slots: it is accepted about never, so each of its tokens
+   costs a verify round; on 2 slots its rollbacks run in recycled slots),
+   the launch counters reset just before each run and read
+   just after. Fatal: every engine's
    tokens equal the cold engine's at every position before the request's
    first near-tie (a cold-path top-2 margin at or below 1e-3, teacher-forced
    through ``lm_forward``; the cold tokens must equal those argmaxes
@@ -316,6 +320,19 @@ result line):
    parameters within 1e-5; a second meshless run gives the first one's
    bits; s/epoch of the sharded run and of the second meshless run
    printed, with the card's name and power limit.
+5j. The examples (``repro_torch.examples``, the port of the JAX package's
+   ``examples/``; budget 40 s), each ``main`` in this process at its own
+   settings, the launch counters reset just before and read just after.
+   ``quickstart`` (3 cnn2 clients, 16×16×3, 6 classes, 12 local epochs,
+   12 Co-Boosting epochs) and ``heterogeneous_clients`` (cnn5, cnn2,
+   miniresnet and mlp clients, a miniresnet server, 10 epochs, the grouped
+   bank): #1–#4 launch, every loss of the history is finite, one weight a
+   client, non-negative, summing to 1 within 1e-5. ``serve_decode``
+   (reduced jamba-v0.1-52b in f32, 2 prompts of 32 tokens, 16 new ones):
+   #5 (on the CUDA cores) and #8 launch, and the static arm's, the dense
+   engine's and the paged engine's tokens agree before each request's first
+   near-tie (as in phase 5c); the example's own parity line and each arm's
+   seconds are printed.
 5b. Telemetry (``repro_torch.obs``): phase 4's Co-Boosting run, then
    phase 5's serving run, each through its launcher with
    ``--metrics-out``, ``--trace-out`` and ``--profile-dir`` into a
@@ -371,7 +388,8 @@ result line):
    tensor cores.
 8. Summary: a ``phase seconds: {...}`` line (every phase above, in the
    order run), a ``kernels: {...}`` line (with phase 5i's launches of
-   #1–#4 on the mesh and its ``local_map`` calls), the JSON kernel table,
+   #1–#4 on the mesh and its ``local_map`` calls, and phase 5j's launches
+   by example), the JSON kernel table,
    and last the ``{"ok": true, "device": {...}}`` line.
 """
 from __future__ import annotations
@@ -391,6 +409,9 @@ SRC = ROOT / "src"
 MAIN = dict(k=5, b=128, v=10)
 WIDE = dict(k=5, b=37, v=32003)
 CLIENTS20 = dict(k=20, b=256, v=100)  # the paper's client sweep goes to 20
+# the examples' shapes (phase 5j): quickstart's 3 and heterogeneous_clients' 4 clients, batch 32, 6 classes
+QUICKSTART = dict(k=3, b=32, v=6)
+HETERO = dict(k=4, b=32, v=6)
 LM_ROW = dict(k=5, b=1, v=151936)  # one row of an LM vocabulary
 UNALIGNED = dict(k=5, b=37, v=32000, offset=1)  # every plane one element off a 16-byte boundary
 REPLACES = {
@@ -491,6 +512,8 @@ MESH_TRAIN = dict(batch=8, seq=256, steps=3)
 FLEET_PAIR = dict(requests=4, gen=16)
 FLEET_LAUNCH = dict(requests=8, prompt=128, gen=16)
 MESH_COBOOST = dict(epochs=2)
+# phase 5j: serve_decode's own flags (the reference example's defaults), passed explicitly
+EXAMPLE_SERVE = dict(arch="jamba-v0.1-52b", batch=2, prompt=32, gen=16)
 # phase 5b's serving runs with telemetry off and on (metrics and spans), in
 # turns: host-bound tok/s spreads between runs, and one turn a side is all
 # the script's time limit leaves room for
@@ -787,10 +810,11 @@ def kernels_vs_plain():
     """The four loss kernels against their plain versions: the forwards in
     every mode at every shape, the backwards in every mode and for every
     non-empty subset of the cotangents they can compute, at the main shape,
-    at the wide vocabulary in f32 and bf16, and at 20 clients on 100
-    classes. A second forward call and a CUDA-graph replay give the eager
-    call's bits at every shape; a second backward call and a replay at the
-    main shape and the wide one in f32. Times per call and on the device
+    at the wide vocabulary in f32 and bf16, at 20 clients on 100 classes,
+    and at the two Co-Boosting examples' shapes (phase 5j). A second
+    forward call and a CUDA-graph replay give the eager call's bits at
+    every shape; a second backward call and a replay at the main shape, the
+    wide one in f32 and the examples'. Times per call and on the device
     alone: the forwards at every shape, the backwards at the main and wide
     shapes in the mode the main path calls them in most (the generator's:
     g_client and g_student, g_client)."""
@@ -810,7 +834,8 @@ def kernels_vs_plain():
     subsets_ce = [(True, False), (False, True), (True, True)]
     # (shape, dtype, whether the backwards run there too)
     shapes = [(MAIN, torch.float32, True), (WIDE, torch.float32, True), (WIDE, torch.bfloat16, True),
-              (CLIENTS20, torch.float32, True), (LM_ROW, torch.float32, False), (UNALIGNED, torch.float32, False)]
+              (CLIENTS20, torch.float32, True), (QUICKSTART, torch.float32, True), (HETERO, torch.float32, True),
+              (LM_ROW, torch.float32, False), (UNALIGNED, torch.float32, False)]
     for si, (shape, dtype, bwd) in enumerate(shapes):
         k, b, v, offset = shape["k"], shape["b"], shape["v"], shape.get("offset", 0)
         cl, st, w, labels, ct = _case(k, b, v, dtype, seed=si, device=dev, offset=offset)
@@ -893,7 +918,7 @@ def kernels_vs_plain():
         if shape is MAIN:
             loss_host_split(cl, st, w, labels, ct, out, lse_t, lse_s, lse, ly)
         for name, (kern, plain, needs) in calls.items():
-            if needs is not None and (not bwd or shape is CLIENTS20):
+            if needs is not None and (not bwd or shape not in (MAIN, WIDE)):
                 continue  # the backwards at the main and the wide shapes
             bound, bound_by = bound_ms(*loss_work(name, k, b, v, cl.element_size(), needs))
             timing[(name, tag)] = {
@@ -1885,20 +1910,24 @@ def prefix_spec_f32():
     reqs = [Request(rid=i, tokens=p, max_new_tokens=HOT["gen"], arrival=2.0 * i) for i, p in enumerate(prompts)]
     base = dict(max_slots=HOT["slots"], max_seq=HOT["prompt"] + HOT["gen"], max_new=HOT["gen"],
                 page_size=HOT["page"])
+    # the seed + 1 drafter is accepted about never, so each of its tokens
+    # costs a verify round: it serves the first half of the stream, on half
+    # the slots, so that speculative rollback still runs in recycled slots
+    half = reqs[: HOT["requests"] // 2]
     arms = {
-        "cold": ({}, None),
-        "prefix": (dict(prefix_cache=True), None),
-        "prefix+spec matched": (dict(prefix_cache=True, spec_k=HOT["spec_k"]), (cfg, params)),
-        "spec seed+1 drafter": (dict(spec_k=HOT["spec_k"]), (cfg, other)),
+        "cold": ({}, None, reqs),
+        "prefix": (dict(prefix_cache=True), None, reqs),
+        "prefix+spec matched": (dict(prefix_cache=True, spec_k=HOT["spec_k"]), (cfg, params), reqs),
+        "spec seed+1 drafter": (dict(spec_k=HOT["spec_k"], max_slots=HOT["slots"] // 2), (cfg, other), half),
     }
     out, stats = {}, {}
-    for name, (knobs, drafter) in arms.items():
-        eng = ServeEngine(cfg, params, EngineConfig(**base, **knobs), drafter=drafter)
+    for name, (knobs, drafter, served) in arms.items():
+        eng = ServeEngine(cfg, params, EngineConfig(**{**base, **knobs}), drafter=drafter)
         sched = ContinuousScheduler(eng, clock=ManualClock(tick=0.2))
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        comps = sched.run(reqs)
+        comps = sched.run(served)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {n: launch_counts()[n] for n in ATTN_KERNELS}
@@ -1912,8 +1941,9 @@ def prefix_spec_f32():
     gates, smallest = _cold_gates(params, cfg, reqs, out["cold"])
     gated = sum(gates.values())
     for name in arms:
-        for rid, g in gates.items():
-            if not np.array_equal(out[name][rid][:g], out["cold"][rid][:g]):
+        for rid, toks in out[name].items():
+            g = gates[rid]
+            if not np.array_equal(toks[:g], out["cold"][rid][:g]):
                 fail(f"prefix/spec f32 {name}: rid {rid} tokens {out[name][rid].tolist()} != cold "
                      f"{out['cold'][rid].tolist()} before its first near-tie (position {g})")
     for name in ("prefix", "prefix+spec matched"):
@@ -1925,8 +1955,8 @@ def prefix_spec_f32():
     if st["draft_accepted"] <= 0.5 * st["draft_proposed"]:
         fail(f"prefix/spec f32: the matched drafter's acceptance {st['draft_accepted']}/{st['draft_proposed']} <= 0.5")
     print(f"prefix/spec f32 at full width: tokens of all four engines equal on {gated} of "
-          f"{HOT['requests'] * HOT['gen']} positions (those before each request's first near-tie), smallest "
-          f"cold top-2 margin {smallest:.3e}", flush=True)
+          f"{HOT['requests'] * HOT['gen']} positions (those before each request's first near-tie; the seed + 1 "
+          f"drafter's on the first {len(half)} requests), smallest cold top-2 margin {smallest:.3e}", flush=True)
 
 
 def _splice_gap():
@@ -3496,6 +3526,127 @@ def fleet_path(card):
     return counts, route
 
 
+# ---------------------------------------------------------------------------
+# phase 5j
+
+
+def _example_cnn(name, ex):
+    """One Co-Boosting example's ``main`` on the card at its own settings,
+    the counters reset just before and read just after: #1–#4 launch,
+    every loss is finite, one weight a client on the simplex, a history."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = ex.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: launch_counts()[n] for n in LOSS_KERNELS}
+    if min(counts.values()) <= 0:
+        fail(f"examples, {name}: a loss kernel never launched: {counts}")
+    if not result.get("history"):
+        fail(f"examples, {name}: no history")
+    for entry in result["history"]:
+        for key in ("gen_loss", "distill_loss", "server_acc", "ensemble_acc"):
+            if key not in entry or not math.isfinite(entry[key]):
+                fail(f"examples, {name}: a history entry lacks a finite {key}: {entry}")
+    w = result["weights"]
+    w = list(w.values()) if isinstance(w, dict) else list(w)
+    if len(w) != ex.CFG.num_clients or min(w) < 0 or abs(sum(w) - 1.0) > 1e-5:
+        fail(f"examples, {name}: weights {w} are not {ex.CFG.num_clients} points of the simplex")
+    print(f"examples, {name} (python -m repro_torch.examples.{name}): {wall:.2f} s; last history "
+          f"{json.dumps(result['history'][-1])}; weights {json.dumps(w)}; loss-kernel launches {json.dumps(counts)}",
+          flush=True)
+    return counts
+
+
+def _example_serve():
+    """``serve_decode``'s ``main`` on the card at its own settings: #5 and #8
+    launch (f32: the CUDA-core forward); the static arm's, the dense
+    engine's and the paged engine's tokens agree before each request's
+    first near-tie (the static arm's top-2 margin at or below 1e-3, phase
+    5c's rule; its logits replayed step by step on the example's own
+    weights, made again from its seed), at least half of the positions
+    compared."""
+    import numpy as np
+    import torch
+
+    from repro_torch.examples import serve_decode
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_lm_state, lm_decode, lm_prefill
+
+    a = EXAMPLE_SERVE
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = serve_decode.main(["--device", "cuda", "--arch", a["arch"], "--batch", str(a["batch"]),
+                                "--prompt", str(a["prompt"]), "--gen", str(a["gen"])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    where = "examples, serve_decode"
+    _check_variants(where, counts, "float32")
+    if counts["flash_decode"] <= 0:
+        fail(f"{where}: flash_decode never launched")
+    cfg = serve_decode.model_config(a["arch"])
+    params = serve_decode.init_params(cfg, 0, torch.device("cuda"))
+    tokens = torch.as_tensor(serve_decode.prompts(cfg, a["batch"], a["prompt"]), device="cuda")
+    static = result["static"]
+    # the static arm's own logits, step by step (its MoE drops capacity, so a
+    # token depends on what shares its dispatch: lm_forward over the whole
+    # sequence is another computation)
+    with torch.inference_mode():
+        state = init_lm_state(cfg, a["batch"], a["prompt"] + a["gen"], device="cuda")
+        logits, state = lm_prefill(params, cfg, {"tokens": tokens}, state)
+        rows = [logits[:, -1]]
+        for i in range(a["gen"] - 1):
+            fed = torch.as_tensor(static[:, i : i + 1], device="cuda").to(tokens.dtype)
+            logits, state = lm_decode(params, cfg, fed, state, a["prompt"] + i)
+            rows.append(logits[:, -1])
+        rows = torch.stack(rows, 1)
+    top2 = rows.topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    gates = [int(np.flatnonzero(m <= NEAR_TIE)[0]) if (m <= NEAR_TIE).any() else a["gen"] for m in margins]
+    if not np.array_equal(rows.argmax(-1).cpu().numpy(), static):
+        fail(f"{where}: the static arm's tokens are not its own replayed argmaxes")
+    for i, g in enumerate(gates):
+        for layout in ("dense", "paged"):
+            if not np.array_equal(result[layout][i, :g], static[i, :g]):
+                fail(f"{where}: request {i}: {layout} engine tokens {result[layout][i].tolist()} != static "
+                     f"{static[i].tolist()} before position {g}")
+    if sum(gates) < a["batch"] * a["gen"] / 2:
+        fail(f"{where}: near-ties leave {sum(gates)} of {a['batch'] * a['gen']} positions to compare (gates {gates})")
+    launched = {n: counts[n] for n in ATTN_KERNELS}
+    seconds = {k: round(v, 3) for k, v in result["seconds"].items()}
+    print(f"examples, serve_decode (python -m repro_torch.examples.serve_decode, {cfg.name} f32): {wall:.2f} s; "
+          f"seconds by arm {json.dumps(seconds)}; the example's own parity {json.dumps(result['parity'])}; static, "
+          f"dense and paged tokens equal on {sum(gates)} of {a['batch'] * a['gen']} positions (those before each "
+          f"request's first near-tie), smallest top-2 margin there "
+          f"{min(float(m[:g].min()) for m, g in zip(margins, gates) if g):.3e}; launches {json.dumps(launched)}",
+          flush=True)
+    return launched
+
+
+def examples_path(card):
+    """Phase 5j: the JAX package's three examples as the port runs them
+    (``python -m repro_torch.examples.*``), in this process at their own
+    settings."""
+    from repro_torch.examples import heterogeneous_clients, quickstart
+
+    t0 = time.perf_counter()
+    launches = {"quickstart": _example_cnn("quickstart", quickstart)}
+    _free()
+    launches["heterogeneous_clients"] = _example_cnn("heterogeneous_clients", heterogeneous_clients)
+    _free()
+    launches["serve_decode"] = _example_serve()
+    _free()
+    print(f"examples phase (5j, {card}): {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def _telemetry_flags(tmp, stem, profile=True):
     flags = ["--metrics-out", f"{tmp}/{stem}.jsonl", "--trace-out", f"{tmp}/{stem}.json"]
     return flags + (["--profile-dir", f"{tmp}/{stem}_prof"] if profile else [])
@@ -3873,6 +4024,7 @@ def main() -> None:
     phase("5g", modality_path, card)
     phase("5h", mesh_path, card)
     mesh_counts, mesh_route = phase("5i", fleet_path, card)
+    example_counts = phase("5j", examples_path, card)
     phase("5b", telemetry_path, {n: counts[n] for n in LOSS_KERNELS}, serving, serve_stats)
     counts.update(serving)
     train_counts, train_result = phase("6", lm_training_path)
@@ -3885,7 +4037,9 @@ def main() -> None:
     print(f"phase seconds: {json.dumps(seconds)}; total {sum(seconds.values()):.1f}", flush=True)
     print("kernels: " + json.dumps({
         n: {"launches": counts[n], "max_abs_err": errs[n],
-            **({"launches_on_the_mesh": mesh_counts[n]} if n in mesh_counts else {})}
+            **({"launches_on_the_mesh": mesh_counts[n]} if n in mesh_counts else {}),
+            **({"launches_in_the_examples": {ex: c[n] for ex, c in example_counts.items() if n in c}}
+               if any(n in c for c in example_counts.values()) else {})}
         for n in REPLACES
     }) + f"; phase 5i local_map calls {json.dumps(mesh_route)}")
     table = [

@@ -11,3 +11,16 @@ from repro_torch.configs import (  # noqa: F401
     smollm_135m,
     xlstm_125m,
 )
+
+ASSIGNED_ARCHS = [
+    "qwen3-moe-235b-a22b",
+    "mixtral-8x7b",
+    "xlstm-125m",
+    "hubert-xlarge",
+    "smollm-135m",
+    "phi-3-vision-4.2b",
+    "qwen3-32b",
+    "granite-3-2b",
+    "internlm2-20b",
+    "jamba-v0.1-52b",
+]

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.train import OFLConfig
-from repro_torch.core.buffer import buffer_init
+from repro_torch.core.buffer import buffer_as_lists, buffer_init
 from repro_torch.core.coboosting import OFLState, init_synth_buffer
 from repro_torch.core.client_bank import make_ensemble
 from repro_torch.core.ensemble import ensemble_logits, uniform_weights
@@ -138,7 +138,7 @@ def run_generator_baseline(
     gen_opt_state = gen_opt.init(gen_params)
     srv_opt_state = srv_opt.init(server_params)
     buf = init_synth_buffer(gen_apply, gen_params, cfg, device)
-    state = OFLState(server_params, gen_params, w, [])
+    state = OFLState(server_params, gen_params, w, [], [], [])
     srv_steps = 0
     for epoch in range(cfg.epochs):
         slot_order, n_valid = distill_schedule(epoch, cfg.buffer_batches)
@@ -149,12 +149,14 @@ def run_generator_baseline(
             state.server_params, srv_opt_state, state.gen_params, gen_opt_state,
             w, buf, draws, srv_steps, slot_order, n_valid, client_params,
         )
+        state.dispatch_count += 1
         if _should_eval(eval_fn, epoch, cfg, eval_every):
             metrics = eval_fn(state.server_params, w)
             metrics.update(epoch=epoch, gen_loss=float(gloss), distill_loss=float(dmean))
             state.history.append(metrics)
             _log_metrics(method, epoch, metrics)
     state.buffer = buf
+    state.buffer_x, state.buffer_y = buffer_as_lists(buf)
     return state
 
 
@@ -186,19 +188,21 @@ def run_adi_baseline(
     epoch_step, srv_opt = make_adi_epoch(logits_all_fn, server_apply, image_shape, cfg, num_classes, inv_loss)
     srv_opt_state = srv_opt.init(server_params)
     buf = buffer_init(cfg.buffer_batches, (cfg.batch_size, *image_shape), device=device)
-    state = OFLState(server_params, None, w, [])
+    state = OFLState(server_params, None, w, [], [], [])
     srv_steps = 0
     for epoch in range(cfg.epochs):
         slot_order, n_valid = distill_schedule(epoch, cfg.buffer_batches)
         state.server_params, srv_opt_state, buf, srv_steps, _ = epoch_step(
             state.server_params, srv_opt_state, w, buf, draws, srv_steps, slot_order, n_valid, client_params,
         )
+        state.dispatch_count += 1
         if _should_eval(eval_fn, epoch, cfg, eval_every):
             metrics = eval_fn(state.server_params, w)
             metrics["epoch"] = epoch
             state.history.append(metrics)
             _log_metrics("f_adi", epoch, metrics)
     state.buffer = buf
+    state.buffer_x, state.buffer_y = buffer_as_lists(buf)
     return state
 
 
@@ -230,13 +234,14 @@ def run_feddf(
     srv_opt_state = srv_opt.init(server_params)
     val = torch.as_tensor(val_x[: nb * cfg.batch_size], dtype=torch.float32, device=device)
     val_batches = val.reshape(nb, cfg.batch_size, *val.shape[1:])
-    state = OFLState(server_params, None, w, [])
+    state = OFLState(server_params, None, w, [], [], [])
     srv_steps = 0
     for epoch in range(cfg.epochs):
         order = np.random.RandomState(epoch).permutation(nb)
         state.server_params, srv_opt_state, srv_steps, _ = epoch_step(
             state.server_params, srv_opt_state, srv_steps, order, val_batches, w, client_params
         )
+        state.dispatch_count += 1
         if _should_eval(eval_fn, epoch, cfg, eval_every):
             metrics = eval_fn(state.server_params, w)
             metrics["epoch"] = epoch

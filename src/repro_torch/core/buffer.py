@@ -10,7 +10,7 @@ host integers: the epoch loop runs on the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -53,3 +53,16 @@ def buffer_append(buf: ReplayBuffer, x: torch.Tensor, y: torch.Tensor) -> Replay
 def buffer_get(buf: ReplayBuffer, slot: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Read one physical slot."""
     return buf.x[slot], buf.y[slot]
+
+
+def logical_to_slot(i, ptr, size, capacity: int):
+    """Physical slot of logical (oldest-first) index ``i``; ints or
+    tensors."""
+    return (ptr - size + i) % capacity
+
+
+def buffer_as_lists(buf: ReplayBuffer) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Oldest-first lists of the valid batches (views of the ring), the
+    ``OFLState.buffer_x``/``buffer_y`` view."""
+    slots = [logical_to_slot(i, buf.ptr, buf.size, buf.capacity) for i in range(buf.size)]
+    return [buf.x[s] for s in slots], [buf.y[s] for s in slots]

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.config.train import OFLConfig
-from repro_torch.core.buffer import ReplayBuffer, buffer_init
+from repro_torch.core.buffer import ReplayBuffer, buffer_as_lists, buffer_init
 from repro_torch.core.client_bank import make_ensemble
 from repro_torch.core.ensemble import uniform_weights
 from repro_torch.core.epoch import distill_schedule, make_coboost_epoch
@@ -45,8 +45,11 @@ class OFLState:
     server_params: Any
     gen_params: Any
     weights: torch.Tensor
+    buffer_x: List[torch.Tensor]  # the ring's batches oldest first, filled at the end of a run
+    buffer_y: List[torch.Tensor]
     history: List[Dict[str, float]]
     buffer: Optional[ReplayBuffer] = None
+    dispatch_count: int = 0  # calls of the epoch function, one an epoch
 
 
 def init_synth_buffer(gen_apply: Callable, gen_params: Any, cfg: OFLConfig, device=None) -> ReplayBuffer:
@@ -71,9 +74,12 @@ def run_coboosting(
     draws,
     eval_fn: Optional[Callable] = None,
     eval_every: int = 50,
+    init_weights: Optional[torch.Tensor] = None,
 ) -> OFLState:
     """Algorithm 1. ``draws`` is the epoch's draw seam
     (:class:`repro_torch.utils.prng.Draws`); the run uses its device.
+    ``init_weights`` (K,) starts the ensembling weights in place of the
+    uniform ones (``data_amount_weights(sizes)``, say).
     ``eval_fn(server_params, w) -> dict`` is called every ``eval_every``
     epochs and after the last one for history logging. The client ensemble
     is ``cfg.ensemble_impl``'s (:func:`repro_torch.core.client_bank.make_ensemble`)."""
@@ -82,14 +88,17 @@ def run_coboosting(
     logits_all_fn, client_params = make_ensemble(
         client_applies, client_params, impl=cfg.ensemble_impl, scan_chunk=cfg.ensemble_scan_chunk
     )
-    w = uniform_weights(n, device)
+    if init_weights is None:
+        w = uniform_weights(n, device)
+    else:
+        w = torch.as_tensor(init_weights, dtype=torch.float32, device=device)
     epoch_step, gen_opt, srv_opt = make_coboost_epoch(
         logits_all_fn, server_apply, gen_apply, cfg, n, num_classes
     )
     gen_opt_state = gen_opt.init(gen_params)
     srv_opt_state = srv_opt.init(server_params)
     buf = init_synth_buffer(gen_apply, gen_params, cfg, device)
-    state = OFLState(server_params, gen_params, w, [])
+    state = OFLState(server_params, gen_params, w, [], [], [])
     srv_steps = 0
     t0, t_eval = time.perf_counter(), 0.0
     for epoch in range(cfg.epochs):
@@ -106,6 +115,7 @@ def run_coboosting(
                 state.server_params, srv_opt_state, state.gen_params, gen_opt_state,
                 state.weights, buf, draws, srv_steps, slot_order, n_valid, client_params,
             )
+        state.dispatch_count += 1
         obs.observe("ofl.epoch.step_s", time.perf_counter() - t_step, driver="fused")
         obs.inc("ofl.epoch.count")
         # one a call of the epoch function, as the reference's fused driver
@@ -132,6 +142,7 @@ def run_coboosting(
                 {k: round(v, 4) for k, v in metrics.items() if isinstance(v, float)},
             )
     state.buffer = buf
+    state.buffer_x, state.buffer_y = buffer_as_lists(buf)
     return state
 
 

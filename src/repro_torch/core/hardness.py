@@ -2,13 +2,21 @@
 
 Both terms run through the fused loss ops, so neither pass materializes
 A_w on the kernel backends: L_H through ``ghm_ce`` with the difficulty
-weight held constant (GHM usage), L_A through ``ensemble_kl``.
+weight held constant (GHM usage), L_A through ``ensemble_kl``. The kernels
+compute the difficulty of Eq. 5 themselves; :func:`sample_difficulty` is
+the plain function, for callers that hold logits.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ensemble_kl, ghm_ce
+
+
+def sample_difficulty(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """d(x, f) = 1 − σ(f(x))_y (Eq. 5), in f32. logits: (B, C); labels: (B,)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    return 1.0 - torch.gather(probs, 1, labels.long()[:, None])[:, 0]
 
 
 def ghs_loss(logits_all, w, labels, use_ghs: bool = True, backend: str = "auto") -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Deterministic synthetic data (the port's copies of
-``repro.data.synthetic.make_synth_images`` and ``make_token_stream``).
+``repro.data.synthetic``).
 
 *SynthDigits*: a class-separable image distribution where each class is a
 distinct oriented grating + color blob, perturbed per sample by shifts and
@@ -73,4 +73,17 @@ def make_token_stream(
     return {
         "tokens": tokens[:, :-1].astype(np.int32),
         "labels": tokens[:, 1:].astype(np.int32),
+    }
+
+
+def make_lm_distill_batch(
+    seed: int, batch: int, seq_len: int, d_model: int, vocab: int
+) -> Dict[str, np.ndarray]:
+    """Embedding-space synthetic batch for the LM-scale distillation path:
+    embeds (B, S, d) + target-token labels (B,) for the EE weight search.
+    Pure numpy, bitwise equal to the reference for the same seed."""
+    rng = np.random.RandomState(seed)
+    return {
+        "embeds": rng.randn(batch, seq_len, d_model).astype(np.float32) * 0.02,
+        "targets": rng.randint(0, vocab, size=(batch,)).astype(np.int32),
     }

@@ -61,6 +61,11 @@ def max_pool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
     return F.max_pool2d(x, k)
 
 
+def avg_pool_global(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the spatial axes of NHWC ``x``: (B, H, W, C) -> (B, C)."""
+    return x.mean(dim=(1, 2))
+
+
 def group_norm(x, scale, bias, groups=8, eps=1e-5):
     b, c, h, w = x.shape
     g = min(groups, c)
@@ -225,3 +230,14 @@ def cnn_apply(arch: str, params: Dict, x: torch.Tensor) -> torch.Tensor:
     _, apply = _ARCHS[arch]
     return apply(params, x)
 
+
+def make_cnn(arch: str, num_classes: int, in_shape: Tuple[int, int, int]):
+    """Returns (init_fn(generator, device=None) -> params, apply_fn(params,
+    images) -> logits); the reference's init takes a key where this one
+    takes a ``torch.Generator``."""
+    _, apply = _ARCHS[arch]
+
+    def init(gen: torch.Generator, device=None) -> Dict:
+        return init_cnn(gen, arch, num_classes, in_shape, device)
+
+    return init, apply

@@ -41,6 +41,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (x * (1.0 + scale.float())).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm (biased variance) with the ``1 + scale`` affine and a bias,
+    computed in f32."""
+    dtype = x.dtype
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt((x - mean).square().mean(-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float()) + bias.float()).to(dtype)
+
+
 @functools.lru_cache(maxsize=16)
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     """The rotary frequencies (computed once per head dim, theta, device)."""

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.config.train import TrainConfig
 from repro_torch.optim.schedules import Schedule, make_schedule
-from repro_torch.utils.trees import tree_leaves, tree_map
+from repro_torch.utils.trees import tree_l2_norm, tree_map
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -40,7 +40,7 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> Any:
     over all leaves, in f32). Stays on the device: no host read."""
     if max_norm <= 0:
         return grads
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    gnorm = tree_l2_norm(grads)
     scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
     # as in the reference, a gradient below f32 is promoted by the f32 scale
     return tree_map(lambda g: g.to(torch.promote_types(g.dtype, torch.float32)) * scale, grads)

@@ -4,11 +4,14 @@ Params in the port are nested ``dict``s of tensors, as in the JAX package
 (the LM keeps a ``list`` of per-layer dicts, which the maps walk too);
 non-tensor leaves (``"stride"`` in a residual block) stay plain Python
 values and pass through every map untouched. Paths are "/"-joined key
-strings (e.g. ``"b2/c1"``).
+strings (e.g. ``"b2/c1"``), a list index standing as its number; the path
+walks (:func:`tree_paths`, :func:`iter_leaves_with_path`) visit a dict's
+keys sorted and count every leaf, tensor or not, as JAX flattens a pytree,
+so their paths and order are the reference's.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -70,6 +73,74 @@ def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
     if torch.is_tensor(tree):
         return fn(tree, *rest)
     return tree
+
+
+def tree_map_with_path(fn: Callable[[str, torch.Tensor], Any], tree: Any) -> Any:
+    """Map ``fn(path_str, leaf)`` over the tensor leaves of ``tree``;
+    non-tensor leaves are kept as they are."""
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            return {k: walk(_join(prefix, k), v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(_join(prefix, i), v) for i, v in enumerate(node)]
+        return fn(prefix, node) if torch.is_tensor(node) else node
+
+    return walk("", tree)
+
+
+def _join(prefix: str, key) -> str:
+    return f"{prefix}/{key}" if prefix else str(key)
+
+
+def iter_leaves_with_path(tree: Any) -> Iterator[Tuple[str, Any]]:
+    """``(path_str, leaf)`` for every leaf (``None`` is no leaf, as in JAX),
+    a dict's keys in sorted order."""
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from walk(_join(prefix, k), node[k])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                yield from walk(_join(prefix, i), v)
+        elif node is not None:
+            yield prefix, node
+
+    return walk("", tree)
+
+
+def tree_paths(tree: Any) -> List[str]:
+    """The "/"-joined path of every leaf, in the reference's order."""
+    return [p for p, _ in iter_leaves_with_path(tree)]
+
+
+def tree_index(tree: Any, i) -> Any:
+    """Index every tensor leaf's axis 0."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def tree_zeros_like(tree: Any) -> Any:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_cast(tree: Any, dtype) -> Any:
+    """Cast the floating-point tensor leaves to ``dtype``; integer leaves
+    stay."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree: Any, s) -> Any:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_l2_norm(tree: Any) -> torch.Tensor:
+    """The global L2 norm over the tensor leaves, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
 
 
 def tree_stack(trees: List[Any]) -> Any:
