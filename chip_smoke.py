@@ -44,7 +44,12 @@ result line):
    at 4 × 500 frames and a ragged 37, phi-3-vision-4.2b (32 over 32, hd
    96, causal) at its prefill of 8 × (576 + 128), the forward and both
    backward passes, and decode at both head dims in f32 and bf16, each
-   timed in bf16 beside SDPA.
+   timed in bf16 beside SDPA. Both also at the local heads each of four
+   cards gives them under ``scripts/mesh_cards.py`` (H/4 over KH/4:
+   granite 8/2 at hd 64, qwen3-32b 16/2, internlm2 12/2, mixtral with its
+   window and jamba 8/2, qwen3-moe 16/1 at hd 128, phi 8/8 at hd 96): the
+   forward at 4 × 128 tokens and decode at 4 slots of (128 + 32), each
+   once and again with the same bits.
    ``flash_decode`` (the split kernel and its combine) also at ragged
    positions from 0 to the last slot, at hd 128 with one query head per kv
    head, and with a table far wider than the live pages; a second call
@@ -479,6 +484,12 @@ BANK_TURNS = ("looped", "grouped", "grouped", "looped")
 ARCH_HEADS = {"granite-3-2b": (32, 8, 64), "internlm2-20b": (48, 8, 128), "qwen3-32b": (64, 8, 128),
               "mixtral-8x7b": (32, 8, 128), "qwen3-moe-235b-a22b": (64, 4, 128)}
 ARCH_WINDOW = {"mixtral-8x7b": 4096}
+# the shapes #5 and #8 take on each of four cards under scripts/mesh_cards.py
+# (model = 4): each arch's H/4 query heads over KH/4 kv heads, a prefill
+# wave of 4 x 128 and 4 slots of (128 + 32) in pages of 16
+MESH4 = dict(cards=4, slots=4, prompt=128, gen=32, page=16,
+             archs=("granite-3-2b", "qwen3-32b", "internlm2-20b", "mixtral-8x7b", "qwen3-moe-235b-a22b",
+                    "jamba-v0.1-52b", "phi-3-vision-4.2b"))
 # serving: smollm-135m at full width
 SERVE = dict(requests=16, prompt=128, gen=64, slots=8, page=16)
 SERVE_ARGV = [
@@ -1036,6 +1047,18 @@ def attention_kernels_vs_plain():
     # #8 at hd 80 and 96: no path launches it (hubert has no decode, phi's static path decodes densely)
     ] + [(f"{a} heads decode", (SERVE["slots"], *m["shape"][3:], SERVE["page"], w_pages, 0, ragged))
          for a, m in MODALITY_ATTN.items()]
+    # the four-card local heads: each once, and a second call with the same bits
+    from repro_torch.config.registry import get_arch
+
+    m4, w4 = MESH4, (MESH4["prompt"] + MESH4["gen"]) // MESH4["page"]
+    ragged4 = [i * (w4 * m4["page"] - 1) // (m4["slots"] - 1) for i in range(m4["slots"])]
+    local = {a: (cfg.num_heads // m4["cards"], cfg.num_kv_heads // m4["cards"], cfg.head_dim)
+             for a, cfg in ((a, get_arch(a)) for a in m4["archs"])}
+    attn_cases += [(f"{a} 4-card heads", (m4["slots"], m4["prompt"], m4["prompt"], *heads),
+                    dict(causal=True, window=ARCH_WINDOW.get(a, 0))) for a, heads in local.items()]
+    decode_cases += [(f"{a} 4-card heads decode",
+                      (m4["slots"], *heads, m4["page"], w4, ARCH_WINDOW.get(a, 0), ragged4))
+                     for a, heads in local.items()]
     decode_timed = {"smollm decode": "decode", **{f"{a} decode": f"{a} decode" for a in ARCH_HEADS},
                     **{f"{a} heads decode": f"{a} heads decode" for a in MODALITY_ATTN}}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1057,6 +1080,9 @@ def attention_kernels_vs_plain():
                     fail(f"flash_attention_fwd {tag} {dname} variant {variant}: launched {launch_counts()}")
                 label = f"{name} {tag} {dname}"
                 errs[name] = max(errs[name], _err(label + " out", out, want_o), _lse_err(label + " lse", lse, want_lse))
+                if "4-card" in tag and not all(torch.equal(a, b) for a, b in
+                                               zip(flash_attention_fwd(q, k, v, variant=variant, **kw), (out, lse))):
+                    fail(f"{label}: a second call gave other bits")
             if tag not in timed or (dtype == torch.float32 and tag != "smollm prefill"):
                 continue
             bound, bound_by = bound_ms(*attention_fwd_work(*shape, q.element_size(), kw["causal"]), peak)

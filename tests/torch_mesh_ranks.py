@@ -51,7 +51,7 @@ def ragged_cfg(case):
     return port_cfg(name).replace(**kw)
 
 
-def _shards_match_specs(params, mesh) -> bool:
+def shards_match_specs(params, mesh) -> bool:
     """Every leaf is a DTensor on ``mesh`` whose local shard has the shape
     its inferred spec gives."""
     from torch.distributed.tensor import DTensor
@@ -157,7 +157,7 @@ def rank_main(rank: int, tmp: str) -> None:
                     continue
                 tokens, eng = _serve(cfg, params, prompts, mesh=mesh, kv_layout=layout)
                 out["engine"][name, layout, mname] = tokens
-                out["shards"][name, layout, mname] = _shards_match_specs(eng.params, mesh)
+                out["shards"][name, layout, mname] = shards_match_specs(eng.params, mesh)
         drafter = (cfg, inp["drafter"][name])
         out["spec"][name] = _serve(cfg, params, prompts, mesh=model4, drafter=drafter, spec_k=2)[0]
         # the static generator (launch.serve --engine static) on the same mesh
@@ -180,7 +180,7 @@ def rank_main(rank: int, tmp: str) -> None:
             with mesh_context(pair):
                 placed = shard_lm_state(state)
             out["lm_state"][arch] = tuple(placed["k"].placements)
-        out["shards"][arch] = _shards_match_specs(sharded, pair)
+        out["shards"][arch] = shards_match_specs(sharded, pair)
     # (e) a prefill and the loss's gradients where the split cuts an expert's
     # width or a head, on the (2, 2) mesh
     batch = {k: torch.from_numpy(v) for k, v in inp["ragged_batch"].items()}
@@ -201,7 +201,7 @@ def rank_main(rank: int, tmp: str) -> None:
             "prefill": (plain.numpy(), whole(logits).numpy()),
             "loss": (float(loss0), float(whole(loss1))),
             "grads": (g0, tree_map(whole, g1)),
-            "shards": _shards_match_specs(sharded, grid),
+            "shards": shards_match_specs(sharded, grid),
         }
     # (f) the LM distillation loss (Eq. 4) and its gradients on the (2, 2)
     # mesh, whole and chunked: the KL over the vocabulary split
@@ -236,7 +236,7 @@ def rank_main(rank: int, tmp: str) -> None:
     out["train"] = {
         "losses": losses,
         "params": [(a.numpy(), b.full_tensor().numpy()) for a, b in zip(tree_leaves(p0), tree_leaves(p1))],
-        "shards": _shards_match_specs(p1, grid) and _shards_match_specs(o1["m"], grid),
+        "shards": shards_match_specs(p1, grid) and shards_match_specs(o1["m"], grid),
     }
     out["local_map"] = dict(LOCAL_MAP_CALLS)
     with open(f"{tmp}/out{rank}.pkl", "wb") as f:
